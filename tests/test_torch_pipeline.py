@@ -1,0 +1,241 @@
+"""The port's fit, end to end, against the JAX fit on the slice config
+MultiHConfig(knn_window=False, knn_approx=False) at a small size.
+
+The port's fit takes a draw source that replays the JAX fit's own
+threefry draws (following fit's key splits: pipeline.py:1174, :326,
+:175; sampling.py:35, :79, :117), so both fits see the same minimal
+samples. One JAX compile serves both scene seeds.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import multih_tpu
+from multih_tpu.models import pipeline as jpipe
+
+import multih_tpu_torch as mt
+from multih_tpu_torch.models import pipeline as tpipe
+from multih_tpu_torch.ops import geometry as tgeo
+from multih_tpu_torch.utils import data as tdata
+from multih_tpu_torch.utils import evaluation
+from test_torch_ops import KeyDraws
+
+SLICE = dict(max_points=256, agree_block=128, n_hypotheses=512,
+             n_candidates=64, max_labels=8, knn_window=False,
+             knn_approx=False)
+SEEDS = (5, 7)
+
+
+class JaxReplayDraws(KeyDraws):
+    """Draw source for the port's fit that replays `multih_tpu.fit`'s
+    draws for `key`: `stream` is the progressive round, whose JAX key
+    splits into the uniform half's key and the localized half's."""
+
+    def __init__(self, key, rounds):
+        _, k_gen, _ = jax.random.split(key, 3)
+        self.round_keys = jax.random.split(k_gen, rounds)
+
+    def keys(self, stream):
+        k_u, k_l = jax.random.split(self.round_keys[stream])
+        return k_u, k_l
+
+
+@pytest.fixture(scope="module")
+def fits():
+    """(JAX result, port result, scene) per seed, one JAX compile."""
+    jcfg = multih_tpu.MultiHConfig(**SLICE)
+    tcfg = mt.MultiHConfig.from_dict(dataclasses.asdict(jcfg))
+    jf = multih_tpu.make_fit(jcfg)
+    out = {}
+    for seed in SEEDS:
+        cs, _ = tdata.synthetic_scene(200, 3, 0.1, 0.3, seed=seed)
+        x1, x2, valid = mt.pad_points(cs.x1, cs.x2, None, 256)
+        key = jax.random.key(seed)
+        jr = jax.device_get(jf(x1, x2, valid, key))
+        tr = mt.fit(x1, x2, valid,
+                    JaxReplayDraws(key, jcfg.progressive_rounds), tcfg)
+        out[seed] = (jr, tr, cs)
+    return out
+
+
+def _matched_planes(jr, tr, k):
+    """Port plane id -> JAX plane id by Hungarian label matching."""
+    mapping = evaluation.match_labels(tr.labels.numpy(),
+                                      np.asarray(jr.labels), k, k)
+    return {p: q for p, q in mapping.items() if p != k and q != k}
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+class TestSliceMatchesReference:
+    def test_plane_count(self, fits, seed):
+        jr, tr, _ = fits[seed]
+        assert int(tr.active.sum()) == int(np.asarray(jr.active).sum()) > 0
+
+    def test_label_agreement(self, fits, seed):
+        jr, tr, cs = fits[seed]
+        agree = 100.0 - evaluation.misclassification_error(
+            tr.labels.numpy(), np.asarray(jr.labels), 8, gt_outlier=8)
+        assert agree >= 99.0, agree
+        # and both recover the scene
+        gt = np.pad(cs.gt_labels, (0, 56), constant_values=-1)
+        assert evaluation.misclassification_error(
+            tr.labels.numpy(), gt, 8) < 5.0
+
+    def test_homographies(self, fits, seed):
+        """Matched planes within 2e-3 max-abs (Frobenius-normalized,
+        h33 >= 0), not the 1e-3 first planned: labels and counts agree
+        exactly, and the stage that diverges is the float32 moment refit
+        (test_refit_float32_floor) — every refit of either package is
+        5e-4 to 8e-4 from float64, and ~30 refits of the same members
+        (LO + PEARL) drift the two fixed points up to 1.006e-3 apart
+        (seed 5; 0.07 px of transfer at the scene's points)."""
+        jr, tr, _ = fits[seed]
+        pairs = _matched_planes(jr, tr, 8)
+        assert len(pairs) == int(tr.active.sum())
+        jh = np.asarray(jr.homographies)
+        th = tr.homographies.numpy()
+        for p, q in pairs.items():
+            assert np.abs(th[p] - jh[q]).max() < 2e-3, (p, q)
+
+    def test_energy(self, fits, seed):
+        jr, tr, _ = fits[seed]
+        np.testing.assert_allclose(float(tr.energy), float(jr.energy),
+                                   rtol=1e-3)
+        assert tr.energy_trace.shape == (8,)
+
+    def test_counters(self, fits, seed):
+        jr, tr, _ = fits[seed]
+        assert float(tr.n_hypotheses_ok) == float(jr.n_hypotheses_ok)
+        assert int(tr.n_far_dropped) == int(jr.n_far_dropped) == 0
+        js = np.asarray(jr.support)
+        for p, q in _matched_planes(jr, tr, 8).items():
+            assert abs(float(tr.support[p]) - js[q]) <= 2.0
+
+
+@pytest.fixture(scope="module")
+def stress_shaped_fits():
+    """The stress config's code paths at a small size (bench.py
+    _stress_cfg with the slice's changes): two progressive rounds of 4
+    claims, a 4x-subsampled verify pre-pass with a transfer ranking
+    residual and a full-resolution rescore, 5 PEARL iterations."""
+    kw = dict(max_points=512, n_hypotheses=1024, residual_chunk=256,
+              progressive_rounds=2, claims_per_round=4, verify_subsample=4,
+              claim_subsample=4, pearl_iterations=5,
+              rank_residual="transfer", agree_block=128,
+              meanfield_iterations=4, icm_iterations=1, n_candidates=64,
+              max_labels=8, knn_window=False, knn_approx=False)
+    jcfg = multih_tpu.MultiHConfig(**kw)
+    tcfg = mt.MultiHConfig.from_dict(dataclasses.asdict(jcfg))
+    jf = multih_tpu.make_fit(jcfg)
+    out = {}
+    for seed in (11, 12):
+        cs, _ = tdata.synthetic_scene(480, 6, 0.5, 0.5, seed=seed)
+        x1, x2, valid, gt = mt.pad_points(cs.x1, cs.x2, cs.gt_labels, 512)
+        key = jax.random.key(seed)
+        jr = jax.device_get(jf(x1, x2, valid, key))
+        tr = mt.fit(x1, x2, valid, JaxReplayDraws(key, 2), tcfg)
+        out[seed] = (jr, tr, gt)
+    return out
+
+
+@pytest.mark.parametrize("seed", (11, 12))
+def test_stress_shaped_slice(stress_shaped_fits, seed):
+    jr, tr, gt = stress_shaped_fits[seed]
+    assert int(tr.active.sum()) == int(np.asarray(jr.active).sum()) == 6
+    agree = 100.0 - evaluation.misclassification_error(
+        tr.labels.numpy(), np.asarray(jr.labels), 8, gt_outlier=8)
+    assert agree >= 99.0, agree
+    assert float(tr.n_hypotheses_ok) == float(jr.n_hypotheses_ok)
+    np.testing.assert_allclose(float(tr.energy), float(jr.energy),
+                               rtol=1e-3)
+    assert evaluation.misclassification_error(tr.labels.numpy(), gt,
+                                              8) < 3.0
+
+
+def test_refit_float32_floor():
+    """The stage where the two fits part: one moment refit of the GT
+    members. Each float32 package is only 5e-4 to 8e-4 from the float64
+    refit (normal equations square the condition number), so matched
+    homographies can drift apart by that much per refit."""
+    from multih_tpu.ops import geometry as jgeo
+
+    cs, _ = tdata.synthetic_scene(200, 3, 0.1, 0.3, seed=5)
+    w = np.stack([(cs.gt_labels == p).astype(np.float32)
+                  for p in (1, 2, 3)])
+    tb = tgeo.prepare_refit(torch.from_numpy(cs.x1), torch.from_numpy(cs.x2))
+    th = tgeo.homography_refit_batch(torch.from_numpy(w), tb, "eigh").numpy()
+    jb = jgeo.prepare_refit(jnp.asarray(cs.x1), jnp.asarray(cs.x2))
+    jh = np.asarray(jgeo.homography_refit_batch(jnp.asarray(w), jb, "eigh"))
+    b64 = tgeo.prepare_refit(torch.from_numpy(cs.x1).double(),
+                             torch.from_numpy(cs.x2).double())
+    h64 = tgeo.homography_refit_batch(torch.from_numpy(w).double(), b64,
+                                      "eigh").numpy()
+    for h in (th, jh):
+        assert 1e-5 < np.abs(h - h64).max() < 1e-3
+    assert np.abs(th - jh).max() < 1e-3
+
+
+def test_stage_inputs_match(fits):
+    """The stages before the refits agree exactly on seed 5's scene:
+    the Morton order and both k-NN graphs (spatial and sampling)."""
+    from multih_tpu.models import labeling as jlab
+    from multih_tpu_torch.models import labeling as tlab
+
+    _, _, cs = fits[5]
+    x1, x2, valid = mt.pad_points(cs.x1, cs.x2, None, 256)
+    jperm = np.asarray(jpipe.morton_order(jnp.asarray(x1), jnp.asarray(valid)))
+    tperm = tpipe.morton_order(torch.from_numpy(x1), torch.from_numpy(valid))
+    np.testing.assert_array_equal(tperm.numpy(), jperm)
+    x1, x2, valid = x1[jperm], x2[jperm], valid[jperm]
+    feat = np.concatenate([x1, 2.0 * (x2 - x1)], axis=1)
+    for f in (x1, feat):
+        ji, jw = jlab.knn_graph(jnp.asarray(f), jnp.asarray(valid), 6)
+        ti, tw = tlab.knn_graph(torch.from_numpy(f), torch.from_numpy(valid), 6)
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+        np.testing.assert_array_equal(tw.numpy(), np.asarray(jw))
+
+
+@pytest.mark.parametrize("n_pts,expect", [
+    (256, "row_blocked"), (200, "row_blocked"), (512, "row_blocked"),
+])
+def test_gates_match_reference(n_pts, expect):
+    for kw in (dict(knn_window=False, knn_approx=False),
+               dict(knn_window=False), dict(), dict(agree_block=0)):
+        jcfg = multih_tpu.MultiHConfig(**kw)
+        tcfg = mt.MultiHConfig.from_dict(dataclasses.asdict(jcfg))
+        assert tpipe.graph_path(tcfg, n_pts) == jpipe.graph_path(jcfg, n_pts)
+        assert tpipe.banded_gate(tcfg, n_pts) == jpipe.banded_gate(jcfg,
+                                                                   n_pts)
+    cfg = mt.MultiHConfig(knn_window=False, knn_approx=False)
+    assert tpipe.graph_path(cfg, n_pts) == expect
+    assert not tpipe._kernels_enabled(cfg, torch.device("cpu"))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(model="fundamental"),
+    dict(),                                # windowed graph (default)
+    dict(knn_window=False, window_sampling=True),
+    dict(knn_window=False, mrf_fused_front=True),
+    dict(knn_window=False, refit_moments=False),
+    dict(knn_window=False, agree_block=0),  # gather-path labeling
+], ids=["fundamental", "windowed", "window_sampling", "fused_front",
+        "direct_refit", "gather_labeling"])
+def test_out_of_slice_raises(kw):
+    cfg = mt.MultiHConfig(max_points=512, **kw)
+    z = torch.zeros((512, 2))
+    with pytest.raises(NotImplementedError):
+        mt.fit(z, z, torch.ones(512), torch.Generator(), cfg)
+
+
+def test_out_of_slice_arguments_raise():
+    cfg = mt.MultiHConfig(max_points=512, knn_window=False)
+    z = torch.zeros((512, 2))
+    for kw in (dict(affines=torch.zeros((512, 2, 2))),
+               dict(seed_Hs=torch.zeros((2, 3, 3))), dict(mesh=object())):
+        with pytest.raises(NotImplementedError):
+            mt.fit(z, z, torch.ones(512), torch.Generator(), cfg, **kw)
