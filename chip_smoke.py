@@ -4,24 +4,32 @@
 Run from the repository root on a host with a CUDA card and the CUDA
 toolkit:
 
-    python3 chip_smoke.py             # every phase, one card
-    python3 chip_smoke.py --profile   # also torch.profiler breakdowns of
-                                      # the N=512 and the stress fits
+    python3 chip_smoke.py            # every phase, one card
+    python3 chip_smoke.py --profile  # also torch.profiler breakdowns of
+                                     # the N=512 and stress fits
 
 Phases, each raising on failure:
   1. environment: torch / CUDA / nvcc / triton, the card's name and power
      limit, TF32 off;
-  2. build: nvcc compiles multih_tpu_torch/csrc/*.cu (build seconds and
-     the ptxas register / spill report);
+  2. build: nvcc compiles multih_tpu_torch/csrc/*.cu, one process per
+     source (build seconds and the ptxas register / spill report);
   3. kernel parity: every kernel against its plain PyTorch version on the
-     card at the main path's shapes, with kernel and plain times (median
-     of CUDA-event timings);
-  4. the slice config MultiHConfig(knn_window=False, knn_approx=False)
-     end to end: BASELINE config 2 (exact recovery) and three golden
-     scenes, with the kernels' launch counts over these fits, the card
-     fit against the CPU fit, and the warm fit latency at N=512;
-  5. the stress size (10k points, 70% outliers, 8 planes, 102400
-     hypotheses).
+     card at the main paths' shapes, with kernel, plain and (where one
+     PyTorch call computes the same function) library times, medians of
+     CUDA-event timings, beside each kernel's bound: the larger of its
+     bytes (inputs read once, outputs written once) at 3.35 TB/s and its
+     operations at 67 TFLOP/s fp32, counted from this run's inputs;
+  4. the fit end to end, each path with the launch counts set to 0 just
+     before it and read just after: the side config MultiHConfig(
+     knn_window=False, knn_approx=False) on BASELINE config 2 (K1-K3);
+     then the default config MultiHConfig() on BASELINE config 2 (exact
+     recovery) and three golden scenes (K1-K5), the card fit against the
+     CPU fit, and the warm fit latency at N=512;
+  5. the stress fit at bench.py::_stress_cfg(10240, 102400,
+     n_candidates=256, max_labels=16)'s settings (window sampling, the
+     windowed graph; 10k points, 70% outliers, 8 planes), with all six
+     kernels launched; then the same scene once at the side config
+     (row-blocked exact graph past N=4096, band with far edges; K1-K3).
 Then one JSON line of per-kernel results, the card line, and the last
 line {"ok": true, "device": {...}}. Without a CUDA device, or outside
 the repository, it exits nonzero and prints no result.
@@ -30,6 +38,7 @@ the repository, it exits nonzero and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -51,7 +60,27 @@ KERNELS = {
     "eig9_smallest": dict(
         source="multih_tpu_torch/csrc/eig_kernel.cu",
         replaces="multih_tpu/ops/kernels/eig_kernel.py:118"),
+    "mean_field_fused": dict(
+        source="multih_tpu_torch/csrc/mrf_kernel.cu",
+        replaces="multih_tpu/ops/kernels/mrf_kernel.py:118"),
+    "icm_fused": dict(
+        source="multih_tpu_torch/csrc/mrf_kernel.cu",
+        replaces="multih_tpu/ops/kernels/mrf_kernel.py:408"),
+    "window_gather": dict(
+        source="multih_tpu_torch/csrc/gather_kernel.cu",
+        replaces="multih_tpu/ops/kernels/gather_kernel.py:94"),
 }
+# H100 SXM peaks (NVIDIA's data sheet, at 700 W): HBM bytes/s, fp32
+# non-tensor-core FLOP/s
+PEAK_BYTES_S = 3.35e12
+PEAK_FLOP_S = 67e12
+# operations per (hypothesis, point) pair of the count kernel, counted
+# from the residual formulas of csrc/residual_kernel.cu (mul, add, div,
+# compare each one); per 4-point DLT solve and per 9x9 eigensolve from
+# the notes of csrc/dlt_kernel.cu and csrc/eig_kernel.cu
+COUNT_OPS = {"symmetric": 40, "transfer": 20, "sampson": 52}
+DLT_OPS = 1500
+EIG_OPS = 13000
 
 
 def sh(cmd: list[str]) -> str:
@@ -100,6 +129,15 @@ def host_ms(fn, reps: int) -> list[float]:
 def check(cond, msg: str) -> None:
     if not cond:
         raise AssertionError(msg)
+
+
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """(ms, what bounds it): the least time the card could take, the
+    larger of the bytes at the HBM rate and the operations at the fp32
+    rate."""
+    t_bytes = n_bytes / PEAK_BYTES_S * 1e3
+    t_ops = n_ops / PEAK_FLOP_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 # ---------------------------------------------------------------------------
@@ -221,16 +259,23 @@ def phase_kernels(dev):
     from multih_tpu_torch.ops.kernels import dlt_kernel, eig_kernel
     from multih_tpu_torch.ops.kernels import residual_kernel as rk
 
-    print("== 3. kernel parity and timing (kernel vs plain)")
+    print("== 3. kernel parity and timing (kernel vs plain vs library; "
+          "bound)")
     rng = np.random.default_rng(0)
     results = {}
 
-    def record(name, shape, err, k_ms, p_ms):
-        print(f"{name:14s} {shape:26s} max_abs_err {err:<12.6g} "
-              f"kernel {k_ms:9.4f} ms  plain {p_ms:9.4f} ms")
+    def record(name, shape, err, k_ms, p_ms, n_bytes, n_ops, lib_ms=None):
+        b_ms, b_by = bound(n_bytes, n_ops)
+        lib = "none" if lib_ms is None else f"{lib_ms:9.4f} ms"
+        print(f"{name:16s} {shape:34s} max_abs_err {err:<10.4g} "
+              f"kernel {k_ms:9.4f} ms  plain {p_ms:9.4f} ms  library {lib}"
+              f"  bound {b_ms:.5f} ms ({b_by})")
         r = results.setdefault(name, dict(max_abs_err=0.0, shapes=[]))
         r["max_abs_err"] = max(r["max_abs_err"], float(err))
-        r["shapes"].append(dict(shape=shape, ms=k_ms, plain_ms=p_ms))
+        r["shapes"].append(dict(shape=shape, ms=k_ms, plain_ms=p_ms,
+                                bound_ms=b_ms, bound_by=b_by,
+                                library_ms=lib_ms))
+        return r["shapes"][-1]
 
     # K1: hypotheses solved from scene quads, at the claim / verify sweep
     # (2051 x 512, symmetric) and the stress ranking sweep (102400 x 1280,
@@ -254,7 +299,8 @@ def phase_kernels(dev):
                                                        kind=kind)),
                cuda_ms(lambda: rk.inlier_counts_reference(Hs, px, py, pv,
                                                           thr, kind),
-                       reps=5))
+                       reps=5),
+               4 * (s * 9 + 5 * n + s), s * n * COUNT_OPS[kind])
 
     # K2: minimal solves per progressive round, default and stress
     for s in (512, 51200):
@@ -269,7 +315,8 @@ def phase_kernels(dev):
         record("dlt_4pt", f"S={s}", err,
                cuda_ms(lambda: dlt_kernel.homography_4pt_packed(packed)),
                cuda_ms(lambda: dlt_kernel.homography_4pt_packed_reference(
-                   packed), reps=5))
+                   packed), reps=5),
+               4 * 25 * s, DLT_OPS * s)
 
     # K3: the LO-refine batch (n_candidates)
     for c in (256,):
@@ -282,9 +329,131 @@ def phase_kernels(dev):
         record("eig9_smallest", f"C={c}", err,
                cuda_ms(lambda: eig_kernel.smallest_eigvec_9x9_batch(atas)),
                cuda_ms(lambda: eig_kernel.smallest_eigvec_9x9_batch_reference(
-                   atas), reps=5))
+                   atas), reps=5),
+               4 * 90 * c, EIG_OPS * c,
+               lib_ms=cuda_ms(lambda: torch.linalg.eigh(atas)))
+
+    mrf_kernels(rng, dev, record)
+    gather_kernels(rng, dev, record)
     torch.cuda.synchronize()
     return results
+
+
+def _windowed_problem(dev, n_points, n_pad, block, seed=42):
+    """Morton-sorted scene points with their windowed k-NN graph and its
+    far-free band, as the fit builds them."""
+    from multih_tpu_torch.models import labeling, pipeline
+
+    x1, x2, valid = _scene_points(n_points, n_pad, seed, dev)
+    perm = pipeline.morton_order(x1, valid)
+    x1, x2, valid = x1[perm], x2[perm], valid[perm]
+    nbr_idx, nbr_w = labeling.knn_graph_windowed(x1, valid, 6, block)
+    adj = labeling.build_banded_adjacency(nbr_idx, nbr_w, block,
+                                          far_capacity=0)
+    check(int(adj.n_dropped) == 0, "windowed graph with out-of-band edges")
+    return x1, x2, valid, nbr_idx, adj
+
+
+def mrf_kernels(rng, dev, record):
+    """K4 and K5 at the default shape (L=17, N=512, B=256, 6 mean-field
+    sweeps, 2 ICM starts x 2 iterations) and the stress shape (L=17,
+    N=10240, B=128, 4 sweeps, 2 starts x 1 iteration)."""
+    import torch
+
+    from multih_tpu_torch.ops.kernels import mrf_kernel as mk
+
+    l, sw = 17, 0.1
+    for n_points, n, block, sweeps, icm_it in ((500, 512, 256, 6, 2),
+                                               (10000, 10240, 128, 4, 1)):
+        _, _, valid, _, adj = _windowed_problem(dev, n_points, n, block)
+        dct = torch.from_numpy(rng.uniform(0, 2.0, (l, n)).astype(
+            np.float32)).to(dev) * valid[None, :]
+        q0 = torch.softmax(-dct / 2.0, dim=0).contiguous()
+        base = (dct + sw * adj.deg.T).contiguous()
+        band = adj.band
+        inv_t = torch.from_numpy((1.0 / np.geomspace(2.0, 0.25, sweeps))
+                                 .astype(np.float32)).to(dev)
+        nnz = int((band != 0).sum())
+        nb = n // block
+        band_bytes = 4 * nb * block * 3 * block
+        shape = f"L={l} N={n} B={block}"
+
+        got = mk.mean_field_fused(q0, base, band, inv_t, sw)
+        ref = mk.mean_field_fused_reference(q0, base, band, inv_t, sw)
+        err = float((got - ref).abs().max())
+        check(bool(torch.isfinite(got).all()) and err <= 1e-5,
+              f"mean-field kernel {shape}: max abs err {err}")
+        row = record("mean_field_fused", f"{shape} sweeps={sweeps}", err,
+                     cuda_ms(lambda: mk.mean_field_fused(q0, base, band,
+                                                         inv_t, sw)),
+                     cuda_ms(lambda: mk.mean_field_fused_reference(
+                         q0, base, band, inv_t, sw), reps=5),
+                     band_bytes + 4 * (3 * l * n + sweeps),
+                     sweeps * (2 * nnz * l + 8 * l * n))
+        # one launch per sweep: the time of one more sweep, launch
+        # included, from a 1-sweep call against the S-sweep one
+        one = cuda_ms(lambda: mk.mean_field_fused(q0, base, band,
+                                                  inv_t[:1], sw))
+        row["one_sweep_ms"] = one
+        row["per_sweep_ms"] = (row["ms"] - one) / (sweeps - 1)
+        print(f"  mean-field {shape}: 1 sweep {one:.4f} ms, each further "
+              f"sweep {row['per_sweep_ms']:.4f} ms; band non-zeros {nnz} "
+              f"of {nb * block * 3 * block} ({100.0 * nnz / (nb * block * 3 * block):.2f}%)")
+
+        starts = torch.stack([
+            torch.argmin(dct, dim=0),
+            torch.from_numpy(rng.integers(0, l, n)).to(dev),
+        ]).to(torch.int32).contiguous()
+        got = mk.icm_fused(starts, base, band, icm_it, sw)
+        ref = mk.icm_fused_reference(starts, base, band, icm_it, sw)
+        err = float((got - ref).abs().max())
+        check(err == 0, f"ICM kernel {shape}: labels differ ({err})")
+        check(bool((got != starts).any()), "ICM kernel moved no label")
+        s = starts.shape[0]
+        record("icm_fused", f"{shape} S={s} iterations={icm_it}", err,
+               cuda_ms(lambda: mk.icm_fused(starts, base, band, icm_it, sw)),
+               cuda_ms(lambda: mk.icm_fused_reference(starts, base, band,
+                                                      icm_it, sw), reps=5),
+               band_bytes + 4 * (2 * s * n + l * n),
+               icm_it * s * (nnz * l + 3 * l * n))
+
+
+def gather_kernels(rng, dev, record):
+    """K7 at the stress shapes windowed_quadruples gives it (80 windows of
+    3B=384 rows): "rank" mode over the whole C=15 source with T=1600
+    selections per window, "index" mode over its first 8 channels with
+    T=1280; picks past the range and ranks past each window's count
+    included. The library call for "index" mode is one torch.gather of
+    the same rows (without the zeroing of out-of-range picks)."""
+    import torch
+
+    from multih_tpu_torch.ops import sampling
+    from multih_tpu_torch.ops.kernels import gather_kernel as gk
+
+    block = 128
+    x1, x2, valid, nbr_idx, _ = _windowed_problem(dev, 10000, 10240, block)
+    avail = valid.clone()
+    avail[:3000] = 0.0  # a claimed region: exhausted windows
+    win_all = sampling.window_source(x1, x2, avail, nbr_idx, block)
+    nb, rows, _ = win_all.shape
+    m_max = int(win_all[:, -1, gk.CUM_CH].max())
+    for mode, t, hi in (("index", 1280, rows + 2), ("rank", 1600, m_max + 8)):
+        win = (win_all[:, :, :8] if mode == "index" else win_all).contiguous()
+        c = win.shape[2]
+        sel = torch.from_numpy(rng.integers(-2, hi, (nb, t)).astype(
+            np.int32)).to(dev)
+        got = gk.window_gather(win, sel, mode)
+        ref = gk.window_gather_reference(win, sel, mode)
+        check(torch.equal(got, ref), f"window gather {mode}: not exact")
+        lib_ms = None
+        if mode == "index":
+            idx = sel.clamp(0, rows - 1).long()[:, :, None].expand(-1, -1, c)
+            lib_ms = cuda_ms(lambda: torch.gather(win, 1, idx))
+        record("window_gather", f"{mode} nb={nb} 3B={rows} C={c} T={t}",
+               0.0, cuda_ms(lambda: gk.window_gather(win, sel, mode)),
+               cuda_ms(lambda: gk.window_gather_reference(win, sel, mode),
+                       reps=5),
+               4 * (nb * rows * c + nb * t + nb * c * t), 0, lib_ms=lib_ms)
 
 
 def _cpu_draws(seed):
@@ -298,6 +467,8 @@ def _cpu_draws(seed):
 
 
 def _slice_cfg(**kw):
+    """The side config the port ran first (exact k-NN, the general band
+    with far edges, plain MRF sweeps)."""
     from multih_tpu_torch import MultiHConfig
 
     return MultiHConfig(knn_window=False, knn_approx=False, **kw)
@@ -309,89 +480,142 @@ def _to(dev, *arrays):
     return [torch.from_numpy(np.asarray(a)).to(dev) for a in arrays]
 
 
-def phase_slice(dev):
-    import torch
+def _wrappers():
+    from multih_tpu_torch.ops.kernels import (dlt_kernel, eig_kernel,
+                                              gather_kernel, mrf_kernel,
+                                              residual_kernel)
 
-    import multih_tpu_torch as mt
-    from multih_tpu_torch.ops.kernels import dlt_kernel, eig_kernel
-    from multih_tpu_torch.ops.kernels import residual_kernel
-    from multih_tpu_torch.utils import data, evaluation
-
-    print("== 4. the slice on the card")
-    wrappers = {
+    return {
         "inlier_counts": residual_kernel.inlier_counts,
         "dlt_4pt": dlt_kernel.homography_4pt_packed,
         "eig9_smallest": eig_kernel.smallest_eigvec_9x9_batch,
+        "mean_field_fused": mrf_kernel.mean_field_fused,
+        "icm_fused": mrf_kernel.icm_fused,
+        "window_gather": gather_kernel.window_gather,
     }
-    gen = torch.Generator(device=dev)
+
+
+def count_launches(label: str, expect, fn):
+    """Run fn() with every kernel's launch count set to 0 just before and
+    read just after; fail unless each kernel in `expect` launched."""
+    import torch
+
+    wrappers = _wrappers()
     for w in wrappers.values():
         w.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    print(f"kernel launches on the {label} path:", launches)
+    for k in expect:
+        check(launches[k] > 0, f"kernel {k} never launched on the {label} "
+              f"path")
+    return out, launches
 
-    # BASELINE.json config 2: 1k noise-free correspondences, 2 planes
-    cfg = _slice_cfg(max_points=1024)
+
+def _baseline2(dev, cfg, gen):
+    """BASELINE.json config 2: 1k noise-free correspondences, 2 planes,
+    exact recovery."""
+    import torch
+
+    import multih_tpu_torch as mt
+    from multih_tpu_torch.utils import data, evaluation
+
     cs, _ = data.synthetic_scene(1000, 2, 0.0, 0.0)
     x1, x2, valid, gt = mt.pad_points(cs.x1, cs.x2, cs.gt_labels, 1024)
     res = mt.make_fit(cfg)(*_to(dev, x1, x2, valid), gen.manual_seed(0))
-    check(res.labels.device.type == "cuda"
-          and res.homographies.device.type == "cuda", "results not on cuda")
+    check(res.labels.device.type == res.homographies.device.type
+          == torch.device(dev).type, "results not on the card")
     err = evaluation.misclassification_error(res.labels.cpu().numpy(), gt,
                                              cfg.max_labels)
-    print(f"BASELINE config 2: planes {int(res.active.sum())}, "
+    return int(res.active.sum()), err
+
+
+def phase_fits(dev):
+    import torch
+
+    import multih_tpu_torch as mt
+    from multih_tpu_torch import MultiHConfig
+    from multih_tpu_torch.utils import data, evaluation
+
+    print("== 4. the fit on the card: side config, then the default config")
+    gen = torch.Generator(device=dev)
+    k123 = ("inlier_counts", "dlt_4pt", "eig9_smallest")
+    launches = {}
+
+    (planes, err), launches["side"] = count_launches(
+        "side-config", k123,
+        lambda: _baseline2(dev, _slice_cfg(max_points=1024), gen))
+    print(f"side config, BASELINE config 2: planes {planes}, "
           f"misclassification {err:.4f}%")
-    check(err == 0.0 and int(res.active.sum()) == 2,
-          "BASELINE config 2 not recovered exactly")
+    check(err == 0.0 and planes == 2, "side config: BASELINE config 2 not "
+          "recovered exactly")
 
-    golden_fits = {}
-    for name, npad in GOLDEN_SCENES:
-        g = np.load(os.path.join(ROOT, "tests", "goldens", f"{name}.npz"))
-        cs = data.suite_scene(name)
-        cfg = _slice_cfg(max_points=npad)
-        x1, x2, valid, gt = mt.pad_points(cs.x1, cs.x2, cs.gt_labels, npad)
-        args = _to(dev, x1, x2, valid)
-        tau = float(g["inlier_threshold"])
-        res = mt.make_fit_tau(cfg)(*args, gen.manual_seed(0), tau)
-        lab = res.labels.cpu().numpy()[: cs.n_points]
-        check(bool(torch.isfinite(res.homographies).all()), "non-finite H")
-        err = evaluation.misclassification_error(lab, cs.gt_labels,
-                                                 cfg.max_labels)
-        agree = 100.0 - evaluation.misclassification_error(
-            lab, g["labels"], cfg.max_labels,
-            gt_outlier=int(g["outlier_label"]))
-        print(f"golden {name} (npad {npad}, tau {tau}): planes "
-              f"{int(res.active.sum())} (golden {int(g['n_planes'])}), "
-              f"misclassification {err:.3f}% (golden "
-              f"{float(g['misclassification']):.3f}%), agreement with the "
-              f"golden labels {agree:.2f}%")
-        check(agree >= 97.0, f"{name}: agreement {agree:.2f}% < 97%")
-        golden_fits[name] = (cfg, args, tau, lab)
+    def default_path():
+        planes, err = _baseline2(dev, MultiHConfig(max_points=1024), gen)
+        print(f"default config, BASELINE config 2: planes {planes}, "
+              f"misclassification {err:.4f}%")
+        check(err == 0.0 and planes == 2,
+              "BASELINE config 2 not recovered exactly")
+        fits = {}
+        for name, npad in GOLDEN_SCENES:
+            g = np.load(os.path.join(ROOT, "tests", "goldens", f"{name}.npz"))
+            cs = data.suite_scene(name)
+            cfg = MultiHConfig(max_points=npad)
+            x1, x2, valid, gt = mt.pad_points(cs.x1, cs.x2, cs.gt_labels,
+                                              npad)
+            args = _to(dev, x1, x2, valid)
+            tau = float(g["inlier_threshold"])
+            res = mt.make_fit_tau(cfg)(*args, gen.manual_seed(0), tau)
+            lab = res.labels.cpu().numpy()[: cs.n_points]
+            check(bool(torch.isfinite(res.homographies).all()),
+                  "non-finite H")
+            err = evaluation.misclassification_error(lab, cs.gt_labels,
+                                                     cfg.max_labels)
+            agree = 100.0 - evaluation.misclassification_error(
+                lab, g["labels"], cfg.max_labels,
+                gt_outlier=int(g["outlier_label"]))
+            print(f"golden {name} (npad {npad}, tau {tau}): planes "
+                  f"{int(res.active.sum())} (golden {int(g['n_planes'])}), "
+                  f"misclassification {err:.3f}% (golden "
+                  f"{float(g['misclassification']):.3f}%), agreement with "
+                  f"the golden labels {agree:.2f}%")
+            check(agree >= 97.0, f"{name}: agreement {agree:.2f}% < 97%")
+            fits[name] = (cfg, args, tau)
+        return fits
 
-    launches = {k: w.launches for k, w in wrappers.items()}
-    print("kernel launches over these fits:", launches)
-    for k, n in launches.items():
-        check(n > 0, f"kernel {k} never launched on the main path")
+    golden_fits, launches["default"] = count_launches(
+        "default-config", k123 + ("mean_field_fused", "icm_fused"),
+        default_path)
 
     # the card fit against the port's CPU fit on the same samples (the
-    # CPU runs the plain paths: eigh instead of the Jacobi kernel, as the
-    # reference's CPU path differs from its TPU path)
-    cfg, args, tau, _ = golden_fits["easy2_a"]
+    # CPU runs the plain paths: eigh instead of the Jacobi kernel, the
+    # plain sweeps' arithmetic instead of the fused kernels')
+    cfg, args, tau = golden_fits["easy2_a"]
     f = mt.make_fit_tau(cfg)
     lab_gpu = f(*args, _cpu_draws(1), tau).labels.cpu().numpy()
     lab_cpu = f(*[a.cpu() for a in args], _cpu_draws(1), tau).labels.numpy()
     agree = 100.0 - evaluation.misclassification_error(
         lab_gpu, lab_cpu, cfg.max_labels, gt_outlier=cfg.max_labels)
-    print(f"easy2_a card fit vs CPU fit, same draws: label agreement "
-          f"{agree:.2f}%")
+    print(f"easy2_a card fit vs CPU fit, default config, same draws: label "
+          f"agreement {agree:.2f}%")
     check(agree >= 97.0, "card fit disagrees with the CPU fit")
 
-    # warm fit latency at N=512 (S=2048), host clock to synchronize
-    times = host_ms(lambda: f(*args, gen, tau), reps=20)
-    lat = dict(median_ms=statistics.median(times), min_ms=min(times),
-               max_ms=max(times), reps=len(times))
-    print(f"warm fit latency easy2_a N=512: median {lat['median_ms']:.2f} ms "
-          f"(min {lat['min_ms']:.2f}, max {lat['max_ms']:.2f}, "
-          f"{lat['reps']} fits)")
+    # warm fit latency at N=512 (S=2048), host clock to synchronize: the
+    # default config, and the side config on the same scene beside it
+    lat = {}
+    for label, fn in (("default", f),
+                      ("side", mt.make_fit_tau(_slice_cfg(max_points=512)))):
+        times = host_ms(lambda: fn(*args, gen, tau), reps=20)
+        lat[label] = dict(median_ms=statistics.median(times),
+                          min_ms=min(times), max_ms=max(times),
+                          reps=len(times))
+        print(f"warm fit latency easy2_a N=512, {label} config: median "
+              f"{lat[label]['median_ms']:.2f} ms (min "
+              f"{lat[label]['min_ms']:.2f}, max {lat[label]['max_ms']:.2f},"
+              f" {len(times)} fits)")
     return launches, lat, lambda: _profile(
-        "N=512 easy2_a", lambda: f(*args, gen, tau))
+        "N=512 easy2_a, default config", lambda: f(*args, gen, tau))
 
 
 def _profile(label: str, fn, reps: int = 5):
@@ -417,30 +641,36 @@ def _profile(label: str, fn, reps: int = 5):
                   f" ms/fit")
 
 
+def stress_cfg():
+    """bench.py::_stress_cfg(10240, 102400, n_candidates=256,
+    max_labels=16), its values copied (bench.py imports JAX)."""
+    from multih_tpu_torch import MultiHConfig
+
+    return MultiHConfig(
+        max_points=10240, n_hypotheses=102400, residual_chunk=4096,
+        progressive_rounds=2, claims_per_round=8, verify_subsample=8,
+        claim_subsample=8, pearl_iterations=5, window_sampling=True,
+        rank_residual="transfer", agree_block=128, meanfield_iterations=4,
+        icm_iterations=1, n_candidates=256, max_labels=16,
+    )
+
+
 def phase_stress(dev):
     import torch
 
     import multih_tpu_torch as mt
     from multih_tpu_torch.utils import data, evaluation
 
-    print("== 5. stress size")
-    # bench.py _stress_cfg(10240, 102400, n_candidates=256, max_labels=16),
-    # changed only as the slice needs
-    cfg = _slice_cfg(
-        max_points=10240, n_hypotheses=102400, residual_chunk=4096,
-        progressive_rounds=2, claims_per_round=8, verify_subsample=8,
-        claim_subsample=8, pearl_iterations=5, window_sampling=False,
-        rank_residual="transfer", agree_block=128, meanfield_iterations=4,
-        icm_iterations=1, n_candidates=256, max_labels=16,
-    )
+    print("== 5. the stress fit (bench.py _stress_cfg's settings)")
+    cfg = stress_cfg()
     cs, _ = data.synthetic_scene(10000, 8, 0.7, 0.5, seed=42)
     x1, x2, valid, gt = mt.pad_points(cs.x1, cs.x2, cs.gt_labels, 10240)
     args = _to(dev, x1, x2, valid)
     f = mt.make_fit(cfg)
     gen = torch.Generator(device=dev).manual_seed(0)
     t0 = time.perf_counter()
-    res = f(*args, gen)
-    torch.cuda.synchronize()
+    res, launches = count_launches("stress", tuple(KERNELS),
+                                   lambda: f(*args, gen))
     cold = (time.perf_counter() - t0) * 1e3
     check(bool(torch.isfinite(res.homographies).all()), "non-finite H")
     lab = res.labels.cpu().numpy()
@@ -454,7 +684,31 @@ def phase_stress(dev):
           f"{err:.3f}%, n_far_dropped {out['n_far_dropped']}, first fit "
           f"{cold:.1f} ms, warm fits {', '.join(f'{t:.1f}' for t in times)}"
           f" ms")
-    return out, lambda: _profile("stress", lambda: f(*args, gen), reps=2)
+    check(out["planes"] == 8, f"stress: {out['planes']} planes of 8")
+    check(out["n_far_dropped"] == 0, "stress: far edges dropped")
+
+    # the same scene at the side config: the exact graph's row blocks
+    # (N > 4096) and the band's far-edge list run only at this size
+    side = dataclasses.replace(cfg, knn_window=False, knn_approx=False,
+                               window_sampling=False)
+    f_side = mt.make_fit(side)
+    res, side_launches = count_launches(
+        "side-config stress", ("inlier_counts", "dlt_4pt", "eig9_smallest"),
+        lambda: f_side(*args, gen))
+    check(bool(torch.isfinite(res.homographies).all()), "non-finite H")
+    err = evaluation.misclassification_error(res.labels.cpu().numpy(), gt,
+                                             cfg.max_labels)
+    times = host_ms(lambda: f_side(*args, gen), reps=2)
+    out["side"] = dict(planes=int(res.active.sum()), misclassification=err,
+                       n_far_dropped=int(res.n_far_dropped), warm_ms=times)
+    print(f"side-config stress: planes {out['side']['planes']} of 8, "
+          f"misclassification {err:.3f}%, n_far_dropped "
+          f"{out['side']['n_far_dropped']}, warm fits "
+          f"{', '.join(f'{t:.1f}' for t in times)} ms")
+    check(out["side"]["planes"] == 8,
+          f"side-config stress: {out['side']['planes']} planes of 8")
+    return (out, launches, side_launches,
+            lambda: _profile("stress", lambda: f(*args, gen), reps=2))
 
 
 def main(argv=None) -> int:
@@ -475,8 +729,9 @@ def main(argv=None) -> int:
     phase_env()
     phase_build()
     kernels = phase_kernels(dev)
-    launches, latency, profile_fit = phase_slice(dev)
-    stress, profile_stress = phase_stress(dev)
+    launches, latency, profile_fit = phase_fits(dev)
+    (stress, launches["stress"], launches["side_stress"],
+     profile_stress) = phase_stress(dev)
     if args.profile:
         profile_fit()
         profile_stress()
@@ -486,9 +741,13 @@ def main(argv=None) -> int:
         main_shape = kernels[name]["shapes"][0]
         rows.append(dict(
             name=name, route="cuda", source=meta["source"],
-            replaces=meta["replaces"], launches=launches[name],
+            replaces=meta["replaces"],
+            launches=sum(p[name] for p in launches.values()),
             max_abs_err=kernels[name]["max_abs_err"],
             ms=main_shape["ms"], plain_ms=main_shape["plain_ms"],
+            bound_ms=main_shape["bound_ms"], bound_by=main_shape["bound_by"],
+            library_ms=main_shape["library_ms"],
+            launches_by_path={p: c[name] for p, c in launches.items()},
             shape=main_shape["shape"], shapes=kernels[name]["shapes"],
         ))
     print(json.dumps({"kernels": rows, "fit_latency_n512": latency,

@@ -2,11 +2,12 @@
 agreement operator, data costs, annealed mean-field and batched red-black
 ICM over the Potts MRF.
 
-Counterpart of ``multih_tpu/models/labeling.py`` for the slice the port
-runs: the row-blocked exact k-NN build and the banded adjacency with its
-exact far-edge list. The windowed k-NN build, the far-free band and the
-fused mean-field / ICM kernels that need it are not ported yet; asking
-for them raises NotImplementedError.
+Counterpart of ``multih_tpu/models/labeling.py`` for the banded paths:
+the row-blocked exact k-NN build with the banded adjacency and its exact
+far-edge list, and the windowed k-NN build with its far-free band, on
+which the fused mean-field / ICM kernels (ops/kernels/mrf_kernel.py) run
+on the card. The gather-path labeling (no banded adjacency) is not
+ported; asking for it raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -15,7 +16,9 @@ from typing import NamedTuple
 
 import torch
 
-from multih_tpu_torch.models.selection import top_k_stable
+from multih_tpu_torch.ops.kernels import mrf_kernel
+from multih_tpu_torch.ops.sampling import window_roll
+from multih_tpu_torch.ops.topk import top_k_stable
 
 _BIG = 1e30
 
@@ -55,6 +58,55 @@ def knn_graph(pts: torch.Tensor, valid: torch.Tensor, k: int,
     nbr_idx = torch.cat(idxs)
     nbr_w = torch.cat(reals) * valid[:, None]
     return nbr_idx, nbr_w
+
+
+def knn_graph_windowed(feats: torch.Tensor, valid: torch.Tensor, k: int,
+                       block: int):
+    """k-NN inside the 3-block Morton window: each point's k nearest (in
+    `feats` space, (N, 2) positions or (N, 4) sampling features) among
+    the 3*block points of its own block and the two adjacent ones.
+    Wrapped blocks, padding and self are penalised with 1e30; the k
+    smallest come from k unrolled argmin-and-mask passes, lowest column
+    first on ties (torch.argmin's order, as jnp.argmin's). Every edge
+    lies in the band, so the banded adjacency needs no far list. At
+    nb = 2 the window is the whole array and this is exact k-NN.
+
+    Requires N % block == 0 and N >= 2*block. Returns (nbr_idx (N, k)
+    int32, nbr_w (N, k) float {0,1}) like `knn_graph`."""
+    n, d = feats.shape
+    if n % block or n < 2 * block:
+        raise ValueError((n, block))
+    nb = n // block
+    dev = feats.device
+    fb = feats.reshape(nb, block, d)
+    win = window_roll(feats, block)  # (nb, 3B, d)
+    v_win = window_roll(valid, block)  # (nb, 3B)
+    d2 = (fb * fb).sum(2)[:, :, None] + (win * win).sum(2)[:, None, :] \
+        - 2.0 * torch.bmm(fb, win.transpose(1, 2))  # (nb, B, 3B)
+
+    # window column c of block b is global index (b-1)*B + c; out of
+    # range = a wrapped block
+    b_ids = torch.arange(nb, device=dev)[:, None, None]
+    g = (b_ids - 1) * block + torch.arange(3 * block, device=dev)[None, None]
+    r_ids = b_ids * block + torch.arange(block, device=dev)[None, :, None]
+    bad = (g < 0) | (g >= n) | (g == r_ids)
+    d2 = d2 + _BIG * bad.to(d2.dtype)
+    d2 = d2 + torch.where(v_win[:, None, :] > 0, 0.0, _BIG).to(d2.dtype)
+
+    work = d2.reshape(n, 3 * block)
+    col_iota = torch.arange(3 * block, device=dev)[None, :]
+    cols, vals = [], []
+    for _ in range(k):
+        c = torch.argmin(work, dim=1)
+        vals.append(work.amin(1))
+        cols.append(c)
+        work = work + _BIG * (col_iota == c[:, None]).to(work.dtype)
+    col = torch.stack(cols, dim=1)
+    best = torch.stack(vals, dim=1)
+    blk_row = torch.arange(n, device=dev)[:, None] // block
+    nbr_idx = torch.clamp((blk_row - 1) * block + col, 0, n - 1)
+    edge_real = (best < _BIG * 0.5).to(feats.dtype)
+    return nbr_idx.to(torch.int32), edge_real * valid[:, None]
 
 
 # ---------------------------------------------------------------------------
@@ -115,6 +167,8 @@ def build_banded_adjacency(
     scatter path: each directed edge (i, j, w) adds 0.5 w to both (i<-j)
     and (j<-i); edges between non-adjacent blocks go to the far list
     (capacity default max(block, 0.75 N); overflow counted in n_dropped).
+    far_capacity=0 takes the far-free build of a windowed graph
+    (`_build_band_far_free`).
 
     Scatter-adds are index_add_: weights are in {0, 0.5} and sums in
     {0, 0.5, 1}, all exact, so atomic order does not change the band."""
@@ -122,10 +176,7 @@ def build_banded_adjacency(
     if n % block:
         raise ValueError((n, block))
     if far_capacity == 0:
-        raise NotImplementedError(
-            "the far-free band of the windowed k-NN graph is not ported "
-            "yet (it ships with the fused MRF kernels)"
-        )
+        return _build_band_far_free(nbr_idx, nbr_w, block)
     if far_capacity is None:
         far_capacity = max(block, (3 * n) // 4)
     nb = n // block
@@ -170,20 +221,55 @@ def build_banded_adjacency(
     )
 
 
+def _build_band_far_free(nbr_idx, nbr_w, block: int) -> BandedAdjacency:
+    """The scatter-free build for a window-constrained graph
+    (labeling.py:309-350): the forward band band_f holds 0.5 w of each
+    row's own edges, and the reverse half is its block transpose,
+      band of W^T at row block b = [R_{b-1}^T, M_b^T, L_{b+1}^T]
+    for band_f[b] = [L_b, M_b, R_b]. The far arrays are empty; an edge
+    outside the row's window (none exist for a windowed graph) is dropped
+    and counted twice in n_dropped, as the scatter path counts both of
+    its directions. The forward rows are a scatter_add_ of at most k
+    values in {0, 0.5} per row: exact, like the JAX one-hot sum."""
+    n, k = nbr_idx.shape
+    nb = n // block
+    dev = nbr_idx.device
+    blk_row = torch.arange(n, device=dev)[:, None] // block
+    col = nbr_idx.to(torch.int64) - (blk_row - 1) * block  # (N, k)
+    in_band = (col >= 0) & (col < 3 * block)
+    w_f = torch.where(in_band, 0.5 * nbr_w, 0.0)
+    col = torch.clamp(col, 0, 3 * block - 1)
+    band_f = torch.zeros((n, 3 * block), dtype=nbr_w.dtype, device=dev)
+    band_f.scatter_add_(1, col, w_f)
+    band_f = band_f.reshape(nb, block, 3 * block)
+    l_blk = band_f[:, :, :block]
+    m_blk = band_f[:, :, block:2 * block]
+    r_blk = band_f[:, :, 2 * block:]
+    band = band_f + torch.cat(
+        [torch.roll(r_blk.transpose(1, 2), 1, dims=0),
+         m_blk.transpose(1, 2),
+         torch.roll(l_blk.transpose(1, 2), -1, dims=0)], dim=2,
+    )
+    deg = band.sum(2).reshape(n)
+    n_dropped = 2 * (~in_band & (nbr_w > 0)).sum().to(torch.int32)
+    empty_i = torch.zeros((0,), dtype=torch.int64, device=dev)
+    return BandedAdjacency(
+        band=band.contiguous(), far_out=empty_i, far_in=empty_i,
+        far_w=torch.zeros((0,), dtype=nbr_w.dtype, device=dev),
+        deg=deg[:, None], n_dropped=n_dropped,
+    )
+
+
 def _mrf_kernel_ok(adj: BandedAdjacency | None) -> bool:
     """The fused MRF kernels need a far-edge-free banded adjacency."""
     return adj is not None and adj.far_w.shape[0] == 0
 
 
-def _require_band(adj, use_kernel):
+def _require_band(adj):
     if adj is None:
         raise NotImplementedError(
             "the gather/scatter agreement path (no banded adjacency) is "
             "not ported yet"
-        )
-    if use_kernel and _mrf_kernel_ok(adj):
-        raise NotImplementedError(
-            "the fused mean-field / ICM kernels are not ported yet"
         )
 
 
@@ -220,7 +306,7 @@ def _potts_t(labels, adj: BandedAdjacency, dct):
 def total_energy_t(labels, dct, nbr_idx, nbr_w, spatial_weight: float,
                    label_cost: float, active, adj=None):
     """E(L) = data + lambda * Potts + beta * |used active labels|."""
-    _require_band(adj, False)
+    _require_band(adj)
     l = dct.shape[0]
     oh = _onehot_t(labels, l, dct.dtype)
     e_data = (oh * dct).sum()
@@ -249,11 +335,19 @@ def mean_field_t(dct, nbr_idx, nbr_w, spatial_weight: float,
                  q_init=None, adj=None, use_kernel: bool = False):
     """Annealed mean-field for the Potts MRF, label-major (L, N):
     q <- softmax_l(-(D + lambda (deg - agree(q))) / T) per sweep. The
-    JAX lax.scan over temperatures (labeling.py:640) is a Python loop."""
-    _require_band(adj, use_kernel)
+    JAX lax.scan over temperatures (labeling.py:640) is a Python loop.
+    With `use_kernel` and a far-free band, all sweeps run in the fused
+    kernel (mrf_kernel.mean_field_fused), one call."""
+    _require_band(adj)
     q = torch.softmax(-dct, dim=0) if q_init is None else q_init
     temps = _mf_temps(iterations, temp_start, temp_end, dct.dtype,
                       dct.device)
+    if use_kernel and _mrf_kernel_ok(adj):
+        base = dct + spatial_weight * adj.deg.T  # (L, N)
+        return mrf_kernel.mean_field_fused(
+            q.contiguous(), base.contiguous(), adj.band, 1.0 / temps,
+            spatial_weight,
+        )
     deg = adj.deg.T  # (1, N)
     for i in range(temps.shape[0]):
         pair = spatial_weight * (deg - adj.agree_t(q))
@@ -279,8 +373,27 @@ def _icm_batch(starts, dct, spatial_weight: float, iterations: int,
     each half-sweep moves the points of one index parity to their
     cheapest label when it beats the current one by more than 1e-6, then
     the constant-labeling escape adopts the best constant labeling if it
-    has lower energy. The fori_loop (labeling.py:869) is a Python loop."""
-    _require_band(adj, use_kernel)
+    has lower energy. The fori_loop (labeling.py:869) is a Python loop;
+    with `use_kernel` and a far-free band the half-sweeps run in the
+    fused kernel (mrf_kernel.icm_fused), one call."""
+    _require_band(adj)
+    if use_kernel and _mrf_kernel_ok(adj):
+        base = dct + spatial_weight * adj.deg.T  # (L, N)
+        labels = mrf_kernel.icm_fused(
+            starts.to(torch.int32).contiguous(), base.contiguous(),
+            adj.band, iterations, spatial_weight,
+        ).to(starts.dtype)
+    else:
+        labels = _icm_sweeps(starts, dct, spatial_weight, iterations, adj)
+    e_cur = _energies_batch(labels, dct, adj, spatial_weight)
+    e_const = dct.sum(1)
+    return torch.where((e_const.min() < e_cur)[:, None],
+                       torch.argmin(e_const).to(labels.dtype), labels)
+
+
+def _icm_sweeps(starts, dct, spatial_weight: float, iterations: int,
+                adj: BandedAdjacency):
+    """The red-black half-sweeps of `_icm_batch`, plain PyTorch."""
     s, n = starts.shape
     l = dct.shape[0]
     deg = adj.deg.T  # (1, N)
@@ -300,18 +413,14 @@ def _icm_batch(starts, dct, spatial_weight: float, iterations: int,
     for _ in range(iterations):
         labels = half(labels, 0)
         labels = half(labels, 1)
-
-    e_cur = _energies_batch(labels, dct, adj, spatial_weight)
-    e_const = dct.sum(1)
-    return torch.where((e_const.min() < e_cur)[:, None],
-                       torch.argmin(e_const).to(labels.dtype), labels)
+    return labels
 
 
 def best_labeling_t(starts, dct, nbr_idx, nbr_w, spatial_weight: float,
                     icm_iterations: int, adj=None, use_kernel: bool = False):
     """ICM from several start labelings, batched; returns the
     lowest-energy result (first on ties)."""
-    _require_band(adj, use_kernel)
+    _require_band(adj)
     stacked = torch.stack(starts)
     polished = _icm_batch(stacked, dct, spatial_weight, icm_iterations,
                           adj, use_kernel=use_kernel)

@@ -2,27 +2,29 @@
 and homographies out.
 
 Counterpart of ``multih_tpu/models/pipeline.py::fit``, homography branch,
-stage for stage: Morton sort -> exact k-NN graph + banded adjacency ->
-progressive hypothesis generation (sampling + minimal 4-pt DLT) ->
+stage for stage: Morton sort -> k-NN graph (windowed or exact) + banded
+adjacency -> progressive hypothesis generation (sampling + minimal 4-pt
+DLT) ->
 verification counts + top-M -> LO refine (moment refit + 9x9 eigensolve)
 -> NMS select -> PEARL iterations -> finalize. Each stage is wrapped in a
 ``torch.profiler.record_function`` of the JAX ``named_scope``'s name.
 
-The fit runs eagerly and forward-only. With ``cfg.use_pallas`` and CUDA
-tensors the three hand-written kernels carry the count sweeps, the
-minimal solves and the refit eigensolves (`_kernels_enabled`); otherwise
-their plain PyTorch versions run, as the JAX package runs its jnp paths
-off the TPU.
+The fit runs eagerly and forward-only, on the card unless the caller
+asks for the CPU (`fit`'s `device`). With ``cfg.use_pallas`` and CUDA
+tensors the hand-written kernels carry the count sweeps, the minimal
+solves, the refit eigensolves, the mean-field and ICM sweeps (on the
+windowed graph's far-free band) and the window-sampling gathers
+(`_kernels_enabled`); otherwise their plain PyTorch versions run, as the
+JAX package runs its jnp paths off the TPU.
 
 Where the port is likely to diverge from the reference, the code says
 so: `jax.lax.top_k`'s tie order (lower index first) is reproduced with a
-stable descending sort (selection.top_k_stable), every argsort is
+stable descending sort (ops.topk.top_k_stable), every argsort is
 stable, `.at[].add` scatters are index_add_, and lax.scan / fori_loop
 bodies are Python loops that never wait on the device.
 
-Out of the slice, `fit` raises NotImplementedError: the fundamental
-model, the windowed k-NN graph (and the fused MRF kernels it gates),
-window sampling, the fused front, affine and seed hypotheses, a mesh,
+Out of the port so far, `fit` raises NotImplementedError: the
+fundamental model, the fused front, affine and seed hypotheses, a mesh,
 the gather-path labeling and the direct (non-moment) refit.
 """
 
@@ -37,9 +39,9 @@ from torch.profiler import record_function
 
 from multih_tpu_torch.config import MultiHConfig
 from multih_tpu_torch.models import labeling, selection
-from multih_tpu_torch.models.selection import top_k_stable
 from multih_tpu_torch.ops import geometry, sampling
 from multih_tpu_torch.ops.kernels import dlt_kernel, residual_kernel
+from multih_tpu_torch.ops.topk import top_k_stable
 
 # Precision.HIGHEST in the reference: geometry contractions in full fp32
 # (reduced-precision products lost whole planes; docs/ARCHITECTURE.md).
@@ -227,11 +229,14 @@ def count_inliers(Hs, x1, x2, valid, cfg: MultiHConfig, tau=None,
 
 
 def generate_hypotheses(draws, x1, x2, valid, nbr_idx, cfg: MultiHConfig,
-                        tau=None):
+                        tau=None, window_block: int = 0):
     """Minimal-sample hypotheses in cfg.progressive_rounds guided rounds:
     after each round its top-R candidates are LO-grown together, greedily
     accepted when mostly novel, and their inliers claimed, so the next
-    round samples among unclaimed points. Returns (Hs, ok)."""
+    round samples among unclaimed points. With `window_block` > 0 a
+    round whose sample count divides into the N // window_block Morton
+    windows draws window-stratified samples
+    (sampling.windowed_quadruples). Returns (Hs, ok)."""
     rounds = max(1, cfg.progressive_rounds)
     n_claim = max(1, cfg.claims_per_round)
     s_round = cfg.n_hypotheses // rounds
@@ -246,9 +251,17 @@ def generate_hypotheses(draws, x1, x2, valid, nbr_idx, cfg: MultiHConfig,
         enough = (avail.sum() >= 16.0).to(x1.dtype)
         avail = avail * enough + valid * (1.0 - enough)
         n_s = s_rem if r == rounds - 1 else s_round
-        nbr_ok = avail[nbr_idx]
-        idx = _round_sample_indices(draws, r, avail, nbr_idx, nbr_ok, n_s)
-        Hs_r, ok_r = _solve_minimal(x1, x2, avail, idx, cfg)
+        if window_block > 0 and n_s % (x1.shape[0] // window_block) == 0:
+            gt = sampling.windowed_quadruples(
+                draws, r, x1, x2, avail, nbr_idx, n_s, window_block,
+                use_kernel=_kernels_enabled(cfg, x1.device),
+            )
+            Hs_r, ok_r = _solve_from_gt(gt, cfg)
+        else:
+            nbr_ok = avail[nbr_idx]
+            idx = _round_sample_indices(draws, r, avail, nbr_idx, nbr_ok,
+                                        n_s)
+            Hs_r, ok_r = _solve_minimal(x1, x2, avail, idx, cfg)
         pools.append(Hs_r)
         oks.append(ok_r)
         if r == rounds - 1:
@@ -422,13 +435,9 @@ def _check_slice(cfg: MultiHConfig, n_pts: int, affines, seed_Hs, mesh):
     unsupported = []
     if cfg.model != "homography":
         unsupported.append(f"model={cfg.model!r}")
-    if graph_path(cfg, n_pts) == "windowed":
-        unsupported.append("the windowed k-NN graph (set knn_window=False)")
     if not banded_gate(cfg, n_pts):
         unsupported.append("the gather-path labeling (needs spatial_sort "
                            "and N a multiple >= 2 of agree_block)")
-    if cfg.window_sampling:
-        unsupported.append("window_sampling")
     if cfg.mrf_fused_front:
         unsupported.append("mrf_fused_front")
     if not cfg.refit_moments:
@@ -445,19 +454,36 @@ def _check_slice(cfg: MultiHConfig, n_pts: int, affines, seed_Hs, mesh):
         )
 
 
+def _inputs(x1, x2, valid, device):
+    """float32 tensors of the inputs. Tensors keep their device; arrays
+    and lists go to `device`, by default the card. Asking for the card
+    without one raises: the fit never falls back to the CPU quietly."""
+    dev = torch.device("cuda" if device is None else device)
+
+    def one(a):
+        if isinstance(a, torch.Tensor):
+            return a.to(torch.float32)
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: pass device='cpu' (or CPU "
+                               "tensors) to fit on the CPU")
+        return torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                               device=dev)
+
+    return one(x1), one(x2), one(valid)
+
+
 @torch.inference_mode()
 def fit(x1, x2, valid, key, cfg: MultiHConfig, affines=None, tau=None,
-        seed_Hs=None, seed_ok=None, mesh=None) -> FitResult:
+        seed_Hs=None, seed_ok=None, mesh=None, device=None) -> FitResult:
     """Full Multi-H fit on one padded correspondence set.
 
-    x1, x2: (N, 2) float32 tensors (or arrays) on one device; valid: (N,)
-    float {0,1}. key: a ``torch.Generator`` on that device, or a draw
-    source (ops/sampling.py). tau: optional inlier threshold in px
+    x1, x2: (N, 2) float32; valid: (N,) float {0,1}. Tensors keep their
+    device; numpy arrays or lists go to `device`, by default the card
+    (see `_inputs`). key: a ``torch.Generator`` on the points' device, or
+    a draw source (ops/sampling.py). tau: optional inlier threshold in px
     overriding cfg.inlier_threshold. affines / seed_Hs / seed_ok / mesh
     exist for signature parity with the reference and are not ported."""
-    x1 = torch.as_tensor(x1, dtype=torch.float32)
-    x2 = torch.as_tensor(x2, dtype=torch.float32, device=x1.device)
-    valid = torch.as_tensor(valid, dtype=torch.float32, device=x1.device)
+    x1, x2, valid = _inputs(x1, x2, valid, device)
     n_pts = x1.shape[0]
     _check_slice(cfg, n_pts, affines, seed_Hs, mesh)
     if isinstance(key, torch.Generator):
@@ -475,24 +501,37 @@ def fit(x1, x2, valid, key, cfg: MultiHConfig, affines=None, tau=None,
     perm = morton_order(x1, valid)
     x1, x2, valid = x1[perm], x2[perm], valid[perm]
 
+    # pipeline.py:1121-1169: the windowed graph when the banded gate
+    # holds and cfg.knn_window, for both graphs; its band is far-free
+    windowed = graph_path(cfg, n_pts) == "windowed"
+
+    def graph_of(feats):
+        if windowed:
+            return labeling.knn_graph_windowed(feats, valid, cfg.knn_k,
+                                               cfg.agree_block)
+        return labeling.knn_graph(feats, valid, cfg.knn_k,
+                                  cfg.knn_row_block, cfg.knn_approx)
+
     with record_function("knn_graph"):
-        nbr_idx, nbr_w = labeling.knn_graph(x1, valid, cfg.knn_k,
-                                            cfg.knn_row_block, cfg.knn_approx)
+        nbr_idx, nbr_w = graph_of(x1)
     with record_function("banded_adjacency"):
-        adj = labeling.build_banded_adjacency(nbr_idx, nbr_w,
-                                              cfg.agree_block)
+        adj = labeling.build_banded_adjacency(
+            nbr_idx, nbr_w, cfg.agree_block,
+            far_capacity=0 if windowed else None,
+        )
     if cfg.sampling_motion_weight > 0.0:
         feat = torch.cat([x1, cfg.sampling_motion_weight * (x2 - x1)], dim=1)
         with record_function("sampling_knn"):
-            nbr_sample, _ = labeling.knn_graph(
-                feat, valid, cfg.knn_k, cfg.knn_row_block, cfg.knn_approx
-            )
+            nbr_sample, _ = graph_of(feat)
     else:
         nbr_sample = nbr_idx
 
     with record_function("hypothesize"):
-        Hs_all, ok = generate_hypotheses(draws, x1, x2, valid, nbr_sample,
-                                         cfg, tau)
+        Hs_all, ok = generate_hypotheses(
+            draws, x1, x2, valid, nbr_sample, cfg, tau,
+            window_block=(cfg.agree_block
+                          if windowed and cfg.window_sampling else 0),
+        )
     vs = max(1, cfg.verify_subsample)
     with record_function("verify"):
         # rank_residual only when a full-resolution rescore follows
@@ -574,16 +613,17 @@ def fit(x1, x2, valid, key, cfg: MultiHConfig, affines=None, tau=None,
     )
 
 
-def make_fit(cfg: MultiHConfig):
-    """fit with cfg bound: f(x1, x2, valid, key)."""
+def make_fit(cfg: MultiHConfig, device=None):
+    """fit with cfg (and the device for array inputs) bound:
+    f(x1, x2, valid, key)."""
     def f(x1, x2, valid, key):
-        return fit(x1, x2, valid, key, cfg)
+        return fit(x1, x2, valid, key, cfg, device=device)
     return f
 
 
-def make_fit_tau(cfg: MultiHConfig):
+def make_fit_tau(cfg: MultiHConfig, device=None):
     """fit with cfg bound and the threshold (px) as an argument:
     f(x1, x2, valid, key, tau)."""
     def f(x1, x2, valid, key, tau):
-        return fit(x1, x2, valid, key, cfg, tau=tau)
+        return fit(x1, x2, valid, key, cfg, tau=tau, device=device)
     return f

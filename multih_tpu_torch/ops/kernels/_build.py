@@ -1,9 +1,11 @@
 """Build and load the port's CUDA kernels.
 
 At first use, every ``multih_tpu_torch/csrc/*.cu`` is compiled by nvcc for
-Hopper (``sm_90a``) into one shared library with a plain C interface,
-under ``build/multih_tpu_torch/`` at the repository root, named by a hash
-of the sources and flags — an unchanged tree reuses its build. The
+Hopper (``sm_90a``), one nvcc process per source, all started together,
+and the objects are linked into one shared library with a plain C
+interface, under ``build/multih_tpu_torch/`` at the repository root,
+named by a hash of the sources and flags — an unchanged tree reuses its
+build. The
 library is loaded with ctypes: every pointer and the CUDA stream go in as
 ``c_void_p``, and every entry point returns ``cudaGetLastError()`` after
 its launch, which `check` turns into an exception.
@@ -30,16 +32,20 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "multih_tpu_torch"
 FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # entry point -> argtypes; each returns cudaError_t as int
 _SIGNATURES = {
     "multih_inlier_counts": [_P, _I, _P, _I, _P, _I, _P, _P],
     "multih_dlt_4pt": [_P, _I, _P, _P],
     "multih_eig9_smallest": [_P, _I, _P, _P],
+    "multih_mean_field": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P],
+    "multih_icm": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P],
+    "multih_window_gather": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
 }
 
 
@@ -85,20 +91,31 @@ def load():
     log_path = so.with_suffix(".log")
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *FLAGS, "-o", tmp, *map(str, srcs)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stderr}"
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+            t0 = time.perf_counter()
+            objs = [Path(tmpdir) / f"{p.stem}.o" for p in srcs]
+            procs = [
+                subprocess.Popen([_nvcc(), *FLAGS, "-c", str(p), "-o",
+                                  str(o)], stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+                for p, o in zip(srcs, objs)
+            ]
+            logs = [proc.communicate()[0] for proc in procs]
+            log = "".join(logs)
+            failed = [p.name for p, proc in zip(srcs, procs)
+                      if proc.returncode != 0]
+            if failed:
+                raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+            tmp = Path(tmpdir) / so.name
+            proc = subprocess.run(
+                [_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)],
+                capture_output=True, text=True,
             )
-        os.replace(tmp, so)  # atomic: concurrent builders agree
-        log_path.write_text(proc.stdout + proc.stderr)
-        _Library.seconds = seconds
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc link failed:\n{proc.stderr}")
+            _Library.seconds = time.perf_counter() - t0
+            log_path.write_text(log)
+            os.replace(tmp, so)  # atomic: concurrent builders agree
     _Library.log = log_path.read_text() if log_path.exists() else ""
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():

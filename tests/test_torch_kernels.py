@@ -20,8 +20,13 @@ import torch
 import multih_tpu_torch as mt
 from multih_tpu_torch.ops import geometry as tgeo
 from multih_tpu_torch.ops.kernels import dlt_kernel as tdlt
+from multih_tpu_torch.models import labeling as tlab
+from multih_tpu_torch.models import pipeline as tpipe
 from multih_tpu_torch.ops.kernels import eig_kernel as teig
+from multih_tpu_torch.ops.kernels import gather_kernel as tgather
+from multih_tpu_torch.ops.kernels import mrf_kernel as tmrf
 from multih_tpu_torch.ops.kernels import residual_kernel as tres
+from multih_tpu_torch.ops import sampling as tsamp
 from multih_tpu_torch.ops.sampling import TorchDraws
 from multih_tpu_torch.utils import data as tdata
 from multih_tpu_torch.utils import evaluation
@@ -78,6 +83,30 @@ def normal_matrices(rng, c):
                                   t(x2.astype(np.float32))).numpy()
 
 
+def windowed_band(rng, n, block, device, invalid=30):
+    """Morton-sorted random points on `device` with their windowed k-NN
+    graph and its far-free band, as the fit builds them."""
+    x1 = t(rng.uniform(0, 100, (n, 2)).astype(np.float32)).to(device)
+    x2 = x1 + t(rng.normal(0, 2.0, (n, 2)).astype(np.float32)).to(device)
+    valid = torch.ones(n, device=device)
+    valid[n - invalid:] = 0.0
+    perm = tpipe.morton_order(x1, valid)
+    x1, x2, valid = x1[perm], x2[perm], valid[perm]
+    nbr_idx, nbr_w = tlab.knn_graph_windowed(x1, valid, 6, block)
+    adj = tlab.build_banded_adjacency(nbr_idx, nbr_w, block, far_capacity=0)
+    return x1, x2, valid, nbr_idx, adj
+
+
+def mrf_inputs(rng, n, block, l, device):
+    """(dct, q0, base, band) of a mean-field / ICM call, sw = 0.1."""
+    _, _, valid, _, adj = windowed_band(rng, n, block, device)
+    dct = t(rng.uniform(0, 2.0, (l, n)).astype(np.float32)).to(device) \
+        * valid[None, :]
+    q0 = torch.softmax(-dct / 2.0, dim=0).contiguous()
+    base = (dct + 0.1 * adj.deg.T).contiguous()
+    return dct, q0, base, adj.band
+
+
 def sign_aligned_err(ref, got):
     sign = np.sign(np.sum(ref * got, axis=1, keepdims=True))
     return np.abs(ref - got * sign).max()
@@ -132,6 +161,54 @@ class TestCudaKernels:
         ref = teig.smallest_eigvec_9x9_batch_reference(atas).cpu().numpy()
         assert sign_aligned_err(ref, got) < 1e-4
 
+    @pytest.mark.parametrize("n,block,l,sweeps", [
+        (512, 256, 17, 6), (2048, 128, 17, 4), (1024, 64, 9, 1),
+    ])
+    def test_mean_field_kernel(self, rng, cuda_device, n, block, l, sweeps):
+        """q within 1e-5 max-abs of the plain version (the band product
+        sums in another order)."""
+        _, q0, base, band = mrf_inputs(rng, n, block, l, cuda_device)
+        inv_t = t((1.0 / np.geomspace(2.0, 0.25, sweeps)).astype(
+            np.float32)).to(cuda_device)
+        before = tmrf.mean_field_fused.launches
+        got = tmrf.mean_field_fused(q0, base, band, inv_t, 0.1)
+        assert tmrf.mean_field_fused.launches == before + 1
+        ref = tmrf.mean_field_fused_reference(q0, base, band, inv_t, 0.1)
+        assert float((got - ref).abs().max()) <= 1e-5
+
+    @pytest.mark.parametrize("n,block,l,iterations", [
+        (512, 256, 17, 2), (2048, 128, 17, 1), (1024, 64, 9, 3),
+    ])
+    def test_icm_kernel(self, rng, cuda_device, n, block, l, iterations):
+        """Labels equal the plain version's exactly."""
+        dct, q0, base, band = mrf_inputs(rng, n, block, l, cuda_device)
+        starts = torch.stack([torch.argmin(dct, 0), torch.argmax(q0, 0),
+                              t(rng.integers(0, l, n)).to(cuda_device)]
+                             ).to(torch.int32).contiguous()
+        got = tmrf.icm_fused(starts, base, band, iterations, 0.1)
+        ref = tmrf.icm_fused_reference(starts, base, band, iterations, 0.1)
+        assert torch.equal(got, ref)
+        assert bool((got != starts).any())
+
+    @pytest.mark.parametrize("mode", ["index", "rank"])
+    def test_window_gather_kernel(self, rng, cuda_device, mode):
+        """Bit-exact, out-of-range picks and exhausted windows included."""
+        x1, x2, valid, nbr_idx, _ = windowed_band(rng, 2048, 128,
+                                                  cuda_device)
+        avail = valid.clone()
+        avail[:600] = 0.0
+        win = tsamp.window_source(x1, x2, avail, nbr_idx, 128)
+        # windowed_quadruples gathers by index from the first 8 channels
+        win = (win[:, :, :8] if mode == "index" else win).contiguous()
+        nb, rows, _ = win.shape
+        sel = t(rng.integers(-2, rows + 3, (nb, 777)).astype(np.int32)).to(
+            cuda_device)
+        got = tgather.window_gather(win, sel, mode)
+        ref = tgather.window_gather_reference(win, sel, mode)
+        assert torch.equal(got, ref)
+        zero = (ref == 0).all(1)
+        assert bool(zero.any()) and not bool(zero.all())
+
     def test_wrappers_reject_bad_input(self, cuda_device):
         with pytest.raises(ValueError):
             tdlt.homography_4pt_packed(
@@ -145,6 +222,20 @@ class TestCudaKernels:
                 torch.zeros((8, 9), device=cuda_device),
                 torch.zeros((5, 64), device=cuda_device),
                 torch.tensor(9.0, device=cuda_device))
+        band = torch.zeros((2, 64, 192), device=cuda_device)
+        base = torch.zeros((3, 128), device=cuda_device)
+        with pytest.raises(ValueError):  # band does not fit N
+            tmrf.mean_field_fused(base, base, band[:1], torch.ones(
+                2, device=cuda_device), 0.1)
+        with pytest.raises(ValueError):  # labels must be int32
+            tmrf.icm_fused(torch.zeros((2, 128), dtype=torch.int64,
+                                       device=cuda_device), base, band, 1,
+                           0.1)
+        with pytest.raises(ValueError):
+            tgather.window_gather(torch.zeros((2, 192, 8),
+                                              device=cuda_device),
+                                  torch.zeros((2, 5), dtype=torch.int32,
+                                              device=cuda_device), "row")
 
 
 # ---------------------------------------------------------------------------
@@ -153,8 +244,9 @@ class TestCudaKernels:
 
 @pytest.fixture(scope="module")
 def golden_suite():
-    """Every suite scene fitted by the port at the slice config with the
-    golden tau, 3 keys (6 below 200 points): {name: (mean
+    """Every suite scene fitted by the port at the default config, the
+    config the goldens were made at, with the golden tau, 3 keys (6
+    below 200 points): {name: (mean
     misclassification, golden's, agreement with the golden labels on key
     0, n_points)}. On the GPU when there is one.
 
@@ -169,8 +261,7 @@ def golden_suite():
     for row in tdata.SUITE:
         cs = tdata.suite_scene(row[0])
         npad = 1 << max(9, (cs.n_points - 1).bit_length())
-        cfg = mt.MultiHConfig(max_points=npad, knn_window=False,
-                              knn_approx=False)
+        cfg = mt.MultiHConfig(max_points=npad)
         f = mt.make_fit_tau(cfg)
         g = np.load(os.path.join(GOLDENS, f"{cs.name}.npz"))
         args = [t(a).to(dev) for a in mt.pad_points(cs.x1, cs.x2, None,

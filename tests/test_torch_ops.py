@@ -77,9 +77,9 @@ class KeyDraws:
         return t(np.array(jax.random.randint(
             k_seed, (n_samples,), 0, max(int(n_valid), 1)))).long()
 
-    def gumbel(self, stream, n_samples, k, device):
+    def gumbel(self, stream, shape, device):
         _, k_nbr = jax.random.split(self.keys(stream)[1])
-        return t(np.array(jax.random.gumbel(k_nbr, (n_samples, k))))
+        return t(np.array(jax.random.gumbel(k_nbr, shape)))
 
 
 # ---------------------------------------------------------------------------
@@ -118,7 +118,10 @@ class TestPlumbing:
     def test_import_leaves_no_jax(self):
         code = ("import sys, multih_tpu_torch, multih_tpu_torch.ops.kernels."
                 "residual_kernel, multih_tpu_torch.ops.kernels.dlt_kernel, "
-                "multih_tpu_torch.ops.kernels.eig_kernel; "
+                "multih_tpu_torch.ops.kernels.eig_kernel, "
+                "multih_tpu_torch.ops.kernels.mrf_kernel, "
+                "multih_tpu_torch.ops.kernels.gather_kernel, "
+                "multih_tpu_torch.ops.sampling; "
                 "print(sorted(m for m in sys.modules "
                 "if m == 'jax' or m.startswith(('jax.', 'multih_tpu.'))))")
         out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

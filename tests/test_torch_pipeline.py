@@ -58,7 +58,8 @@ def fits():
         key = jax.random.key(seed)
         jr = jax.device_get(jf(x1, x2, valid, key))
         tr = mt.fit(x1, x2, valid,
-                    JaxReplayDraws(key, jcfg.progressive_rounds), tcfg)
+                    JaxReplayDraws(key, jcfg.progressive_rounds), tcfg,
+                    device="cpu")
         out[seed] = (jr, tr, cs)
     return out
 
@@ -138,7 +139,8 @@ def stress_shaped_fits():
         x1, x2, valid, gt = mt.pad_points(cs.x1, cs.x2, cs.gt_labels, 512)
         key = jax.random.key(seed)
         jr = jax.device_get(jf(x1, x2, valid, key))
-        tr = mt.fit(x1, x2, valid, JaxReplayDraws(key, 2), tcfg)
+        tr = mt.fit(x1, x2, valid, JaxReplayDraws(key, 2), tcfg,
+                    device="cpu")
         out[seed] = (jr, tr, gt)
     return out
 
@@ -200,6 +202,12 @@ def test_stage_inputs_match(fits):
         np.testing.assert_array_equal(tw.numpy(), np.asarray(jw))
 
 
+# the default config's graph path at each size (knn_approx is on by
+# default; the port builds the exact graph for it)
+DEFAULT_GRAPH = {256: "row_blocked_approx", 200: "row_blocked_approx",
+                 512: "windowed"}
+
+
 @pytest.mark.parametrize("n_pts,expect", [
     (256, "row_blocked"), (200, "row_blocked"), (512, "row_blocked"),
 ])
@@ -213,18 +221,19 @@ def test_gates_match_reference(n_pts, expect):
                                                                    n_pts)
     cfg = mt.MultiHConfig(knn_window=False, knn_approx=False)
     assert tpipe.graph_path(cfg, n_pts) == expect
+    assert tpipe.graph_path(mt.MultiHConfig(), n_pts) == DEFAULT_GRAPH[n_pts]
     assert not tpipe._kernels_enabled(cfg, torch.device("cpu"))
 
 
 @pytest.mark.parametrize("kw", [
     dict(model="fundamental"),
-    dict(),                                # windowed graph (default)
-    dict(knn_window=False, window_sampling=True),
+    dict(mrf_fused_front=True),            # at the default (windowed) graph
+    dict(refit_moments=False),
     dict(knn_window=False, mrf_fused_front=True),
     dict(knn_window=False, refit_moments=False),
     dict(knn_window=False, agree_block=0),  # gather-path labeling
-], ids=["fundamental", "windowed", "window_sampling", "fused_front",
-        "direct_refit", "gather_labeling"])
+], ids=["fundamental", "fused_front_windowed", "direct_refit_windowed",
+        "fused_front", "direct_refit", "gather_labeling"])
 def test_out_of_slice_raises(kw):
     cfg = mt.MultiHConfig(max_points=512, **kw)
     z = torch.zeros((512, 2))
