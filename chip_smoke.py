@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port of the homography fit on one GPU.
+"""Drive the PyTorch + CUDA port of the Multi-H fit on one GPU: the
+homography fit and the fundamental (multi-motion) fit.
 
 Run from the repository root on a host with a CUDA card and the CUDA
 toolkit:
 
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --profile  # also torch.profiler breakdowns of
-                                     # the N=512 and stress fits
+                                     # the N=512, stress and motion fits
 
 Phases, each raising on failure:
   1. environment: torch / CUDA / nvcc / triton, the card's name and power
@@ -14,7 +15,9 @@ Phases, each raising on failure:
   2. build: nvcc compiles multih_tpu_torch/csrc/*.cu, one process per
      source (build seconds and the ptxas register / spill report);
   3. kernel parity: every kernel against its plain PyTorch version on the
-     card at the main paths' shapes, with kernel, plain and (where one
+     card at the main paths' shapes (K1 also at its epipolar kinds on the
+     motion fit's verify shape, K3 also on the F normal matrices of a
+     real refit in a motion fit), with kernel, plain and (where one
      PyTorch call computes the same function) library times, medians of
      CUDA-event timings, beside each kernel's bound: the larger of its
      bytes (inputs read once, outputs written once) at 3.35 TB/s and its
@@ -29,7 +32,14 @@ Phases, each raising on failure:
      n_candidates=256, max_labels=16)'s settings (window sampling, the
      windowed graph; 10k points, 70% outliers, 8 planes), with all six
      kernels launched; then the same scene once at the side config
-     (row-blocked exact graph past N=4096, band with far edges; K1-K3).
+     (row-blocked exact graph past N=4096, band with far edges; K1-K3);
+  6. the fundamental-model fit: the motion suite's config
+     MultiHConfig(model="fundamental", residual="sampson",
+     n_hypotheses=2048, max_points=512) on fm2_b and fm4_a, 3 keys each,
+     against the motion goldens (motion count exact on every key, mean
+     misclassification within 2.0 pp), with the launches of every fit
+     (K1 at f_sampson, K3, K4, K5; no K2, no K7), and the warm fit
+     latency on fm4_a.
 Then one JSON line of per-kernel results, the card line, and the last
 line {"ok": true, "device": {...}}. Without a CUDA device, or outside
 the repository, it exits nonzero and prints no result.
@@ -50,10 +60,15 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_SCENES = (("easy2_a", 512), ("med3_a", 512), ("hard5_a", 1024))
+MOTION_SCENES = ("fm2_b", "fm4_a")
 KERNELS = {
     "inlier_counts": dict(
         source="multih_tpu_torch/csrc/residual_kernel.cu",
         replaces="multih_tpu/ops/kernels/residual_kernel.py:242"),
+    # K1's epipolar kinds: the same kernel and launch, an `f_` kind
+    "inlier_counts_f": dict(
+        source="multih_tpu_torch/csrc/residual_kernel.cu",
+        replaces="multih_tpu/ops/kernels/residual_kernel.py:142"),
     "dlt_4pt": dict(
         source="multih_tpu_torch/csrc/dlt_kernel.cu",
         replaces="multih_tpu/ops/kernels/dlt_kernel.py:138"),
@@ -76,9 +91,10 @@ PEAK_BYTES_S = 3.35e12
 PEAK_FLOP_S = 67e12
 # operations per (hypothesis, point) pair of the count kernel, counted
 # from the residual formulas of csrc/residual_kernel.cu (mul, add, div,
-# compare each one); per 4-point DLT solve and per 9x9 eigensolve from
-# the notes of csrc/dlt_kernel.cu and csrc/eig_kernel.cu
-COUNT_OPS = {"symmetric": 40, "transfer": 20, "sampson": 52}
+# max, compare each one); per 4-point DLT solve and per 9x9 eigensolve
+# from the notes of csrc/dlt_kernel.cu and csrc/eig_kernel.cu
+COUNT_OPS = {"symmetric": 40, "transfer": 20, "sampson": 52,
+             "f_symmetric": 39, "f_transfer": 25, "f_sampson": 37}
 DLT_OPS = 1500
 EIG_OPS = 13000
 
@@ -252,10 +268,81 @@ def _normal_matrices(rng, c):
         torch.from_numpy(x2.astype(np.float32)))
 
 
+def _motion_points(name, n_pad, device):
+    import torch
+
+    from multih_tpu_torch import pad_points
+    from multih_tpu_torch.utils import data
+
+    cs = data.motion_suite_scene(name)
+    return [torch.from_numpy(a).to(device)
+            for a in pad_points(cs.x1, cs.x2, None, n_pad)]
+
+
+def _f_refit_normal_matrices(dev):
+    """(256, 9, 9) normal matrices of a real F refit on the card: the
+    first C=256 batch that one motion fit on fm4_a hands the eigensolve
+    (the LO refine of the 256 top-counted hypotheses), taken as it is
+    handed over."""
+    from multih_tpu_torch import make_fit_tau
+    from multih_tpu_torch.ops import geometry
+
+    seen = []
+    solve = geometry.smallest_eigvecs
+
+    def capture(atas, *args):
+        if atas.shape[0] == 256 and not seen:
+            seen.append(atas.clone())
+        return solve(atas, *args)
+
+    geometry.smallest_eigvecs = capture
+    try:
+        make_fit_tau(motion_cfg(512))(*_motion_points("fm4_a", 512, dev),
+                                      _cpu_draws(0), 3.0)
+    finally:
+        geometry.smallest_eigvecs = solve
+    check(len(seen) == 1, "the motion fit made no C=256 refit")
+    return seen[0].contiguous()
+
+
+def eig_parity(atas, got, ref):
+    """Hold eigensolver results on F normal matrices. Their smallest
+    eigenvalue gap is down to ~6e-5 of the largest, so float32 fixes the
+    smallest eigenvector only to the first-order floor eps32 * lam_max /
+    (lam_2 - lam_1), up to ~2e-3: the kernel must be within twice that
+    floor of float64 eigh on every matrix (the plain Jacobi and float32
+    eigh reach about half of it, measured on the CPU), and within 1e-4
+    of the plain version where the floor is below 1e-5. Returns (max-abs
+    error vs the plain version on those, their count, the largest
+    error / floor of kernel and plain, the max-abs error vs the plain
+    version over all)."""
+    import torch
+
+    ev, vec = torch.linalg.eigh(atas.double())
+    v64 = vec[..., 0]
+    floor = torch.finfo(torch.float32).eps * ev[:, -1] / (ev[:, 1] - ev[:, 0])
+
+    def err(v, to):
+        sign = torch.sign((v.double() * to).sum(1, keepdim=True))
+        return (v.double() * sign - to).abs().amax(1)
+
+    ratio_k = float((err(got, v64) / floor).nan_to_num(0.0).max())
+    ratio_p = float((err(ref, v64) / floor).nan_to_num(0.0).max())
+    check(ratio_k <= 2.0, f"eig kernel on F normal matrices: {ratio_k:.3g} "
+          f"times the float32 floor from float64 eigh")
+    well = floor < 1e-5
+    check(int(well.sum()) > 0, "no well-conditioned F normal matrix")
+    e_all = err(got, ref.double())
+    e_well = float(e_all[well].max())
+    check(e_well <= 1e-4, f"eig kernel on well-conditioned F normal "
+          f"matrices: max abs err {e_well} vs the plain version")
+    return e_well, int(well.sum()), ratio_k, ratio_p, float(e_all.max())
+
+
 def phase_kernels(dev):
     import torch
 
-    from multih_tpu_torch.ops import geometry
+    from multih_tpu_torch.ops import fmodel, geometry
     from multih_tpu_torch.ops.kernels import dlt_kernel, eig_kernel
     from multih_tpu_torch.ops.kernels import residual_kernel as rk
 
@@ -302,6 +389,30 @@ def phase_kernels(dev):
                        reps=5),
                4 * (s * 9 + 5 * n + s), s * n * COUNT_OPS[kind])
 
+    # K1's epipolar kinds at the motion fit's verify shape (2048
+    # hypotheses + 3 claims x 512 points), F's solved from 8-point
+    # samples of the fm4_a scene
+    x1, x2, valid = _motion_points("fm4_a", 512, dev)
+    n_valid = int(valid.sum())
+    for kind in ("f_sampson", "f_symmetric", "f_transfer"):
+        s = 2051
+        idx = torch.from_numpy(rng.integers(0, n_valid, (s, 8))).to(dev)
+        Fs = fmodel.fundamental_8pt_batch_qr(x1[idx], x2[idx]).contiguous()
+        got = rk.inlier_counts_padded(Fs, x1, x2, valid, thr, kind=kind)
+        ref = rk.inlier_counts_reference(Fs, x1, x2, valid, thr, kind)
+        d = (got - ref).abs()
+        check(float(ref.max()) > 0, "no inliers in the F count check")
+        check(float(d.max()) <= 2.0 and float(d.mean()) < 0.5,
+              f"count kernel {kind} {s}x512: max {float(d.max())} "
+              f"mean {float(d.mean())}")
+        record("inlier_counts_f", f"{s}x512 {kind}", float(d.max()),
+               cuda_ms(lambda: rk.inlier_counts_padded(Fs, x1, x2, valid,
+                                                       thr, kind=kind)),
+               cuda_ms(lambda: rk.inlier_counts_reference(Fs, x1, x2, valid,
+                                                          thr, kind),
+                       reps=5),
+               4 * (s * 9 + 5 * 512 + s), s * 512 * COUNT_OPS[kind])
+
     # K2: minimal solves per progressive round, default and stress
     for s in (512, 51200):
         p1, p2 = _quads(rng, s)
@@ -332,6 +443,22 @@ def phase_kernels(dev):
                    atas), reps=5),
                4 * 90 * c, EIG_OPS * c,
                lib_ms=cuda_ms(lambda: torch.linalg.eigh(atas)))
+    # K3 on F normal matrices: the 256 of a real F refit on fm4_a (their
+    # smallest eigenvalue gaps differ from the homography ones')
+    atas = _f_refit_normal_matrices(dev)
+    got = eig_kernel.smallest_eigvec_9x9_batch(atas)
+    ref = eig_kernel.smallest_eigvec_9x9_batch_reference(atas)
+    err, n_well, ratio_k, ratio_p, err_all = eig_parity(atas, got, ref)
+    print(f"  eig on F normal matrices: {n_well} of 256 with a float32 "
+          f"floor below 1e-5; error / floor vs float64 eigh at most: kernel "
+          f"{ratio_k:.3g}, plain {ratio_p:.3g}; max abs err vs the plain "
+          f"version over all 256 {err_all:.3g}")
+    record("eig9_smallest", "C=256 F normal matrices", err,
+           cuda_ms(lambda: eig_kernel.smallest_eigvec_9x9_batch(atas)),
+           cuda_ms(lambda: eig_kernel.smallest_eigvec_9x9_batch_reference(
+               atas), reps=5),
+           4 * 90 * 256, EIG_OPS * 256,
+           lib_ms=cuda_ms(lambda: torch.linalg.eigh(atas)))
 
     mrf_kernels(rng, dev, record)
     gather_kernels(rng, dev, record)
@@ -495,18 +622,28 @@ def _wrappers():
     }
 
 
-def count_launches(label: str, expect, fn):
+def count_launches(label: str, expect, fn, quiet: bool = False):
     """Run fn() with every kernel's launch count set to 0 just before and
-    read just after; fail unless each kernel in `expect` launched."""
+    read just after; fail unless each kernel in `expect` launched. K1's
+    launches are split by residual kind: `inlier_counts` counts the
+    homography kinds, `inlier_counts_f` the epipolar (f_) kinds."""
     import torch
 
     wrappers = _wrappers()
     for w in wrappers.values():
         w.launches = 0
+    k1 = wrappers["inlier_counts"]
+    k1.kind_launches = {}
     out = fn()
     torch.cuda.synchronize()
     launches = {k: w.launches for k, w in wrappers.items()}
-    print(f"kernel launches on the {label} path:", launches)
+    f_kinds = {k: v for k, v in k1.kind_launches.items()
+               if k.startswith("f_")}
+    launches["inlier_counts_f"] = sum(f_kinds.values())
+    launches["inlier_counts"] -= launches["inlier_counts_f"]
+    if not quiet:
+        print(f"kernel launches on the {label} path:", launches,
+              "K1 by kind:", k1.kind_launches)
     for k in expect:
         check(launches[k] > 0, f"kernel {k} never launched on the {label} "
               f"path")
@@ -618,11 +755,19 @@ def phase_fits(dev):
         "N=512 easy2_a, default config", lambda: f(*args, gen, tau))
 
 
+STAGES = ("knn_graph", "banded_adjacency", "sampling_knn", "hypothesize",
+          "verify", "lo_refine", "select", "pearl", "split_refine",
+          "union_refit_merge", "f_refine_phases", "finalize")
+
+
 def _profile(label: str, fn, reps: int = 5):
     """torch.profiler over `reps` warm calls of fn: device time by op and
-    kernel (the table's 'Self CUDA time total' is the device busy time),
-    and each record_function stage's host time per call."""
+    kernel, the device busy time (the table's 'Self CUDA time total': the
+    self device time of the device events, without the record_function
+    annotations, whose device ranges span their stage's wall time), and
+    each stage's host time per call."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     print(f"== profile: {label}, {reps} fits")
@@ -633,10 +778,12 @@ def _profile(label: str, fn, reps: int = 5):
         torch.cuda.synchronize()
     ka = prof.key_averages()
     print(ka.table(sort_by="self_cuda_time_total", row_limit=20))
-    stages = ("knn_graph", "banded_adjacency", "sampling_knn", "hypothesize",
-              "verify", "lo_refine", "select", "pearl", "finalize")
+    busy = sum(e.self_device_time_total for e in ka
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False))
+    print(f"device busy {busy / reps / 1e3:.3f} ms/fit ({reps} fits)")
     for e in ka:
-        if e.key in stages and e.cpu_time_total > 0:
+        if e.key in STAGES and e.cpu_time_total > 0:
             print(f"stage {e.key:17s} host {e.cpu_time_total / reps / 1e3:9.3f}"
                   f" ms/fit")
 
@@ -669,8 +816,9 @@ def phase_stress(dev):
     f = mt.make_fit(cfg)
     gen = torch.Generator(device=dev).manual_seed(0)
     t0 = time.perf_counter()
-    res, launches = count_launches("stress", tuple(KERNELS),
-                                   lambda: f(*args, gen))
+    res, launches = count_launches(
+        "stress", tuple(k for k in KERNELS if k != "inlier_counts_f"),
+        lambda: f(*args, gen))
     cold = (time.perf_counter() - t0) * 1e3
     check(bool(torch.isfinite(res.homographies).all()), "non-finite H")
     lab = res.labels.cpu().numpy()
@@ -711,10 +859,88 @@ def phase_stress(dev):
             lambda: _profile("stress", lambda: f(*args, gen), reps=2))
 
 
+def motion_cfg(npad: int):
+    """The motion suite's config (tests/test_golden_parity.py:145-148)."""
+    from multih_tpu_torch import MultiHConfig
+
+    return MultiHConfig(max_points=npad, n_hypotheses=2048,
+                        model="fundamental", residual="sampson")
+
+
+def phase_motion(dev):
+    import torch
+
+    import multih_tpu_torch as mt
+    from multih_tpu_torch.utils import data, evaluation
+
+    print("== 6. the fundamental (multi-motion) fit on the card")
+    expect = ("inlier_counts_f", "eig9_smallest", "mean_field_fused",
+              "icm_fused")
+    cfg = motion_cfg(512)
+    f = mt.make_fit_tau(cfg)
+    per_fit, results, path = [], {}, {}
+
+    for name in MOTION_SCENES:
+        g = np.load(os.path.join(ROOT, "tests", "goldens", f"{name}.npz"))
+        cs = data.motion_suite_scene(name)
+        args = _motion_points(name, 512, dev)
+        tau = float(g["inlier_threshold"])
+        counts, errs = [], []
+        for k in range(3):
+            # the CPU generator of key k, as tests/test_torch_motion.py
+            res, fit_launches = count_launches(
+                f"motion {name} key {k}", expect,
+                lambda: f(*args, _cpu_draws(k), tau), quiet=True)
+            check(fit_launches["inlier_counts"] == 0
+                  and fit_launches["dlt_4pt"] == 0
+                  and fit_launches["window_gather"] == 0,
+                  f"motion fit launched a homography-path kernel: "
+                  f"{fit_launches}")
+            per_fit.append(fit_launches)
+            for kname, c in fit_launches.items():
+                path[kname] = path.get(kname, 0) + c
+            check(bool(torch.isfinite(res.homographies).all()),
+                  "non-finite F")
+            lab = res.labels.cpu().numpy()[: cs.n_points]
+            check(lab.min() >= 0 and lab.max() <= cfg.max_labels,
+                  "labels range")
+            counts.append(int(res.active.sum()))
+            errs.append(evaluation.misclassification_error(
+                lab, cs.gt_labels, cfg.max_labels))
+        golden_err = float(g["misclassification"])
+        golden_n = int(g["n_planes"])
+        delta = float(np.mean(errs)) - golden_err
+        results[name] = dict(counts=counts, misclassification=errs,
+                             golden_misclassification=golden_err,
+                             golden_motions=golden_n, delta=delta)
+        print(f"motion {name} (tau {tau}): motions {counts} (golden "
+              f"{golden_n}), misclassification {np.mean(errs):.3f}% "
+              f"(golden {golden_err:.3f}%), delta {delta:+.3f} pp")
+        check(counts == [golden_n] * 3, f"{name}: motion counts {counts}, "
+              f"golden {golden_n}")
+        check(abs(delta) <= 2.0, f"{name}: delta {delta:+.3f} pp > 2.0")
+    print("kernel launches per motion fit:",
+          [{k: v for k, v in c.items() if v} for c in per_fit])
+    print("kernel launches on the motion path:", path)
+
+    # warm fit latency, fm4_a, host clock to synchronize
+    args = _motion_points("fm4_a", 512, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    times = host_ms(lambda: f(*args, gen, 3.0), reps=10)
+    lat = dict(median_ms=statistics.median(times), min_ms=min(times),
+               max_ms=max(times), reps=len(times))
+    print(f"warm motion fit latency fm4_a N=512: median {lat['median_ms']:.2f}"
+          f" ms (min {lat['min_ms']:.2f}, max {lat['max_ms']:.2f}, "
+          f"{len(times)} fits)")
+    out = dict(scenes=results, latency_fm4_a=lat, launches_per_fit=per_fit)
+    return out, path, lambda: _profile(
+        "N=512 fm4_a, motion config", lambda: f(*args, gen, 3.0))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile the N=512 and the stress fits")
+                    help="also profile the N=512, stress and motion fits")
     args = ap.parse_args(argv)
 
     import torch
@@ -732,9 +958,11 @@ def main(argv=None) -> int:
     launches, latency, profile_fit = phase_fits(dev)
     (stress, launches["stress"], launches["side_stress"],
      profile_stress) = phase_stress(dev)
+    motion, launches["motion"], profile_motion = phase_motion(dev)
     if args.profile:
         profile_fit()
         profile_stress()
+        profile_motion()
 
     rows = []
     for name, meta in KERNELS.items():
@@ -751,7 +979,7 @@ def main(argv=None) -> int:
             shape=main_shape["shape"], shapes=kernels[name]["shapes"],
         ))
     print(json.dumps({"kernels": rows, "fit_latency_n512": latency,
-                      "stress": stress}))
+                      "stress": stress, "motion": motion}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,11 @@
 // the (S, N) residual matrix never materialised.
 //
 // Replaces the TPU kernel multih_tpu/ops/kernels/residual_kernel.py
-// (_count_kernel, launched by inlier_counts). Homography kinds only:
+// (_count_kernel, launched by inlier_counts), every kind. Homographies:
 // 0 = symmetric transfer (forward + adjugate back-transfer), 1 = forward
-// transfer, 2 = Sampson.
+// transfer, 2 = Sampson. Fundamental matrices (F row-major in the same
+// (S, 9) layout): 3 = symmetric epipolar distance, 4 = one-sided
+// epipolar distance, 5 = Sampson.
 //
 // Bound on the H100: fp32 arithmetic and division. Each pair costs
 // ~20-40 flops plus one or two IEEE divisions and reads nothing from
@@ -37,6 +39,25 @@ template <int KIND>
 __device__ __forceinline__ float residual(const float* h, const float* a,
                                           float x, float y, float u,
                                           float v) {
+  if (KIND >= 3) {  // fmodel.residual_matrix_f
+    // epiline in image 2, l = F x1h; constraint value e = x2h . l
+    const float l0 = h[0] * x + h[1] * y + h[2];
+    const float l1 = h[3] * x + h[4] * y + h[5];
+    const float l2 = h[6] * x + h[7] * y + h[8];
+    const float e = u * l0 + v * l1 + l2;
+    const float e2 = e * e;
+    const float dl = l0 * l0 + l1 * l1;
+    if (KIND == 4) return e2 / fmaxf(dl, kEps);
+    // epiline in image 1, m = F^T x2h
+    const float m0 = h[0] * u + h[3] * v + h[6];
+    const float m1 = h[1] * u + h[4] * v + h[7];
+    const float dm = m0 * m0 + m1 * m1;
+    if (KIND == 3) return e2 / fmaxf(dl, kEps) + e2 / fmaxf(dm, kEps);
+    // Sampson clamps the SUM of both normals, as the jnp residual does
+    // (fmodel.py:109-110); the TPU kernel clamps each before adding.
+    // The two differ only where both epilines vanish.
+    return e2 / fmaxf(dl + dm, kEps);
+  }
   if (KIND == 2) {  // Sampson, geometry.sampson_error_sq_h
     const float hx0 = h[0] * x + h[1] * y + h[2];
     const float hx1 = h[3] * x + h[4] * y + h[5];
@@ -141,6 +162,18 @@ extern "C" int multih_inlier_counts(const float* hs, int s, const float* pts,
       break;
     case 2:
       count_kernel<2><<<grid, kThreads, 0, st>>>(hs, s, pts, n, chunk, thr,
+                                                 out);
+      break;
+    case 3:
+      count_kernel<3><<<grid, kThreads, 0, st>>>(hs, s, pts, n, chunk, thr,
+                                                 out);
+      break;
+    case 4:
+      count_kernel<4><<<grid, kThreads, 0, st>>>(hs, s, pts, n, chunk, thr,
+                                                 out);
+      break;
+    case 5:
+      count_kernel<5><<<grid, kThreads, 0, st>>>(hs, s, pts, n, chunk, thr,
                                                  out);
       break;
     default:

@@ -1,12 +1,14 @@
 """The Multi-H fit in PyTorch: correspondences in, per-point plane labels
-and homographies out.
+and homographies (or, for model="fundamental", motion labels and
+fundamental matrices) out.
 
-Counterpart of ``multih_tpu/models/pipeline.py::fit``, homography branch,
-stage for stage: Morton sort -> k-NN graph (windowed or exact) + banded
-adjacency -> progressive hypothesis generation (sampling + minimal 4-pt
-DLT) ->
-verification counts + top-M -> LO refine (moment refit + 9x9 eigensolve)
--> NMS select -> PEARL iterations -> finalize. Each stage is wrapped in a
+Counterpart of ``multih_tpu/models/pipeline.py::fit``, both model
+classes, stage for stage: Morton sort -> k-NN graph (windowed or exact)
++ banded adjacency -> progressive hypothesis generation (sampling +
+minimal 4-pt DLT, or 8/12-point F solves) -> verification counts + top-M
+-> LO refine (moment refit + 9x9 eigensolve) -> NMS select (coverage
+select for F) -> PEARL iterations -> for F the split move and the
+refinement phases -> finalize. Each stage is wrapped in a
 ``torch.profiler.record_function`` of the JAX ``named_scope``'s name.
 
 The fit runs eagerly and forward-only, on the card unless the caller
@@ -23,9 +25,9 @@ stable descending sort (ops.topk.top_k_stable), every argsort is
 stable, `.at[].add` scatters are index_add_, and lax.scan / fori_loop
 bodies are Python loops that never wait on the device.
 
-Out of the port so far, `fit` raises NotImplementedError: the
-fundamental model, the fused front, affine and seed hypotheses, a mesh,
-the gather-path labeling and the direct (non-moment) refit.
+Out of the port so far, `fit` raises NotImplementedError: the fused
+front, affine and seed hypotheses, a mesh, the gather-path labeling and
+the direct (non-moment) refit.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ from torch.profiler import record_function
 
 from multih_tpu_torch.config import MultiHConfig
 from multih_tpu_torch.models import labeling, selection
-from multih_tpu_torch.ops import geometry, sampling
+from multih_tpu_torch.ops import fmodel, geometry, sampling
 from multih_tpu_torch.ops.kernels import dlt_kernel, residual_kernel
 from multih_tpu_torch.ops.topk import top_k_stable
 
@@ -138,21 +140,27 @@ def graph_path(cfg: MultiHConfig, n_pts: int) -> str:
 
 
 def model_residual_matrix(Ms, x1, x2, kind, cfg: MultiHConfig):
-    """(S, 3, 3) models x (N, 2) points -> (S, N) squared residuals."""
+    """(S, 3, 3) models x (N, 2) points -> (S, N) squared residuals of the
+    configured model class."""
+    if cfg.model == "fundamental":
+        return fmodel.residual_matrix_f(Ms, x1, x2, kind)
     return geometry.residual_matrix(Ms, x1, x2, kind)
 
 
 def _prepare_refit_basis(x1, x2, cfg: MultiHConfig):
+    if cfg.model == "fundamental":
+        return fmodel.prepare_refit_f(x1, x2)
     return geometry.prepare_refit(x1, x2)
 
 
 def _refit_batch(w, basis, cfg: MultiHConfig):
-    """(C, N) weights -> (C, 3, 3) moment-formulated batched refit; the
-    eigensolve takes the kernel on CUDA (geometry.py:502-509's rule)."""
-    return geometry.homography_refit_batch(
-        w, basis, cfg.eig_method, cfg.eig_iterations,
-        eig_kernel=_kernels_enabled(cfg, w.device),
-    )
+    """(C, N) weights -> (C, 3, 3) moment-formulated batched refit of the
+    configured model class; the eigensolve takes the kernel on CUDA
+    (geometry.py:502-509's rule)."""
+    refit = (fmodel.fundamental_refit_batch if cfg.model == "fundamental"
+             else geometry.homography_refit_batch)
+    return refit(w, basis, cfg.eig_method, cfg.eig_iterations,
+                 eig_kernel=_kernels_enabled(cfg, w.device))
 
 
 # ---------------------------------------------------------------------------
@@ -161,17 +169,46 @@ def _refit_batch(w, basis, cfg: MultiHConfig):
 
 def _round_sample_indices(draws, stream, avail, nbr_idx, nbr_ok,
                           n_samples: int, m: int = 4):
-    """(S, 4) index tuples for one progressive round: the first half
-    uniform over `avail`, the second locality-biased."""
-    if m != 4:
-        raise NotImplementedError("only the homography quad sampler")
+    """(S, m) index tuples for one progressive round: the first half
+    uniform over `avail`, the second locality-biased. For m = 8/12 (the
+    fundamental model) each localized sample is TWO seed + neighbour
+    clusters of m/2 points, drawn under the streams ("loc_a", stream)
+    and ("loc_b", stream): the reference splits the localized key in two
+    (pipeline.py:185)."""
     s_local = n_samples // 2
     idx_u = sampling.sample_indices(draws, stream, n_samples - s_local,
                                     avail > 0, m=m)
-    idx_l = sampling.localized_sample_indices(
-        draws, stream, s_local, avail > 0, nbr_idx, nbr_ok
-    )
+    if m == 4:
+        idx_l = sampling.localized_sample_indices(
+            draws, stream, s_local, avail > 0, nbr_idx, nbr_ok
+        )
+    else:
+        if m not in (8, 12):
+            raise ValueError(f"sample size {m}")
+        idx_l = torch.cat([
+            sampling.localized_sample_indices(
+                draws, (half, stream), s_local, avail > 0, nbr_idx, nbr_ok,
+                cluster=m // 2,
+            ) for half in ("loc_a", "loc_b")
+        ], dim=1)
     return torch.cat([idx_u, idx_l], dim=0)
+
+
+def _solve_minimal_f(x1, x2, avail, idx, cfg: MultiHConfig):
+    """Fundamental solves for (S, m) sample indices, m = 8 by the
+    Givens-QR nullspace, m = 12 by normal equations + 9x9 eigensolve
+    (plain PyTorch on every device, as the reference solves them outside
+    any Pallas kernel). Returns (Fs (S, 3, 3), ok (S,)): ok is 0 where a
+    sample uses an unavailable point or the solve is not finite."""
+    p1, p2 = x1[idx], x2[idx]  # (S, m, 2)
+    if idx.shape[1] == 8:
+        Fs = fmodel.fundamental_8pt_batch_qr(p1, p2)
+    else:
+        Fs = fmodel.fundamental_npt_batch(p1, p2, cfg.eig_iterations,
+                                          cfg.eig_method)
+    uses_pad = (avail[idx] == 0).any(1)
+    finite = torch.isfinite(Fs.reshape(-1, 9)).all(1)
+    return Fs, (~uses_pad & finite).to(x1.dtype)
 
 
 def _solve_minimal(x1, x2, avail, idx, cfg: MultiHConfig):
@@ -217,8 +254,11 @@ def count_inliers(Hs, x1, x2, valid, cfg: MultiHConfig, tau=None,
                   kind: str | None = None):
     """Inlier counts of the whole pool without materializing (S, N): the
     count kernel on CUDA, residual_chunk-sized chunks of the plain
-    residual otherwise. `kind` overrides cfg.residual."""
+    residual otherwise. `kind` overrides cfg.residual; the fundamental
+    model's kinds carry an ``f_`` prefix (pipeline.py:506)."""
     kind = kind or cfg.residual
+    if cfg.model == "fundamental":
+        kind = f"f_{kind}"
     thr = _thr(cfg, tau, x1)
     if _kernels_enabled(cfg, x1.device):
         return residual_kernel.inlier_counts_padded(Hs, x1, x2, valid, thr,
@@ -259,9 +299,14 @@ def generate_hypotheses(draws, x1, x2, valid, nbr_idx, cfg: MultiHConfig,
             Hs_r, ok_r = _solve_from_gt(gt, cfg)
         else:
             nbr_ok = avail[nbr_idx]
-            idx = _round_sample_indices(draws, r, avail, nbr_idx, nbr_ok,
-                                        n_s)
-            Hs_r, ok_r = _solve_minimal(x1, x2, avail, idx, cfg)
+            if cfg.model == "fundamental":
+                idx = _round_sample_indices(draws, r, avail, nbr_idx, nbr_ok,
+                                            n_s, m=cfg.f_sample_points)
+                Hs_r, ok_r = _solve_minimal_f(x1, x2, avail, idx, cfg)
+            else:
+                idx = _round_sample_indices(draws, r, avail, nbr_idx, nbr_ok,
+                                            n_s)
+                Hs_r, ok_r = _solve_minimal(x1, x2, avail, idx, cfg)
         pools.append(Hs_r)
         oks.append(ok_r)
         if r == rounds - 1:
@@ -370,11 +415,12 @@ def _pearl_iteration(carry, it: int, x1, x2, valid, nbr_idx, nbr_w,
                      cfg: MultiHConfig, tau=None, adj=None):
     """One PEARL alternation: residuals -> data costs -> mean-field + ICM
     -> refit -> accept -> merge duplicates -> label-cost prune (only in
-    the second half of the iterations)."""
+    the second half of the iterations) -> for F, the union-refit merge."""
     Hs, active, q = carry
     thr = _thr(cfg, tau, x1)
     k = cfg.max_labels
     use_k = _kernels_enabled(cfg, x1.device)
+    f_model = cfg.model == "fundamental"
 
     r = model_residual_matrix(Hs, x1, x2, cfg.residual, cfg)  # (K, N)
     dct = labeling.data_costs_t(r, valid, thr, cfg.outlier_cost, active)
@@ -390,36 +436,46 @@ def _pearl_iteration(carry, it: int, x1, x2, valid, nbr_idx, nbr_w,
         adj=adj, use_kernel=use_k,
     )
 
-    # refit on assignments; accept per plane if global inliers don't drop
+    # refit on assignments; accept per plane if inliers don't drop:
+    # global inliers for homographies, the model's own members for F
+    # (a bridge must be free to purify toward its members)
     Hs_new, support = refit_planes(Hs, labels, r, x1, x2, valid, cfg, tau)
     r_new = model_residual_matrix(Hs_new, x1, x2, cfg.residual, cfg)
-    in_old = ((r < thr) * valid[None, :]).sum(1)
-    in_new = ((r_new < thr) * valid[None, :]).sum(1)
+    member_k = (labels[None, :] == torch.arange(
+        k, device=labels.device)[:, None]).to(x1.dtype) * valid[None, :]
+    acc_w = (member_k if f_model and cfg.f_member_acceptance
+             else valid[None, :])
+    in_old = ((r < thr) * acc_w).sum(1)
+    in_new = ((r_new < thr) * acc_w).sum(1)
     better = (in_new >= in_old)[:, None, None]
     Hs = torch.where(better, Hs_new, Hs)
     r_acc = torch.where(better[..., 0], r_new, r)
 
+    # containment for homographies, symmetric Jaccard for F
     active = merge_duplicate_planes(r_acc, support, active, thr,
-                                    cfg.merge_iou, containment=True)
+                                    cfg.merge_iou, containment=not f_model)
 
     # PEARL label cost: drop the plane whose removal lowers the energy
-    # the most, if any (one greedy removal for homographies), as tensor
-    # ops — the fori_loop at pipeline.py:973 with its single trip
+    # the most, if any — one greedy removal for homographies, eight
+    # rounds for F (a 7-dof F holds chance inliers on pure noise), gains
+    # recomputed after each; tensor ops, the fori_loop of
+    # pipeline.py:973 unrolled
     prune_on = it >= cfg.pearl_iterations // 2
     if prune_on:
         oh_lab = (labels[None, :] == torch.arange(
             k + 1, device=labels.device)[:, None]).to(x1.dtype)
-        dct_now = labeling.data_costs_t(r_acc, valid, thr, cfg.outlier_cost,
-                                        active)
-        member = oh_lab[:k] * valid[None, :] * active[:, None]
-        own = (oh_lab * dct_now).sum(0)
-        runner = torch.where(oh_lab > 0, float("inf"), dct_now).amin(0)
-        switch_cost = ((runner - own)[None, :] * member).sum(1)
-        gain = cfg.label_cost - switch_cost
-        worst = torch.argmax(torch.where(active > 0, gain,
-                                         float("-inf"))).view(1)
-        active = active.clone()
-        active[worst] = torch.where(gain[worst] > 0, 0.0, active[worst])
+        for _ in range(8 if f_model else 1):
+            dct_now = labeling.data_costs_t(r_acc, valid, thr,
+                                            cfg.outlier_cost, active)
+            member = oh_lab[:k] * valid[None, :] * active[:, None]
+            own = (oh_lab * dct_now).sum(0)
+            runner = torch.where(oh_lab > 0, float("inf"), dct_now).amin(0)
+            switch_cost = ((runner - own)[None, :] * member).sum(1)
+            gain = cfg.label_cost - switch_cost
+            worst = torch.argmax(torch.where(active > 0, gain,
+                                             float("-inf"))).view(1)
+            active = active.clone()
+            active[worst] = torch.where(gain[worst] > 0, 0.0, active[worst])
         # drop tiny planes once the growth phase is over
         active = active * (support >= cfg.min_inliers).to(active.dtype)
 
@@ -427,14 +483,320 @@ def _pearl_iteration(carry, it: int, x1, x2, valid, nbr_idx, nbr_w,
         labels, dct, nbr_idx, nbr_w, cfg.spatial_weight, cfg.label_cost,
         active, adj=adj,
     )
+    if f_model and cfg.f_union_merge:
+        with record_function("union_refit_merge"):
+            Hs, active = _union_refit_merge(Hs, active, member_k, r_acc, x1,
+                                            x2, thr, cfg)
     return (Hs, active, q), energy
+
+
+def _union_refit_merge(Hs, active, member_k, r_acc, x1, x2, thr,
+                       cfg: MultiHConfig):
+    """The energy-tested union-refit merge of the fundamental model
+    (pipeline.py:990-1059): all K^2 pair refits on the joint members in
+    one batched moment refit; the pair whose union F covers >= 80% of
+    both member sets and raises their data cost by less than the label
+    cost it saves, lowest increase first, merges (one per iteration)."""
+    k = cfg.max_labels
+    member_act = member_k * active[:, None]  # (K, N)
+    sup_act = member_act.sum(1)
+    w_u = (member_act[:, None, :] + member_act[None, :, :]).reshape(k * k,
+                                                                    -1)
+    Hs_u = _refit_batch(w_u, _prepare_refit_basis(x1, x2, cfg), cfg)
+    fin_u = torch.isfinite(Hs_u.reshape(k * k, -1)).all(1).reshape(k, k)
+    r_u = model_residual_matrix(Hs_u, x1, x2, cfg.residual,
+                                cfg).reshape(k, k, -1)
+    inl_u = (r_u < thr).to(x1.dtype)
+    cov_a = torch.einsum("abn,an->ab", inl_u, member_act) \
+        / torch.clamp_min(sup_act[:, None], 1.0)
+    cov_b = torch.einsum("abn,bn->ab", inl_u, member_act) \
+        / torch.clamp_min(sup_act[None, :], 1.0)
+    # data-cost increase of both member sets under the union F against
+    # their own F (the truncated quadratic of labeling.data_costs_t)
+    d_u = torch.clamp_max(r_u / thr, 8.0) * cfg.outlier_cost
+    d_own = (torch.clamp_max(r_acc / thr, 8.0) * cfg.outlier_cost
+             * member_act).sum(1)
+    delta = (torch.einsum("abn,an->ab", d_u, member_act) - d_own[:, None]
+             + torch.einsum("abn,bn->ab", d_u, member_act) - d_own[None, :])
+    m_min = float(cfg.minimal_points)
+    ids = torch.arange(k, device=x1.device)
+    ok_pair = (
+        (cov_a >= 0.8) & (cov_b >= 0.8) & fin_u
+        & (delta < cfg.label_cost)
+        & (active[:, None] > 0) & (active[None, :] > 0)
+        & (sup_act[:, None] >= sup_act[None, :])
+        & (sup_act[:, None] >= m_min) & (sup_act[None, :] >= m_min)
+        & (ids[:, None] != ids[None, :])
+    )
+    score = torch.where(ok_pair, -delta, float("-inf")).reshape(-1)
+    best = torch.argmax(score).view(1)
+    a_i, b_i = best // k, best % k
+    do = torch.isfinite(score[best])
+    active = active.clone()
+    active[b_i] = torch.where(do, 0.0, active[b_i])
+    Hs = Hs.clone()
+    Hs[a_i] = torch.where(do[:, None, None], Hs_u[best], Hs[a_i])
+    return Hs, active
+
+
+def _pearl_phase(Hs, active, q, its, x1, x2, valid, nbr_idx, nbr_w,
+                 cfg: MultiHConfig, tau, adj):
+    """PEARL iterations `its` (the lax.scan at pipeline.py:1302 and
+    :1430) as a Python loop; returns (Hs, active, q, energies)."""
+    energies = []
+    for it in its:
+        (Hs, active, q), e = _pearl_iteration(
+            (Hs, active, q), it, x1, x2, valid, nbr_idx, nbr_w, cfg, tau,
+            adj,
+        )
+        energies.append(e)
+    return Hs, active, q, energies
+
+
+def _split_refine(Hs, active, q, x1, x2, valid, nbr_idx, nbr_w,
+                  cfg: MultiHConfig, tau, adj):
+    """The fundamental model's split move (pipeline.py:1306-1435): every
+    active model's members split twelve ways (the Morton-index median,
+    mean cuts of both flow components, quartile cuts of the member
+    flow's principal axis), an F refit on each part in one batched
+    moment refit, the roster re-selected by marginal coverage from
+    {survivors + splits}, then f_split_iterations more PEARL iterations
+    with the label-cost prune on. Returns (Hs, active, q, energies)."""
+    thr = _thr(cfg, tau, x1)
+    k = cfg.max_labels
+    dev = x1.device
+    r = model_residual_matrix(Hs, x1, x2, cfg.residual, cfg)
+    dct = labeling.data_costs_t(r, valid, thr, cfg.outlier_cost, active)
+    lab_s = labeling.best_labeling_t(
+        [torch.argmax(q, dim=0), torch.argmin(dct, dim=0)],
+        dct, nbr_idx, nbr_w, cfg.spatial_weight, cfg.icm_iterations,
+        adj=adj, use_kernel=_kernels_enabled(cfg, dev),
+    )
+    member = (lab_s[None, :] == torch.arange(k, device=dev)[:, None]).to(
+        x1.dtype) * valid[None, :]  # (K, N)
+    cum = torch.cumsum(member, dim=1)
+    half = cum[:, -1:] * 0.5
+    rr = torch.clamp(r / thr, 0.0, 1.0)
+    tk = (1.0 - rr) ** 2 * (r < thr)
+    flow = x2 - x1  # (N, 2)
+    sup_m = torch.clamp_min(member.sum(1, keepdim=True), 1.0)
+
+    def axis_split(a_kn):  # member-mean cut along one per-point value
+        mean_k = (member * a_kn).sum(1, keepdim=True) / sup_m
+        return member * (a_kn <= mean_k), member * (a_kn > mean_k)
+
+    fx_lo, fx_hi = axis_split(flow[None, :, 0].expand_as(member))
+    fy_lo, fy_hi = axis_split(flow[None, :, 1].expand_as(member))
+    # leading eigenvector of each member set's 2x2 flow covariance,
+    # closed form; a degenerate one falls back to the x axis
+    mf = (member @ flow) / sup_m  # (K, 2)
+    d0 = flow[None, :, 0] - mf[:, 0:1]
+    d1 = flow[None, :, 1] - mf[:, 1:2]
+    ca = (member * d0 * d0).sum(1)
+    cb = (member * d0 * d1).sum(1)
+    cc = (member * d1 * d1).sum(1)
+    lam = 0.5 * (ca + cc) + torch.sqrt(0.25 * (ca - cc) ** 2 + cb * cb)
+    vx, vy = cb, lam - ca
+    degv = (vx.abs() + vy.abs()) < 1e-12
+    vx = torch.where(degv, 1.0, vx)
+    vy = torch.where(degv, 0.0, vy)
+    proj = vx[:, None] * flow[None, :, 0] + vy[:, None] * flow[None, :, 1]
+    # quartile cuts on the principal axis: members first (non-members
+    # sort last as +inf), the cut at floor(support * qf)
+    n_pts = member.shape[1]
+    proj_sorted = torch.sort(torch.where(member > 0, proj, float("inf")),
+                             dim=1).values
+    sup_i = member.sum(1)
+    pca_cuts = []
+    for qf in (0.25, 0.5, 0.75):
+        pos = torch.clamp((sup_i * qf).to(torch.int64), 0, n_pts - 1)
+        cut = torch.gather(proj_sorted, 1, pos[:, None])
+        pca_cuts += [member * (proj <= cut), member * (proj > cut)]
+    w_split = torch.cat(
+        [member * (cum <= half), member * (cum > half),
+         fx_lo, fx_hi, fy_lo, fy_hi] + pca_cuts, dim=0
+    ) * tk.repeat(12, 1)  # (12K, N)
+    Hs_split = _refit_batch(w_split, _prepare_refit_basis(x1, x2, cfg), cfg)
+    n_eff = (w_split > 0).to(x1.dtype).sum(1)
+    ok_split = ((n_eff >= float(cfg.minimal_points))
+                & torch.isfinite(Hs_split.reshape(-1, 9)).all(1)).to(x1.dtype)
+    cand = torch.cat([Hs, Hs_split], dim=0)  # (13K, 3, 3)
+    cand_ok = torch.cat([active, ok_split], dim=0)
+    r_cand = model_residual_matrix(cand, x1, x2, cfg.residual, cfg)
+    cand_idx, active = selection.select_candidates_coverage(
+        r_cand, valid, thr, cand_ok, cand.shape[0], k,
+        min_gain=float(cfg.min_inliers),
+    )
+    Hs = cand[cand_idx]
+    d0s = labeling.data_costs_t(r_cand[cand_idx], valid, thr,
+                                cfg.outlier_cost, active)
+    q = torch.softmax(-d0s / cfg.temperature_start, dim=0)
+    # iteration indices in the prune-enabled second half
+    return _pearl_phase(
+        Hs, active, q,
+        range(cfg.pearl_iterations,
+              cfg.pearl_iterations + cfg.f_split_iterations),
+        x1, x2, valid, nbr_idx, nbr_w, cfg, tau, adj,
+    )
+
+
+def _trimmed_cost(r_like, member_f, t_idx):
+    """(..., N) residuals -> the sum of the smallest 80% of each model's
+    member residuals (pipeline.py:1602): sorted, cumulated, read at
+    t_idx. Non-members count 1e9 and sort last."""
+    r_m = torch.where(member_f > 0, r_like,
+                      torch.full((), 1e9, dtype=r_like.dtype,
+                                 device=r_like.device))
+    csum = torch.cumsum(torch.sort(r_m, dim=-1).values, dim=-1)
+    idx = t_idx.expand(csum.shape[:-1])[..., None]
+    return torch.gather(csum, -1, idx)[..., 0]
+
+
+def _f_refine_phases(Hs, active, q, draws, x1, x2, valid, nbr_idx, nbr_w,
+                     cfg: MultiHConfig, tau, adj):
+    """The fundamental model's refinement phases (pipeline.py:1437-1696):
+    f_exclusive_iterations exclusive-core refits, then
+    f_resample_iterations member-resample LO moves (f_resample_subsets
+    uniform 12-point subsets of every model's members, a trimmed member
+    cost, one Tukey refit of the winner). Each move is energy-tested by
+    `_accept`. `active` stays fixed. Returns (Hs, q)."""
+    thr = _thr(cfg, tau, x1)
+    k = cfg.max_labels
+    dev = x1.device
+    use_k = _kernels_enabled(cfg, dev)
+    basis = _prepare_refit_basis(x1, x2, cfg)
+    m_min = 1.5 * float(cfg.minimal_points)
+    ids = torch.arange(k, device=dev)
+
+    def residuals(Ms):
+        return model_residual_matrix(Ms, x1, x2, cfg.residual, cfg)
+
+    def members(lab):
+        return (lab[None, :] == ids[:, None]).to(x1.dtype) * valid[None, :]
+
+    def all_finite(Ms):
+        return torch.isfinite(Ms.reshape(k, -1)).all(1)
+
+    def label_energy(r_e, q0):
+        dct_e = labeling.data_costs_t(r_e, valid, thr, cfg.outlier_cost,
+                                      active)
+        q_e = labeling.mean_field_t(
+            dct_e, nbr_idx, nbr_w, cfg.spatial_weight,
+            cfg.meanfield_iterations, cfg.temperature_start,
+            cfg.temperature, q_init=q0, adj=adj, use_kernel=use_k,
+        )
+        lab_e = labeling.best_labeling_t(
+            [torch.argmax(q_e, dim=0), torch.argmin(dct_e, dim=0)],
+            dct_e, nbr_idx, nbr_w, cfg.spatial_weight, cfg.icm_iterations,
+            adj=adj, use_kernel=use_k,
+        )
+        e = labeling.total_energy_t(lab_e, dct_e, nbr_idx, nbr_w,
+                                    cfg.spatial_weight, cfg.label_cost,
+                                    active, adj=adj)
+        return lab_e, q_e, e
+
+    def accept(Hs_c, q_c, r_c, lab_c, e_c, Hs_prop, r_prop, ok_prop):
+        """The joint move (every ok proposal at once, scored under a full
+        relabel) if it lowers the energy, else one model at a time under
+        an ICM relabel from the carried labeling, each kept iff the
+        energy drops. The lax.cond at pipeline.py:1556 is a host branch."""
+        r_j = torch.where(ok_prop[:, None], r_prop, r_c)
+        _, q_j, e_j = label_energy(r_j, q_c)
+        if bool(e_j < e_c):
+            return torch.where(ok_prop[:, None, None], Hs_prop, Hs_c), q_j
+        Hs_s, r_s, lab_s, e_s = Hs_c, r_c, lab_c, e_c
+        for i in range(k):  # the lax.scan over models
+            Hn = torch.where(ok_prop[i], Hs_prop[i], Hs_s[i])
+            r_n = r_s.clone()
+            r_n[i] = residuals(Hn[None])[0]
+            dct_n = labeling.data_costs_t(r_n, valid, thr, cfg.outlier_cost,
+                                          active)
+            lab_n = labeling.best_labeling_t(
+                [lab_s, torch.argmin(dct_n, dim=0)],
+                dct_n, nbr_idx, nbr_w, cfg.spatial_weight,
+                cfg.icm_iterations, adj=adj, use_kernel=use_k,
+            )
+            e_n = labeling.total_energy_t(
+                lab_n, dct_n, nbr_idx, nbr_w, cfg.spatial_weight,
+                cfg.label_cost, active, adj=adj,
+            )
+            better = e_n < e_s
+            Hs_s = Hs_s.clone()
+            Hs_s[i] = torch.where(better, Hn, Hs_s[i])
+            r_s = torch.where(better, r_n, r_s)
+            lab_s = torch.where(better, lab_n, lab_s)
+            e_s = torch.where(better, e_n, e_s)
+        return Hs_s, q_c
+
+    if cfg.f_exclusive_refine:
+        for _ in range(cfg.f_exclusive_iterations):
+            r_c = residuals(Hs)
+            lab_c, q, e_c = label_energy(r_c, q)
+            inl = (r_c < thr).to(x1.dtype) * valid[None, :]
+            n_in = (inl * active[:, None]).sum(0)  # (N,)
+            rr_c = torch.clamp(r_c / thr, 0.0, 1.0)
+            w_x = members(lab_c) * inl * (n_in == 1.0) * (1.0 - rr_c) ** 2
+            core = (w_x > 0).to(x1.dtype)
+            n_core = core.sum(1)
+            Hs_prop = _refit_batch(w_x, basis, cfg)
+            r_prop = residuals(Hs_prop)
+            # degeneracy guard: the proposal keeps >= 80% of its own core
+            # inside tau before it is energy-tested
+            cov_core = ((r_prop < thr).to(x1.dtype) * core).sum(1) \
+                / torch.clamp_min(n_core, 1.0)
+            ok_prop = ((n_core >= m_min) & (cov_core >= 0.8)
+                       & all_finite(Hs_prop) & (active > 0))
+            Hs, q = accept(Hs, q, r_c, lab_c, e_c, Hs_prop, r_prop, ok_prop)
+
+    if cfg.f_resample_lo:
+        m_pts, s_sub, n_pts = 12, cfg.f_resample_subsets, x1.shape[0]
+        for it in range(cfg.f_resample_iterations):
+            r_c = residuals(Hs)
+            lab_c, q, e_c = label_energy(r_c, q)
+            member_c = members(lab_c)
+            n_mem = member_c.sum(1)
+            # S uniform 12-subsets of each model's members: Gumbel top-k
+            # over the members (pipeline.py:1631-1638); jax.lax.top_k's
+            # tie order among the -inf non-members
+            g = draws.gumbel(("resample", it), (k, s_sub, n_pts), dev)
+            logits = torch.where(member_c[:, None, :] > 0, g.to(x1.dtype),
+                                 float("-inf"))
+            _, idx = top_k_stable(logits, m_pts)  # (K, S, 12)
+            Fs_cand, ok_solve = _solve_minimal_f(
+                x1, x2, valid, idx.reshape(k * s_sub, m_pts), cfg)
+            r_cand = residuals(Fs_cand).reshape(k, s_sub, n_pts)
+            t_idx = torch.clamp_min((0.8 * n_mem).to(torch.int64) - 1, 0)
+            cost_cand = _trimmed_cost(r_cand, member_c[:, None, :],
+                                      t_idx[:, None])  # (K, S)
+            cost_cand = torch.where(ok_solve.reshape(k, s_sub) > 0,
+                                    cost_cand, float("inf"))
+            best_s = torch.argmin(cost_cand, dim=1)  # (K,)
+            F_best = Fs_cand.reshape(k, s_sub, 3, 3)[ids, best_s]
+            cost_best = cost_cand[ids, best_s]
+            # one Tukey refit of the winner on the members it holds
+            r_best = residuals(F_best)
+            w_t = member_c * torch.clamp_min(
+                1.0 - torch.clamp(r_best / thr, 0.0, 1.0), 0.0) ** 2
+            F_ref = _refit_batch(w_t, basis, cfg)
+            r_ref = residuals(F_ref)
+            cost_ref = torch.where(all_finite(F_ref),
+                                   _trimmed_cost(r_ref, member_c, t_idx),
+                                   float("inf"))
+            cost_inc = _trimmed_cost(r_c, member_c, t_idx)
+            take_ref = cost_ref < cost_best
+            Hs_prop = torch.where(take_ref[:, None, None], F_ref, F_best)
+            r_prop = torch.where(take_ref[:, None], r_ref, r_best)
+            cost_prop = torch.minimum(cost_ref, cost_best)
+            ok_prop = ((n_mem >= max(float(m_pts), m_min))
+                       & (cost_prop < cost_inc) & (active > 0)
+                       & all_finite(Hs_prop))
+            Hs, q = accept(Hs, q, r_c, lab_c, e_c, Hs_prop, r_prop, ok_prop)
+    return Hs, q
 
 
 def _check_slice(cfg: MultiHConfig, n_pts: int, affines, seed_Hs, mesh):
     """NotImplementedError for everything outside the ported slice."""
     unsupported = []
-    if cfg.model != "homography":
-        unsupported.append(f"model={cfg.model!r}")
     if not banded_gate(cfg, n_pts):
         unsupported.append("the gather-path labeling (needs spatial_sort "
                            "and N a multiple >= 2 of agree_block)")
@@ -561,10 +923,18 @@ def fit(x1, x2, valid, key, cfg: MultiHConfig, affines=None, tau=None,
     with record_function("select"):
         r_top = model_residual_matrix(Hs_top, x1, x2, cfg.residual, cfg)
         grown_counts = ((r_top < thr) * valid[None, :]).sum(1)
-        cand_idx, cand_active = selection.select_candidates(
-            r_top, valid, thr, torch.ones_like(grown_counts),
-            cfg.n_candidates, k, cfg.nms_iou,
-        )
+        if cfg.model == "fundamental":
+            # marginal coverage: bridging Fs outcount pure single-motion
+            # models, so count + NMS would fill the roster with bridges
+            cand_idx, cand_active = selection.select_candidates_coverage(
+                r_top, valid, thr, torch.ones_like(grown_counts),
+                cfg.n_candidates, k, min_gain=float(cfg.min_inliers),
+            )
+        else:
+            cand_idx, cand_active = selection.select_candidates(
+                r_top, valid, thr, torch.ones_like(grown_counts),
+                cfg.n_candidates, k, cfg.nms_iou,
+            )
     Hs = Hs_top[cand_idx]
     active = cand_active * (grown_counts[cand_idx]
                             >= cfg.min_inliers).to(x1.dtype)
@@ -573,15 +943,23 @@ def fit(x1, x2, valid, key, cfg: MultiHConfig, affines=None, tau=None,
     r0 = model_residual_matrix(Hs, x1, x2, cfg.residual, cfg)
     d0 = labeling.data_costs_t(r0, valid, thr, cfg.outlier_cost, active)
     q = torch.softmax(-d0 / cfg.temperature_start, dim=0)  # (L, N)
-    energies = []
     with record_function("pearl"):
-        # the lax.scan over iterations (pipeline.py:1302)
-        for it in range(cfg.pearl_iterations):
-            (Hs, active, q), e = _pearl_iteration(
-                (Hs, active, q), it, x1, x2, valid, nbr_idx, nbr_w, cfg,
-                tau, adj,
-            )
-            energies.append(e)
+        Hs, active, q, energies = _pearl_phase(
+            Hs, active, q, range(cfg.pearl_iterations), x1, x2, valid,
+            nbr_idx, nbr_w, cfg, tau, adj,
+        )
+    f_model = cfg.model == "fundamental"
+    if f_model and cfg.f_split_refine:
+        with record_function("split_refine"):
+            Hs, active, q, en2 = _split_refine(
+                Hs, active, q, x1, x2, valid, nbr_idx, nbr_w, cfg, tau, adj)
+        energies += en2
+    if f_model and (
+            (cfg.f_exclusive_refine and cfg.f_exclusive_iterations > 0)
+            or (cfg.f_resample_lo and cfg.f_resample_iterations > 0)):
+        with record_function("f_refine_phases"):
+            Hs, q = _f_refine_phases(Hs, active, q, draws, x1, x2, valid,
+                                     nbr_idx, nbr_w, cfg, tau, adj)
 
     with record_function("finalize"):
         r = model_residual_matrix(Hs, x1, x2, cfg.residual, cfg)

@@ -263,15 +263,19 @@ class RefitBasis(NamedTuple):
     T2g: torch.Tensor    # (3, 3) global similarity on x2
 
 
+def global_norm(p: torch.Tensor):
+    """(N, 2) -> (points, similarity) of the unweighted global
+    pre-normalization every moment refit starts from: centroid 0, RMS
+    radius sqrt(2), so the accumulated moments stay O(1) in fp32."""
+    mean = p.mean(0)
+    cen = p - mean
+    rms = torch.sqrt(torch.clamp_min((cen ** 2).sum(-1).mean(), _EPS))
+    s = torch.full_like(rms, _SQRT2) / rms
+    return cen * s, _similarity(s, mean[0], mean[1])
+
+
 def prepare_refit(x1: torch.Tensor, x2: torch.Tensor) -> RefitBasis:
     """(N, 2) x (N, 2) -> moment features for `homography_refit_batch`."""
-    def global_norm(p):
-        mean = p.mean(0)
-        cen = p - mean
-        rms = torch.sqrt(torch.clamp_min((cen ** 2).sum(-1).mean(), _EPS))
-        s = torch.full_like(rms, _SQRT2) / rms
-        return cen * s, _similarity(s, mean[0], mean[1])
-
     x1g, T1g = global_norm(x1)
     x2g, T2g = global_norm(x2)
     x, y = x1g[:, 0], x1g[:, 1]
@@ -368,13 +372,20 @@ def homography_refit_batch(
     eig_iterations, eig_method)`, as geometry.py:506-509 does."""
     mom = weights @ basis.feats  # (C, 30)
     atas, params = _moments_to_ata(mom.reshape(-1, 5, 6))
+    hs = smallest_eigvecs(atas, eig_method, eig_iterations, eig_kernel)
+    return _h_from_nullvec(hs, params, basis.T1g, basis.T2g)
+
+
+def smallest_eigvecs(atas: torch.Tensor, eig_method: str,
+                     eig_iterations: int, eig_kernel: bool) -> torch.Tensor:
+    """(C, 9, 9) -> (C, 9): the hand-written Jacobi kernel when
+    `eig_kernel`, else `smallest_eigvec_9x9` (geometry.py:502-509's
+    rule, shared by the homography and the fundamental refit)."""
     if eig_kernel:
         from multih_tpu_torch.ops.kernels import eig_kernel as ek
 
-        hs = ek.smallest_eigvec_9x9_batch(atas)
-    else:
-        hs = smallest_eigvec_9x9(atas, eig_iterations, eig_method)
-    return _h_from_nullvec(hs, params, basis.T1g, basis.T2g)
+        return ek.smallest_eigvec_9x9_batch(atas)
+    return smallest_eigvec_9x9(atas, eig_iterations, eig_method)
 
 
 def quad_degenerate_t(px: torch.Tensor, py: torch.Tensor,

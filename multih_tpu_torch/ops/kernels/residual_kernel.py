@@ -2,15 +2,17 @@
 kernel and its plain PyTorch version.
 
 Replaces ``multih_tpu/ops/kernels/residual_kernel.py`` (``_count_kernel``
-via ``inlier_counts`` / ``inlier_counts_padded``), homography kinds
-``symmetric``, ``transfer`` and ``sampson``. The kernel
-(``csrc/residual_kernel.cu``) is bound by fp32 arithmetic and IEEE
-division, not by memory: it reads S*9 + 5*N floats and never writes the
-(S, N) residual matrix. One thread per hypothesis holds H and its
-adjugate in registers, point tiles are staged in shared memory, and the
-point axis is split over the grid so small pools still fill the card;
-partial counts meet in an int32 atomicAdd, so the result is exact and
-deterministic.
+via ``inlier_counts`` / ``inlier_counts_padded``), every kind: the
+homography ``symmetric``, ``transfer`` and ``sampson`` and the
+fundamental-matrix ``f_symmetric``, ``f_transfer`` and ``f_sampson``
+(the model's residual kind with an ``f_`` prefix, as the JAX pipeline
+names it). The kernel (``csrc/residual_kernel.cu``) is bound by fp32
+arithmetic and IEEE division, not by memory: it reads S*9 + 5*N floats
+and never writes the (S, N) residual matrix. One thread per hypothesis
+holds H (or F) and H's adjugate in registers, point tiles are staged in
+shared memory, and the point axis is split over the grid so small pools
+still fill the card; partial counts meet in an int32 atomicAdd, so the
+result is exact and deterministic.
 
 Counts may differ from the plain version by threshold-boundary ties
 (FMA contraction moves the last bit of a residual); the JAX kernel's own
@@ -21,10 +23,11 @@ from __future__ import annotations
 
 import torch
 
-from multih_tpu_torch.ops import geometry
+from multih_tpu_torch.ops import fmodel, geometry
 from multih_tpu_torch.ops.kernels import _build
 
-KINDS = {"symmetric": 0, "transfer": 1, "sampson": 2}
+KINDS = {"symmetric": 0, "transfer": 1, "sampson": 2,
+         "f_symmetric": 3, "f_transfer": 4, "f_sampson": 5}
 
 
 def pack_points(x1, x2, valid):
@@ -35,12 +38,19 @@ def pack_points(x1, x2, valid):
 
 def inlier_counts_reference(Hs, x1, x2, valid, threshold_sq,
                             kind: str = "symmetric", chunk: int = 512):
-    """Plain version: hypothesis chunks through geometry.residual_matrix,
-    thresholded and reduced at once — the algebra of the JAX pipeline's
-    non-kernel count_inliers branch. Returns (S,) float32 counts."""
+    """Plain version: hypothesis chunks through geometry.residual_matrix
+    (fmodel.residual_matrix_f for an ``f_`` kind), thresholded and
+    reduced at once — the algebra of the JAX pipeline's non-kernel
+    count_inliers branch. Returns (S,) float32 counts."""
+    if kind.startswith("f_"):
+        def residuals(h):
+            return fmodel.residual_matrix_f(h, x1, x2, kind[2:])
+    else:
+        def residuals(h):
+            return geometry.residual_matrix(h, x1, x2, kind)
     out = []
     for c0 in range(0, Hs.shape[0], chunk):
-        r = geometry.residual_matrix(Hs[c0:c0 + chunk], x1, x2, kind)
+        r = residuals(Hs[c0:c0 + chunk])
         out.append(((r < threshold_sq).to(x1.dtype) * valid[None, :]).sum(1))
     if not out:
         return torch.zeros(0, dtype=x1.dtype, device=x1.device)
@@ -77,10 +87,13 @@ def inlier_counts(Hs, packed_pts, threshold_sq, kind: str = "symmetric"):
     )
     _build.check(rc, "inlier_counts")
     inlier_counts.launches += 1
+    inlier_counts.kind_launches[kind] = (
+        inlier_counts.kind_launches.get(kind, 0) + 1)
     return out.to(torch.float32)
 
 
 inlier_counts.launches = 0
+inlier_counts.kind_launches = {}  # the same launches, by residual kind
 
 
 def inlier_counts_padded(Hs, x1, x2, valid, threshold_sq,

@@ -1,9 +1,10 @@
 """Synthetic scenes for the port (numpy only).
 
-Byte-for-byte copies of ``multih_tpu.utils.data``'s scene generator:
-that module cannot be imported without JAX (``multih_tpu/__init__.py``
+Byte-for-byte copies of ``multih_tpu.utils.data``'s plane and motion
+scene generators and of ``benchmarks/suite.py``'s scene tables: those
+modules cannot be imported without JAX (``multih_tpu/__init__.py``
 imports it), and the machine with the card has no JAX. The parity tests
-assert both generators give identical arrays.
+assert both generators give identical arrays and the tables equal rows.
 """
 
 from __future__ import annotations
@@ -165,6 +166,119 @@ def suite_scene(name: str) -> CorrespondenceSet:
             cs, _ = synthetic_scene(
                 n_points=n, n_planes=planes, outlier_rate=outl,
                 noise_px=noise, seed=seed, **kw,
+            )
+            return cs._replace(name=name)
+    raise KeyError(name)
+
+
+def _unit(v: np.ndarray) -> np.ndarray:
+    return v / (np.linalg.norm(v) + 1e-12)
+
+
+def synthetic_motion_scene(
+    n_points: int = 1000,
+    n_motions: int = 2,
+    outlier_rate: float = 0.0,
+    noise_px: float = 0.0,
+    seed: int = 0,
+    image_size: float = 640.0,
+) -> tuple[CorrespondenceSet, np.ndarray]:
+    """Multi-motion two-view scene with known GT (labels: 0 = outlier,
+    1..M = motions): each motion a compact 3D blob under its own rigid
+    transform, seen by one calibrated camera pair. Returns
+    (CorrespondenceSet, (M, 3, 3) true fundamental matrices, Frobenius-
+    normalized). See ``multih_tpu.utils.data.synthetic_motion_scene``."""
+    rng = np.random.default_rng(seed)
+    f_len = 1.25 * image_size
+    K = np.array([
+        [f_len, 0.0, image_size / 2.0],
+        [0.0, f_len, image_size / 2.0],
+        [0.0, 0.0, 1.0],
+    ])
+    K_inv = np.linalg.inv(K)
+
+    n_out = int(round(n_points * outlier_rate))
+    n_in = n_points - n_out
+    counts = np.full(n_motions, n_in // n_motions)
+    counts[: n_in - counts.sum()] += 1
+
+    def rodrigues(a):
+        t = np.linalg.norm(a) + 1e-12
+        k = a / t
+        Kx = np.array([
+            [0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]
+        ])
+        return np.eye(3) + np.sin(t) * Kx + (1 - np.cos(t)) * Kx @ Kx
+
+    Fs, x1_list, x2_list, lab_list = [], [], [], []
+    for m in range(n_motions):
+        c = counts[m]
+        cx = rng.uniform(-1.5, 1.5)
+        cy = rng.uniform(-1.5, 1.5)
+        cz = rng.uniform(5.0, 9.0)
+        X = np.array([cx, cy, cz]) + rng.normal(0, 0.8, (c, 3))
+        X[:, 2] = np.clip(X[:, 2], 2.0, None)
+        R = rodrigues(np.deg2rad(rng.uniform(4.0, 12.0))
+                      * _unit(rng.normal(size=3)))
+        t = rng.uniform(0.4, 1.2) * _unit(rng.normal(size=3))
+        Y = X @ R.T + t
+        Y[:, 2] = np.clip(Y[:, 2], 1.0, None)
+        p1 = (X @ K.T)
+        p1 = p1[:, :2] / p1[:, 2:3]
+        p2 = (Y @ K.T)
+        p2 = p2[:, :2] / p2[:, 2:3]
+        if noise_px > 0:
+            p1 = p1 + rng.normal(0, noise_px, (c, 2))
+            p2 = p2 + rng.normal(0, noise_px, (c, 2))
+        tx = np.array([
+            [0, -t[2], t[1]], [t[2], 0, -t[0]], [-t[1], t[0], 0]
+        ])
+        F = K_inv.T @ tx @ R @ K_inv
+        Fs.append(F / np.linalg.norm(F))
+        x1_list.append(p1)
+        x2_list.append(p2)
+        lab_list.append(np.full(c, m + 1))
+
+    if n_out:
+        x1_list.append(rng.uniform(0, image_size, (n_out, 2)))
+        x2_list.append(rng.uniform(0, image_size, (n_out, 2)))
+        lab_list.append(np.zeros(n_out))
+
+    x1 = np.concatenate(x1_list).astype(np.float32)
+    x2 = np.concatenate(x2_list).astype(np.float32)
+    lab = np.concatenate(lab_list).astype(np.int32)
+    perm = rng.permutation(x1.shape[0])
+    cs = CorrespondenceSet(
+        x1[perm], x2[perm], lab[perm],
+        f"synthetic_motion_m{n_motions}_s{seed}",
+    )
+    return cs, np.stack(Fs).astype(np.float32)
+
+
+# benchmarks/suite.py's MOTION_SUITE (frozen rows; the parity tests
+# assert they are equal): name, n_points, n_motions, outlier_rate,
+# noise_px, seed. The golden labelings tests/goldens/fm*.npz belong to
+# these scenes (model="fundamental", residual="sampson", tau 3).
+MOTION_SUITE = [
+    ("fm2_a", 400, 2, 0.10, 0.0, 201),
+    ("fm2_b", 400, 2, 0.15, 0.5, 202),
+    ("fm3_a", 400, 3, 0.20, 0.5, 203),
+    ("fm3_b", 500, 3, 0.30, 0.5, 204),
+    ("fm4_a", 400, 4, 0.10, 0.5, 205),
+    ("fm4_b", 600, 4, 0.15, 0.5, 216),
+    ("fm5_a", 700, 5, 0.15, 0.3, 220),
+    ("fm_out40", 500, 3, 0.40, 0.5, 208),
+    ("fm_out40b", 500, 3, 0.40, 0.5, 218),
+]
+
+
+def motion_suite_scene(name: str) -> CorrespondenceSet:
+    """Materialize one MOTION_SUITE row, named as in benchmarks/suite.py."""
+    for row_name, n, motions, outl, noise, seed in MOTION_SUITE:
+        if row_name == name:
+            cs, _ = synthetic_motion_scene(
+                n_points=n, n_motions=motions, outlier_rate=outl,
+                noise_px=noise, seed=seed,
             )
             return cs._replace(name=name)
     raise KeyError(name)

@@ -226,14 +226,17 @@ def test_gates_match_reference(n_pts, expect):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(model="fundamental"),
+    # the fundamental model runs; its direct (non-moment) refit does not
+    dict(model="fundamental", refit_moments=False),
     dict(mrf_fused_front=True),            # at the default (windowed) graph
     dict(refit_moments=False),
     dict(knn_window=False, mrf_fused_front=True),
     dict(knn_window=False, refit_moments=False),
     dict(knn_window=False, agree_block=0),  # gather-path labeling
+    dict(model="fundamental", mrf_fused_front=True),
 ], ids=["fundamental", "fused_front_windowed", "direct_refit_windowed",
-        "fused_front", "direct_refit", "gather_labeling"])
+        "fused_front", "direct_refit", "gather_labeling",
+        "fundamental_fused_front"])
 def test_out_of_slice_raises(kw):
     cfg = mt.MultiHConfig(max_points=512, **kw)
     z = torch.zeros((512, 2))
@@ -241,10 +244,26 @@ def test_out_of_slice_raises(kw):
         mt.fit(z, z, torch.ones(512), torch.Generator(), cfg)
 
 
-def test_out_of_slice_arguments_raise():
-    cfg = mt.MultiHConfig(max_points=512, knn_window=False)
+@pytest.mark.parametrize("model", ["homography", "fundamental"])
+def test_out_of_slice_arguments_raise(model):
+    cfg = mt.MultiHConfig(max_points=512, knn_window=False, model=model)
     z = torch.zeros((512, 2))
     for kw in (dict(affines=torch.zeros((512, 2, 2))),
                dict(seed_Hs=torch.zeros((2, 3, 3))), dict(mesh=object())):
         with pytest.raises(NotImplementedError):
             mt.fit(z, z, torch.ones(512), torch.Generator(), cfg, **kw)
+
+
+def test_fundamental_model_runs():
+    """model="fundamental" is in the slice: an all-outlier scene fits on
+    the CPU to no motion (test_fmodel_pipeline.py's outlier case)."""
+    rng = np.random.default_rng(5)
+    x1, x2, valid = mt.pad_points(
+        rng.uniform(0, 640, (300, 2)), rng.uniform(0, 640, (300, 2)), None,
+        512)
+    cfg = mt.MultiHConfig(max_points=512, model="fundamental",
+                          residual="sampson")
+    res = mt.fit(x1, x2, valid, torch.Generator().manual_seed(0), cfg,
+                 device="cpu")
+    assert int(res.active.sum()) == 0
+    assert res.energy_trace.shape == (12,)
