@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port of the Multi-H fit on one GPU: the
-homography fit and the fundamental (multi-motion) fit.
+homography fit (default and fused-front routes), the fundamental
+(multi-motion) fit, the adaptive-threshold fit and the frame stream.
 
 Run from the repository root on a host with a CUDA card and the CUDA
 toolkit:
@@ -17,7 +18,8 @@ Phases, each raising on failure:
   3. kernel parity: every kernel against its plain PyTorch version on the
      card at the main paths' shapes (K1 also at its epipolar kinds on the
      motion fit's verify shape, K3 also on the F normal matrices of a
-     real refit in a motion fit), with kernel, plain and (where one
+     real refit in a motion fit; K6 at both homography kinds with the
+     threshold a device tensor), with kernel, plain and (where one
      PyTorch call computes the same function) library times, medians of
      CUDA-event timings, beside each kernel's bound: the larger of its
      bytes (inputs read once, outputs written once) at 3.35 TB/s and its
@@ -26,20 +28,29 @@ Phases, each raising on failure:
      before it and read just after: the side config MultiHConfig(
      knn_window=False, knn_approx=False) on BASELINE config 2 (K1-K3);
      then the default config MultiHConfig() on BASELINE config 2 (exact
-     recovery) and three golden scenes (K1-K5), the card fit against the
-     CPU fit, and the warm fit latency at N=512;
+     recovery) and three golden scenes (K1-K5), the same with
+     mrf_fused_front=True (K6 once per PEARL iteration, no K4), the card
+     fit against the CPU fit and the fused-front fit, and the warm fit
+     latency at N=512 of the default, fused-front and side configs, one
+     fit of each in turns;
   5. the stress fit at bench.py::_stress_cfg(10240, 102400,
      n_candidates=256, max_labels=16)'s settings (window sampling, the
-     windowed graph; 10k points, 70% outliers, 8 planes), with all six
-     kernels launched; then the same scene once at the side config
-     (row-blocked exact graph past N=4096, band with far edges; K1-K3);
+     windowed graph; 10k points, 70% outliers, 8 planes), with every
+     kernel but K6 launched; the same scene on the fused-front route (K6
+     in place of K4), warm fits of both routes in turns, and once at the
+     side config (row-blocked exact graph past N=4096, band with far
+     edges; K1-K3);
   6. the fundamental-model fit: the motion suite's config
      MultiHConfig(model="fundamental", residual="sampson",
      n_hypotheses=2048, max_points=512) on fm2_b and fm4_a, 3 keys each,
      against the motion goldens (motion count exact on every key, mean
      misclassification within 2.0 pp), with the launches of every fit
      (K1 at f_sampson, K3, K4, K5; no K2, no K7), and the warm fit
-     latency on fm4_a.
+     latency on fm4_a;
+  7. one two-pass adaptive-threshold fit (fit_adaptive) on a noise-1 px
+     scene, tau printed;
+  8. run_stream on the CLI's `stream synth` defaults, warm-started and
+     cold, at pipeline depths 1 and 3 (p50 / p95 ms, fps, mean planes).
 Then one JSON line of per-kernel results, the card line, and the last
 line {"ok": true, "device": {...}}. Without a CUDA device, or outside
 the repository, it exits nonzero and prints no result.
@@ -81,6 +92,9 @@ KERNELS = {
     "icm_fused": dict(
         source="multih_tpu_torch/csrc/mrf_kernel.cu",
         replaces="multih_tpu/ops/kernels/mrf_kernel.py:408"),
+    "mean_field_fused_front": dict(
+        source="multih_tpu_torch/csrc/mrf_kernel.cu",
+        replaces="multih_tpu/ops/kernels/mrf_kernel.py:280"),
     "window_gather": dict(
         source="multih_tpu_torch/csrc/gather_kernel.cu",
         replaces="multih_tpu/ops/kernels/gather_kernel.py:94"),
@@ -97,6 +111,10 @@ COUNT_OPS = {"symmetric": 40, "transfer": 20, "sampson": 52,
              "f_symmetric": 39, "f_transfer": 25, "f_sampson": 37}
 DLT_OPS = 1500
 EIG_OPS = 13000
+# per (label, point) of K6's front, counted from csrc/mrf_kernel.cu's
+# mf_front: the residual (transfer 19, symmetric 40) and the data cost
+# and base (8)
+FRONT_OPS = {"symmetric": 48, "transfer": 27}
 
 
 def sh(cmd: list[str]) -> str:
@@ -461,6 +479,7 @@ def phase_kernels(dev):
            lib_ms=cuda_ms(lambda: torch.linalg.eigh(atas)))
 
     mrf_kernels(rng, dev, record)
+    front_kernels(rng, dev, record)
     gather_kernels(rng, dev, record)
     torch.cuda.synchronize()
     return results
@@ -545,6 +564,91 @@ def mrf_kernels(rng, dev, record):
                icm_it * s * (nnz * l + 3 * l * n))
 
 
+def front_kernels(rng, dev, record):
+    """K6 at the default shape (L=17, N=512, B=256, 6 sweeps) and the
+    stress shape (L=17, N=10240, B=128, 4 sweeps), both homography kinds,
+    thr a device tensor: r to rtol 1e-3 / atol 1e-4 of the plain
+    version's up to 1e6 px^2 (saturated past it) and min(r/thr, 8) to
+    atol 1e-4 everywhere, dct equal to data_costs_t of the kernel's own
+    r (rtol 2e-6), q within 1e-5 of the plain sweeps on the kernel's own
+    dct and within 1e-4 of the plain version (its max_abs_err). 15
+    near-identity planes, one inactive, and a wild one whose residuals
+    reach the truncation; the scene's own points."""
+    import torch
+
+    from multih_tpu_torch.models import labeling
+    from multih_tpu_torch.ops.kernels import mrf_kernel as mk
+
+    l, sw = 17, 0.1
+    for n_points, n, block, sweeps in ((500, 512, 256, 6),
+                                       (10000, 10240, 128, 4)):
+        x1, x2, valid, _, adj = _windowed_problem(dev, n_points, n, block)
+        hs = np.eye(3)[None] + rng.normal(0, 0.02, (l - 1, 3, 3))
+        hs[:, 0, 2] += rng.normal(0, 5.0, l - 1)  # pixel shifts
+        hs[-1] = rng.normal(0, 1.0, (3, 3))
+        hs = torch.from_numpy(hs.astype(np.float32)).to(dev)
+        active = torch.ones(l - 1, device=dev)
+        active[1] = 0.0
+        q0 = torch.softmax(torch.from_numpy(rng.normal(size=(l, n)).astype(
+            np.float32)).to(dev), 0)
+        thr = torch.tensor(9.0, device=dev)
+        pts, hm = labeling.pack_front(x1, x2, valid, hs, active, sw, adj)
+        inv_t = torch.from_numpy((1.0 / np.geomspace(2.0, 0.25, sweeps))
+                                 .astype(np.float32)).to(dev)
+        nnz = int((adj.band != 0).sum())
+        shape = f"L={l} N={n} B={block}"
+        for kind in ("symmetric", "transfer"):
+            args = (q0, pts, hm, adj.band, inv_t, thr, sw, 1.0, kind)
+
+            def kernel():
+                return mk.mean_field_fused_front(*args)
+
+            def plain():
+                return mk.mean_field_fused_front_reference(*args)
+
+            (q, dct, r), (q_ref, _, r_ref) = kernel(), plain()
+            # past 1e6 px^2 w nears zero and float32 cancellation sets
+            # r's digits (tests/test_torch_kernels.py); the cost is
+            # saturated there on both sides
+            near = r_ref <= 1e6
+            torch.testing.assert_close(r[near], r_ref[near], rtol=1e-3,
+                                       atol=1e-4)
+            check(bool((r[~near] > 8.0 * thr).all()),
+                  f"fused front {shape} {kind}: unsaturated far residual")
+            torch.testing.assert_close(torch.clamp_max(r / thr, 8.0),
+                                       torch.clamp_max(r_ref / thr, 8.0),
+                                       rtol=0, atol=1e-4)
+            torch.testing.assert_close(
+                dct, labeling.data_costs_t(r, valid, thr, 1.0, active),
+                rtol=2e-6, atol=1e-6)
+            # q: K4's 1e-5 against the plain sweeps on the kernel's own
+            # dct; 1e-4 end to end, where r's last-bit differences (px -
+            # u cancels) reach q through 1/T up to 4
+            err = float((q - q_ref).abs().max())
+            err_own = float((q - mk.mean_field_fused_reference(
+                q0, dct + pts[5:6], adj.band, inv_t, sw)).abs().max())
+            check(bool(torch.isfinite(q).all()) and err_own <= 1e-5
+                  and err <= 1e-4, f"fused front {shape} {kind}: q max abs "
+                  f"err {err_own} (own dct), {err} (plain version)")
+            rel = (r - r_ref).abs() / r_ref.abs().clamp_min(1e-4)
+            print(f"  front {shape} {kind}: q max abs err {err_own:.3g} "
+                  f"vs the plain sweeps on its own dct; r max rel err "
+                  f"{float(rel[near].max()):.3g} up to 1e6 px^2, "
+                  f"{float(rel.max()):.3g} over all; "
+                  f"{int((~near).sum())} of {r.numel()} residuals past "
+                  f"1e6 px^2, max {float(r.max()):.3g}")
+            # inputs q0, pts (8, N), hm (L, 19), band, inv_temps, thr read
+            # once; q, dct (L, N) and r (K, N) written once
+            n_bytes = (4 * (n // block) * block * 3 * block
+                       + 4 * (l * n + 8 * n + 19 * l + sweeps + 1)
+                       + 4 * (2 * l * n + (l - 1) * n))
+            n_ops = (sweeps * (2 * nnz * l + 8 * l * n)
+                     + FRONT_OPS[kind] * l * n)
+            record("mean_field_fused_front", f"{shape} sweeps={sweeps} "
+                   f"{kind}", err, cuda_ms(kernel), cuda_ms(plain, reps=5),
+                   n_bytes, n_ops)
+
+
 def gather_kernels(rng, dev, record):
     """K7 at the stress shapes windowed_quadruples gives it (80 windows of
     3B=384 rows): "rank" mode over the whole C=15 source with T=1600
@@ -618,6 +722,7 @@ def _wrappers():
         "eig9_smallest": eig_kernel.smallest_eigvec_9x9_batch,
         "mean_field_fused": mrf_kernel.mean_field_fused,
         "icm_fused": mrf_kernel.icm_fused,
+        "mean_field_fused_front": mrf_kernel.mean_field_fused_front,
         "window_gather": gather_kernel.window_gather,
     }
 
@@ -688,17 +793,19 @@ def phase_fits(dev):
     check(err == 0.0 and planes == 2, "side config: BASELINE config 2 not "
           "recovered exactly")
 
-    def default_path():
-        planes, err = _baseline2(dev, MultiHConfig(max_points=1024), gen)
-        print(f"default config, BASELINE config 2: planes {planes}, "
+    def golden_path(label, **kw):
+        """BASELINE config 2 and the golden scenes at MultiHConfig(**kw)."""
+        planes, err = _baseline2(dev, MultiHConfig(max_points=1024, **kw),
+                                 gen)
+        print(f"{label}, BASELINE config 2: planes {planes}, "
               f"misclassification {err:.4f}%")
         check(err == 0.0 and planes == 2,
-              "BASELINE config 2 not recovered exactly")
+              f"{label}: BASELINE config 2 not recovered exactly")
         fits = {}
         for name, npad in GOLDEN_SCENES:
             g = np.load(os.path.join(ROOT, "tests", "goldens", f"{name}.npz"))
             cs = data.suite_scene(name)
-            cfg = MultiHConfig(max_points=npad)
+            cfg = MultiHConfig(max_points=npad, **kw)
             x1, x2, valid, gt = mt.pad_points(cs.x1, cs.x2, cs.gt_labels,
                                               npad)
             args = _to(dev, x1, x2, valid)
@@ -712,47 +819,74 @@ def phase_fits(dev):
             agree = 100.0 - evaluation.misclassification_error(
                 lab, g["labels"], cfg.max_labels,
                 gt_outlier=int(g["outlier_label"]))
-            print(f"golden {name} (npad {npad}, tau {tau}): planes "
+            print(f"{label}, golden {name} (npad {npad}, tau {tau}): planes "
                   f"{int(res.active.sum())} (golden {int(g['n_planes'])}), "
                   f"misclassification {err:.3f}% (golden "
                   f"{float(g['misclassification']):.3f}%), agreement with "
                   f"the golden labels {agree:.2f}%")
-            check(agree >= 97.0, f"{name}: agreement {agree:.2f}% < 97%")
+            check(agree >= 97.0, f"{label} {name}: agreement {agree:.2f}% "
+                  f"< 97%")
             fits[name] = (cfg, args, tau)
         return fits
 
     golden_fits, launches["default"] = count_launches(
         "default-config", k123 + ("mean_field_fused", "icm_fused"),
-        default_path)
+        lambda: golden_path("default config"))
+    # the fused-front route: K6 takes the place of the residuals, data
+    # costs and K4 in every PEARL iteration; K4 does not run
+    fused_fits, launches["fused_front"] = count_launches(
+        "fused-front", k123 + ("mean_field_fused_front", "icm_fused"),
+        lambda: golden_path("fused front", mrf_fused_front=True))
+    n_k6 = (1 + len(GOLDEN_SCENES)) * MultiHConfig().pearl_iterations
+    check(launches["fused_front"]["mean_field_fused_front"] == n_k6,
+          f"fused front: K6 launched "
+          f"{launches['fused_front']['mean_field_fused_front']} times, not "
+          f"pearl_iterations per fit ({n_k6})")
+    check(launches["fused_front"]["mean_field_fused"] == 0,
+          "fused front: K4 launched")
 
     # the card fit against the port's CPU fit on the same samples (the
     # CPU runs the plain paths: eigh instead of the Jacobi kernel, the
-    # plain sweeps' arithmetic instead of the fused kernels')
+    # plain sweeps' arithmetic instead of the fused kernels'), and the
+    # fused-front card fit against both
     cfg, args, tau = golden_fits["easy2_a"]
     f = mt.make_fit_tau(cfg)
+    f_fused = mt.make_fit_tau(fused_fits["easy2_a"][0])
     lab_gpu = f(*args, _cpu_draws(1), tau).labels.cpu().numpy()
     lab_cpu = f(*[a.cpu() for a in args], _cpu_draws(1), tau).labels.numpy()
-    agree = 100.0 - evaluation.misclassification_error(
-        lab_gpu, lab_cpu, cfg.max_labels, gt_outlier=cfg.max_labels)
-    print(f"easy2_a card fit vs CPU fit, default config, same draws: label "
-          f"agreement {agree:.2f}%")
-    check(agree >= 97.0, "card fit disagrees with the CPU fit")
+    lab_fused = f_fused(*args, _cpu_draws(1), tau).labels.cpu().numpy()
+    for what, a, b in (("card fit vs CPU fit, default config", lab_gpu,
+                        lab_cpu),
+                       ("fused-front card fit vs default card fit", lab_fused,
+                        lab_gpu),
+                       ("fused-front card fit vs CPU fit", lab_fused,
+                        lab_cpu)):
+        agree = 100.0 - evaluation.misclassification_error(
+            a, b, cfg.max_labels, gt_outlier=cfg.max_labels)
+        print(f"easy2_a {what}, same draws: label agreement {agree:.2f}%")
+        check(agree >= 97.0, f"easy2_a {what}: agreement {agree:.2f}%")
 
     # warm fit latency at N=512 (S=2048), host clock to synchronize: the
-    # default config, and the side config on the same scene beside it
+    # default config, the fused-front route and the side config on the
+    # same scene, one fit of each in turns (the host drifts within a call)
+    routes = (("default", f), ("fused_front", f_fused),
+              ("side", mt.make_fit_tau(_slice_cfg(max_points=512))))
+    times = {label: [] for label, _ in routes}
+    for _ in range(20):
+        for label, fn in routes:
+            times[label] += host_ms(lambda: fn(*args, gen, tau), reps=1)
     lat = {}
-    for label, fn in (("default", f),
-                      ("side", mt.make_fit_tau(_slice_cfg(max_points=512)))):
-        times = host_ms(lambda: fn(*args, gen, tau), reps=20)
-        lat[label] = dict(median_ms=statistics.median(times),
-                          min_ms=min(times), max_ms=max(times),
-                          reps=len(times))
+    for label, t in times.items():
+        lat[label] = dict(median_ms=statistics.median(t), min_ms=min(t),
+                          max_ms=max(t), reps=len(t))
         print(f"warm fit latency easy2_a N=512, {label} config: median "
               f"{lat[label]['median_ms']:.2f} ms (min "
               f"{lat[label]['min_ms']:.2f}, max {lat[label]['max_ms']:.2f},"
-              f" {len(times)} fits)")
-    return launches, lat, lambda: _profile(
-        "N=512 easy2_a, default config", lambda: f(*args, gen, tau))
+              f" {len(t)} fits, in turns)")
+    return launches, lat, lambda: (
+        _profile("N=512 easy2_a, default config", lambda: f(*args, gen, tau)),
+        _profile("N=512 easy2_a, fused front",
+                 lambda: f_fused(*args, gen, tau)))
 
 
 STAGES = ("knn_graph", "banded_adjacency", "sampling_knn", "hypothesize",
@@ -817,23 +951,53 @@ def phase_stress(dev):
     gen = torch.Generator(device=dev).manual_seed(0)
     t0 = time.perf_counter()
     res, launches = count_launches(
-        "stress", tuple(k for k in KERNELS if k != "inlier_counts_f"),
+        "stress", tuple(k for k in KERNELS
+                        if k not in ("inlier_counts_f",
+                                     "mean_field_fused_front")),
         lambda: f(*args, gen))
     cold = (time.perf_counter() - t0) * 1e3
     check(bool(torch.isfinite(res.homographies).all()), "non-finite H")
     lab = res.labels.cpu().numpy()
     check(lab.min() >= 0 and lab.max() <= cfg.max_labels, "labels range")
     err = evaluation.misclassification_error(lab, gt, cfg.max_labels)
-    times = host_ms(lambda: f(*args, gen), reps=3)
     out = dict(planes=int(res.active.sum()), misclassification=err,
-               n_far_dropped=int(res.n_far_dropped), first_fit_ms=cold,
-               warm_ms=times)
+               n_far_dropped=int(res.n_far_dropped), first_fit_ms=cold)
     print(f"stress: planes {out['planes']} of 8, misclassification "
           f"{err:.3f}%, n_far_dropped {out['n_far_dropped']}, first fit "
-          f"{cold:.1f} ms, warm fits {', '.join(f'{t:.1f}' for t in times)}"
-          f" ms")
+          f"{cold:.1f} ms")
     check(out["planes"] == 8, f"stress: {out['planes']} planes of 8")
     check(out["n_far_dropped"] == 0, "stress: far edges dropped")
+
+    # the same scene on the fused-front route: K6 once per PEARL
+    # iteration in place of K4, every other kernel as before
+    f_fused = mt.make_fit(dataclasses.replace(cfg, mrf_fused_front=True))
+    res, fused_launches = count_launches(
+        "fused-front stress", tuple(k for k in KERNELS
+                                    if k not in ("inlier_counts_f",
+                                                 "mean_field_fused")),
+        lambda: f_fused(*args, gen))
+    check(fused_launches["mean_field_fused_front"] == cfg.pearl_iterations
+          and fused_launches["mean_field_fused"] == 0,
+          f"fused-front stress launches: {fused_launches}")
+    check(bool(torch.isfinite(res.homographies).all()), "non-finite H")
+    err = evaluation.misclassification_error(res.labels.cpu().numpy(), gt,
+                                             cfg.max_labels)
+    # warm fits of the two routes, one of each in turns
+    warm = {"default": [], "fused_front": []}
+    for _ in range(4):
+        warm["default"] += host_ms(lambda: f(*args, gen), reps=1)
+        warm["fused_front"] += host_ms(lambda: f_fused(*args, gen), reps=1)
+    out["warm_ms"] = warm["default"]
+    out["fused_front"] = dict(planes=int(res.active.sum()),
+                              misclassification=err,
+                              warm_ms=warm["fused_front"])
+    print(f"fused-front stress: planes {out['fused_front']['planes']} of 8, "
+          f"misclassification {err:.3f}%")
+    for label, t in warm.items():
+        print(f"stress warm fits, {label}, in turns: "
+              f"{', '.join(f'{x:.1f}' for x in t)} ms")
+    check(out["fused_front"]["planes"] == 8,
+          f"fused-front stress: {out['fused_front']['planes']} planes of 8")
 
     # the same scene at the side config: the exact graph's row blocks
     # (N > 4096) and the band's far-edge list run only at this size
@@ -855,7 +1019,7 @@ def phase_stress(dev):
           f"{', '.join(f'{t:.1f}' for t in times)} ms")
     check(out["side"]["planes"] == 8,
           f"side-config stress: {out['side']['planes']} planes of 8")
-    return (out, launches, side_launches,
+    return (out, launches, side_launches, fused_launches,
             lambda: _profile("stress", lambda: f(*args, gen), reps=2))
 
 
@@ -937,10 +1101,84 @@ def phase_motion(dev):
         "N=512 fm4_a, motion config", lambda: f(*args, gen, 3.0))
 
 
+def phase_adaptive(dev):
+    """One two-pass adaptive-threshold fit on tests/test_pipeline.py::
+    TestAdaptiveTau's noise-1 px scene (unsolvable at the default tau of
+    3 px): tau within (4.5, 7.5), all 3 planes, under 3% error."""
+    import torch
+
+    import multih_tpu_torch as mt
+    from multih_tpu_torch.utils import data, evaluation
+
+    print("== 7. the adaptive-threshold fit")
+    cfg = mt.MultiHConfig(max_points=512, n_hypotheses=2048)
+    cs, _ = data.synthetic_scene(400, 3, 0.15, 1.0, seed=117)
+    x1, x2, valid, gt = mt.pad_points(cs.x1, cs.x2, cs.gt_labels, 512)
+    args = _to(dev, x1, x2, valid)
+    f = mt.make_fit_adaptive(cfg)
+    gen = torch.Generator(device=dev)
+    (res, tau), launches = count_launches(
+        "adaptive", ("inlier_counts", "dlt_4pt", "eig9_smallest",
+                     "mean_field_fused", "icm_fused"),
+        lambda: f(*args, gen.manual_seed(0)))
+    check(tau.device.type == "cuda", "tau left the card")
+    err = evaluation.misclassification_error(res.labels.cpu().numpy(), gt,
+                                             cfg.max_labels)
+    times = host_ms(lambda: f(*args, gen), reps=5)
+    out = dict(tau=float(tau), planes=int(res.active.sum()),
+               misclassification=err, warm_ms=times)
+    print(f"adaptive fit, noise 1 px: tau {out['tau']:.4f} px, planes "
+          f"{out['planes']} of 3, misclassification {err:.3f}%, warm "
+          f"two-pass fits {', '.join(f'{t:.1f}' for t in times)} ms")
+    check(4.5 < out["tau"] < 7.5, f"adaptive tau {out['tau']}")
+    check(out["planes"] == 3 and err < 3.0, f"adaptive fit: {out}")
+    return out, launches
+
+
+def phase_stream(dev):
+    """run_stream on the CLI's `stream synth` defaults: SyntheticStream(
+    n_frames=30, n_points=480, n_planes=3) at MultiHConfig(max_points=512,
+    n_hypotheses=1024), budget 33.3 ms, per-frame upload; warm-started
+    and cold, at pipeline depths 1 and 3, and warm at depth 3 with the
+    frames preloaded. Each run is one path for the launch counts."""
+    import multih_tpu_torch as mt
+    from multih_tpu_torch.utils import streaming
+
+    print("== 8. the stream (30 frames, 480 points, 3 drifting planes)")
+    cfg = mt.MultiHConfig(max_points=512, n_hypotheses=1024)
+    out, launches = {}, {}
+    for warm, depth, upload in ((True, 1, "stream"), (True, 3, "stream"),
+                                (False, 1, "stream"), (False, 3, "stream"),
+                                (True, 3, "preload")):
+        label = (f"{'warm' if warm else 'cold'}_depth{depth}"
+                 + ("_preload" if upload == "preload" else ""))
+        st, launches[label] = count_launches(
+            f"stream {label}", ("inlier_counts", "dlt_4pt", "eig9_smallest",
+                                "mean_field_fused", "icm_fused"),
+            lambda: streaming.run_stream(
+                streaming.SyntheticStream(n_frames=30, n_points=480,
+                                          n_planes=3, seed=0),
+                cfg, budget_ms=33.3, seed=0, pipeline_depth=depth,
+                warm_start=warm, upload=upload), quiet=True)
+        out[label] = dict(dataclasses.asdict(st),
+                          meets_budget=st.meets_budget())
+        print(f"stream {label}: frames {st.frames}, p50 {st.p50_ms:.2f} ms, "
+              f"p95 {st.p95_ms:.2f} ms, fps {st.fps:.2f}, mean planes "
+              f"{st.mean_planes:.3f}, over budget {st.frames_over_budget}, "
+              f"meets 33.3 ms budget {st.meets_budget()}")
+        check(st.frames == 30 and st.mean_planes >= 2.5,
+              f"stream {label}: {st}")
+    total = {k: sum(c[k] for c in launches.values())
+             for k in next(iter(launches.values()))}
+    print("kernel launches on the stream path (5 runs):", total)
+    return out, total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile the N=512, stress and motion fits")
+                    help="also profile the N=512 (default and fused-front), "
+                         "stress and motion fits")
     args = ap.parse_args(argv)
 
     import torch
@@ -957,8 +1195,10 @@ def main(argv=None) -> int:
     kernels = phase_kernels(dev)
     launches, latency, profile_fit = phase_fits(dev)
     (stress, launches["stress"], launches["side_stress"],
-     profile_stress) = phase_stress(dev)
+     launches["fused_front_stress"], profile_stress) = phase_stress(dev)
     motion, launches["motion"], profile_motion = phase_motion(dev)
+    adaptive, launches["adaptive"] = phase_adaptive(dev)
+    stream, launches["stream_run"] = phase_stream(dev)
     if args.profile:
         profile_fit()
         profile_stress()
@@ -979,7 +1219,8 @@ def main(argv=None) -> int:
             shape=main_shape["shape"], shapes=kernels[name]["shapes"],
         ))
     print(json.dumps({"kernels": rows, "fit_latency_n512": latency,
-                      "stress": stress, "motion": motion}))
+                      "stress": stress, "motion": motion,
+                      "adaptive": adaptive, "stream": stream}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

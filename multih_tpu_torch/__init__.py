@@ -8,8 +8,12 @@ like it module for module. It imports torch, numpy and scipy, never JAX.
 from multih_tpu_torch.config import MultiHConfig
 from multih_tpu_torch.models.pipeline import (
     FitResult,
+    estimate_tau,
     fit,
+    fit_adaptive,
     make_fit,
+    make_fit_adaptive,
+    make_fit_seeded,
     make_fit_tau,
     pad_points,
 )
@@ -17,8 +21,12 @@ from multih_tpu_torch.models.pipeline import (
 __all__ = [
     "MultiHConfig",
     "FitResult",
+    "estimate_tau",
     "fit",
+    "fit_adaptive",
     "make_fit",
+    "make_fit_adaptive",
+    "make_fit_seeded",
     "make_fit_tau",
     "pad_points",
 ]

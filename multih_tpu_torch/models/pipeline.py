@@ -15,9 +15,14 @@ The fit runs eagerly and forward-only, on the card unless the caller
 asks for the CPU (`fit`'s `device`). With ``cfg.use_pallas`` and CUDA
 tensors the hand-written kernels carry the count sweeps, the minimal
 solves, the refit eigensolves, the mean-field and ICM sweeps (on the
-windowed graph's far-free band) and the window-sampling gathers
+windowed graph's far-free band; with ``cfg.mrf_fused_front`` the
+residuals, data costs and mean-field sweeps of each PEARL iteration in
+one fused call, `fused_front_gate`) and the window-sampling gathers
 (`_kernels_enabled`); otherwise their plain PyTorch versions run, as the
-JAX package runs its jnp paths off the TPU.
+JAX package runs its jnp paths off the TPU. Around the fit: seed
+homographies (`make_fit_seeded`, the streaming warm start of
+utils/streaming.py) and the two-pass adaptive threshold
+(`estimate_tau`, `fit_adaptive`).
 
 Where the port is likely to diverge from the reference, the code says
 so: `jax.lax.top_k`'s tie order (lower index first) is reproduced with a
@@ -25,9 +30,9 @@ stable descending sort (ops.topk.top_k_stable), every argsort is
 stable, `.at[].add` scatters are index_add_, and lax.scan / fori_loop
 bodies are Python loops that never wait on the device.
 
-Out of the port so far, `fit` raises NotImplementedError: the fused
-front, affine and seed hypotheses, a mesh, the gather-path labeling and
-the direct (non-moment) refit.
+Out of the port so far, `fit` raises NotImplementedError: affine
+hypotheses, a mesh, the gather-path labeling and the direct
+(non-moment) refit.
 """
 
 from __future__ import annotations
@@ -129,6 +134,18 @@ def banded_gate(cfg: MultiHConfig, n_pts: int) -> bool:
     return (cfg.agree_block > 0 and cfg.spatial_sort
             and n_pts % cfg.agree_block == 0
             and n_pts >= 2 * cfg.agree_block)
+
+
+def fused_front_gate(cfg: MultiHConfig, adj, has_pt_mesh: bool,
+                     device: torch.device) -> bool:
+    """Whether _pearl_iteration runs the fused residual + data-cost +
+    mean-field kernel (cfg.mrf_fused_front; pipeline.py:461): the kernels
+    on, a far-edge-free banded adjacency, no point mesh, and a homography
+    residual kind the kernel implements."""
+    return (_kernels_enabled(cfg, device) and cfg.mrf_fused_front
+            and labeling._mrf_kernel_ok(adj)
+            and not has_pt_mesh and cfg.model == "homography"
+            and cfg.residual in ("symmetric", "transfer"))
 
 
 def graph_path(cfg: MultiHConfig, n_pts: int) -> str:
@@ -415,20 +432,30 @@ def _pearl_iteration(carry, it: int, x1, x2, valid, nbr_idx, nbr_w,
                      cfg: MultiHConfig, tau=None, adj=None):
     """One PEARL alternation: residuals -> data costs -> mean-field + ICM
     -> refit -> accept -> merge duplicates -> label-cost prune (only in
-    the second half of the iterations) -> for F, the union-refit merge."""
+    the second half of the iterations) -> for F, the union-refit merge.
+    Where `fused_front_gate` holds, the residuals, data costs and sweeps
+    are one fused kernel call, whose dct and r the rest reuses."""
     Hs, active, q = carry
     thr = _thr(cfg, tau, x1)
     k = cfg.max_labels
     use_k = _kernels_enabled(cfg, x1.device)
     f_model = cfg.model == "fundamental"
 
-    r = model_residual_matrix(Hs, x1, x2, cfg.residual, cfg)  # (K, N)
-    dct = labeling.data_costs_t(r, valid, thr, cfg.outlier_cost, active)
-    q = labeling.mean_field_t(
-        dct, nbr_idx, nbr_w, cfg.spatial_weight, cfg.meanfield_iterations,
-        cfg.temperature_start, cfg.temperature, q_init=q, adj=adj,
-        use_kernel=use_k,
-    )
+    if fused_front_gate(cfg, adj, False, x1.device):
+        q, dct, r = labeling.pearl_relax_fused(
+            x1, x2, valid, Hs, active, thr, cfg.outlier_cost,
+            cfg.spatial_weight, cfg.meanfield_iterations,
+            cfg.temperature_start, cfg.temperature, q, adj,
+            kind=cfg.residual, use_kernel=True,
+        )
+    else:
+        r = model_residual_matrix(Hs, x1, x2, cfg.residual, cfg)  # (K, N)
+        dct = labeling.data_costs_t(r, valid, thr, cfg.outlier_cost, active)
+        q = labeling.mean_field_t(
+            dct, nbr_idx, nbr_w, cfg.spatial_weight,
+            cfg.meanfield_iterations, cfg.temperature_start,
+            cfg.temperature, q_init=q, adj=adj, use_kernel=use_k,
+        )
     # two ICM starts: the mean-field argmax and the data argmin
     labels = labeling.best_labeling_t(
         [torch.argmax(q, dim=0), torch.argmin(dct, dim=0)],
@@ -794,20 +821,16 @@ def _f_refine_phases(Hs, active, q, draws, x1, x2, valid, nbr_idx, nbr_w,
     return Hs, q
 
 
-def _check_slice(cfg: MultiHConfig, n_pts: int, affines, seed_Hs, mesh):
+def _check_slice(cfg: MultiHConfig, n_pts: int, affines, mesh):
     """NotImplementedError for everything outside the ported slice."""
     unsupported = []
     if not banded_gate(cfg, n_pts):
         unsupported.append("the gather-path labeling (needs spatial_sort "
                            "and N a multiple >= 2 of agree_block)")
-    if cfg.mrf_fused_front:
-        unsupported.append("mrf_fused_front")
     if not cfg.refit_moments:
         unsupported.append("refit_moments=False")
     if affines is not None:
         unsupported.append("affine one-point hypotheses")
-    if seed_Hs is not None:
-        unsupported.append("seed homographies")
     if mesh is not None:
         unsupported.append("a device mesh")
     if unsupported:
@@ -843,11 +866,17 @@ def fit(x1, x2, valid, key, cfg: MultiHConfig, affines=None, tau=None,
     device; numpy arrays or lists go to `device`, by default the card
     (see `_inputs`). key: a ``torch.Generator`` on the points' device, or
     a draw source (ops/sampling.py). tau: optional inlier threshold in px
-    overriding cfg.inlier_threshold. affines / seed_Hs / seed_ok / mesh
-    exist for signature parity with the reference and are not ported."""
+    overriding cfg.inlier_threshold (a number or a tensor, e.g. from
+    `estimate_tau`; never read back to the host). seed_Hs: optional
+    (M, 3, 3) candidate homographies appended to the sampled pool before
+    verification (the streaming warm start), competing with it on equal
+    terms; seed_ok: optional (M,) {0,1} validity of each seed, non-finite
+    seeds masked off regardless (pipeline.py:1193-1200). Both go to the
+    points' device. affines / mesh exist for signature parity with the
+    reference and are not ported."""
     x1, x2, valid = _inputs(x1, x2, valid, device)
     n_pts = x1.shape[0]
-    _check_slice(cfg, n_pts, affines, seed_Hs, mesh)
+    _check_slice(cfg, n_pts, affines, mesh)
     if isinstance(key, torch.Generator):
         if key.device.type != x1.device.type:
             raise ValueError(f"generator on {key.device}, points on "
@@ -894,6 +923,17 @@ def fit(x1, x2, valid, key, cfg: MultiHConfig, affines=None, tau=None,
             window_block=(cfg.agree_block
                           if windowed and cfg.window_sampling else 0),
         )
+    if seed_Hs is not None:
+        # pipeline.py:1222-1224: after the sampled pool, so top_k's tie
+        # order sees the same indices
+        seed_Hs = torch.as_tensor(seed_Hs, dtype=x1.dtype,
+                                  device=dev).reshape(-1, 3, 3)
+        s_finite = torch.isfinite(seed_Hs.reshape(seed_Hs.shape[0], -1)
+                                  ).all(1).to(x1.dtype)
+        seed_ok = s_finite if seed_ok is None else torch.as_tensor(
+            seed_ok, dtype=x1.dtype, device=dev) * s_finite
+        Hs_all = torch.cat([Hs_all, seed_Hs])
+        ok = torch.cat([ok, seed_ok])
     vs = max(1, cfg.verify_subsample)
     with record_function("verify"):
         # rank_residual only when a full-resolution rescore follows
@@ -991,6 +1031,72 @@ def fit(x1, x2, valid, key, cfg: MultiHConfig, affines=None, tau=None,
     )
 
 
+def _noise_median_factor(cfg: MultiHConfig) -> float:
+    """median(r^2 of true members) / sigma^2 of the configured model
+    class and residual kind (pipeline.py:1736): 5.85 for every
+    homography kind, as the reference keeps it (its calibration is the
+    symmetric transfer's), 0.466 for fundamental Sampson, 1.874 for
+    fundamental symmetric epipolar."""
+    if cfg.model == "fundamental":
+        return 1.874 if cfg.residual == "symmetric" else 0.466
+    return 5.85
+
+
+def tau_from_members(r_own, is_member, cfg: MultiHConfig, floor=None,
+                     cap=None) -> torch.Tensor:
+    """tau = 6 sigma from the median squared own-model residual of the
+    members (pipeline.py:1750): the element at n_members // 2 of the
+    members' sorted residuals, scaled by 36 / _noise_median_factor,
+    square-rooted and clipped to [floor, cap] (per model class: (3, 12)
+    px for homographies, (1.5, 9) for F); cfg.inlier_threshold when
+    fewer than min_inliers members exist. A 0-dim tensor on r_own's
+    device, computed without reading anything back to the host."""
+    if floor is None:
+        floor = 1.5 if cfg.model == "fundamental" else 3.0
+    if cap is None:
+        cap = 9.0 if cfg.model == "fundamental" else 12.0
+    vals = torch.where(is_member, r_own, float("inf"))
+    n_m = is_member.to(torch.int64).sum()
+    med = torch.sort(vals).values.index_select(
+        0, torch.clamp_min(n_m // 2, 0).view(1))[0]
+    tau = torch.sqrt(36.0 / _noise_median_factor(cfg)
+                     * torch.clamp_min(med, 1e-6))
+    tau = torch.clamp(tau, floor, cap)
+    return torch.where(n_m >= cfg.min_inliers, tau,
+                       torch.full_like(tau, cfg.inlier_threshold))
+
+
+def estimate_tau(res: FitResult, x1, x2, valid, cfg: MultiHConfig,
+                 floor=None, cap=None) -> torch.Tensor:
+    """Noise-adaptive inlier threshold (px) from a previous fit
+    (pipeline.py:1772): its members' squared residuals to their own
+    model, padded points and the outlier label excluded, through
+    `tau_from_members`. The points (the fit's inputs, in the caller's
+    order) go to the device of res.labels."""
+    x1, x2, valid = _inputs(x1, x2, valid, res.labels.device)
+    k = cfg.max_labels
+    r = model_residual_matrix(res.homographies, x1, x2, cfg.residual, cfg)
+    lab = res.labels.to(torch.int64)
+    is_member = (lab < k) & (valid > 0)
+    r_own = torch.gather(r.T, 1, torch.clamp(lab, 0, k - 1)[:, None])[:, 0]
+    return tau_from_members(r_own, is_member, cfg, floor, cap)
+
+
+def fit_adaptive(x1, x2, valid, key, cfg: MultiHConfig,
+                 probe_tau: float = 8.0, mesh=None, device=None):
+    """Two-pass fit with a self-calibrated inlier threshold
+    (pipeline.py:1796): a probe fit at `probe_tau` px, `estimate_tau` on
+    its members, then the fit at that tau. key: a ``torch.Generator`` or
+    draw source drawn by both passes in turn, or a (probe, fit) pair of
+    them (the reference splits its key in two). tau stays on the device
+    between the passes. Returns (FitResult, tau)."""
+    x1, x2, valid = _inputs(x1, x2, valid, device)
+    k_probe, k_fit = key if isinstance(key, tuple) else (key, key)
+    res0 = fit(x1, x2, valid, k_probe, cfg, tau=probe_tau, mesh=mesh)
+    tau = estimate_tau(res0, x1, x2, valid, cfg)
+    return fit(x1, x2, valid, k_fit, cfg, tau=tau, mesh=mesh), tau
+
+
 def make_fit(cfg: MultiHConfig, device=None):
     """fit with cfg (and the device for array inputs) bound:
     f(x1, x2, valid, key)."""
@@ -1004,4 +1110,23 @@ def make_fit_tau(cfg: MultiHConfig, device=None):
     f(x1, x2, valid, key, tau)."""
     def f(x1, x2, valid, key, tau):
         return fit(x1, x2, valid, key, cfg, tau=tau, device=device)
+    return f
+
+
+def make_fit_seeded(cfg: MultiHConfig, device=None):
+    """fit with cfg bound and seed homographies as arguments, the
+    streaming warm start: f(x1, x2, valid, key, seed_Hs, seed_ok)."""
+    def f(x1, x2, valid, key, seed_Hs, seed_ok):
+        return fit(x1, x2, valid, key, cfg, seed_Hs=seed_Hs, seed_ok=seed_ok,
+                   device=device)
+    return f
+
+
+def make_fit_adaptive(cfg: MultiHConfig, probe_tau: float = 8.0,
+                      device=None):
+    """The two-pass adaptive-threshold fit with cfg bound:
+    f(x1, x2, valid, key) -> (FitResult, tau)."""
+    def f(x1, x2, valid, key):
+        return fit_adaptive(x1, x2, valid, key, cfg, probe_tau,
+                            device=device)
     return f

@@ -44,6 +44,8 @@ _SIGNATURES = {
     "multih_dlt_4pt": [_P, _I, _P, _P],
     "multih_eig9_smallest": [_P, _I, _P, _P],
     "multih_mean_field": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P],
+    "multih_mean_field_front": [_P] * 6 + [_I] * 4 + [_F, _F, _I]
+    + [_P] * 6,
     "multih_icm": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P],
     "multih_window_gather": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
 }

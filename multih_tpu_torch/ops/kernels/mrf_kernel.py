@@ -1,8 +1,10 @@
 """Fused PEARL relaxation sweeps over the banded adjacency: the CUDA
-mean-field and red-black ICM kernels and their plain PyTorch versions.
+mean-field, fused-front mean-field and red-black ICM kernels and their
+plain PyTorch versions.
 
 Replaces ``multih_tpu/ops/kernels/mrf_kernel.py`` (``_mf_kernel`` via
-``mean_field_fused``, ``_icm_kernel`` via ``icm_fused``). Both need a
+``mean_field_fused``, ``_mf_front_kernel`` via ``mean_field_fused_front``,
+``_icm_kernel`` via ``icm_fused``). All need a
 far-edge-free band (the windowed k-NN graph's): per Morton block b the
 agreement is the (L, 3B) window of the state times band[b]^T, and block
 0's left third and block nb-1's right third read zeros (labels -1).
@@ -25,20 +27,33 @@ label's cost by one-hot sum, and a move only on the half-sweep's parity
 when better by more than 1e-6. In both, base = dct + sw*deg^T is built
 by the caller.
 
+The fused front computes each point's (K, N) homography residuals, its
+data costs and base in the launch of the first sweep
+(csrc/mrf_kernel.cu, mf_front); its plain version is
+geometry.residual_matrix -> labeling.data_costs_t -> the plain sweeps.
+
 Tolerances against the plain versions: mean-field q within 1e-5
 max-abs (the band product sums in another order); ICM labels exact (the
 band values {0, 0.5, 1} make every agreement sum exact, and the kernel
-rounds sw*agree and the subtraction separately, as PyTorch does).
+rounds sw*agree and the subtraction separately, as PyTorch does); the
+front's r to rtol 1e-3 / atol 1e-4 below 1e6 px^2 and min(r/thr, 8) to
+atol 1e-4 everywhere (the elementwise residual against the plain
+matmul; past 1e6 px^2 w nears zero, float32 cancellation sets r's
+digits and the cost is saturated), its dct equal to data_costs_t of its
+own r, its q within 1e-5 of the plain sweeps on its own dct and within
+1e-4 of the plain version (r's last bits, where px - u cancels, reach q
+through 1/T up to 4).
 
 The wrappers take CUDA tensors only and raise on anything else; the
-callers (labeling.mean_field_t, labeling._icm_batch) choose the plain
-sweeps for CPU tensors.
+callers (labeling.mean_field_t, labeling._icm_batch,
+labeling.pearl_relax_fused) choose the plain versions for CPU tensors.
 """
 
 from __future__ import annotations
 
 import torch
 
+from multih_tpu_torch.ops import geometry
 from multih_tpu_torch.ops.kernels import _build
 
 MAX_LABELS = 64  # the kernels keep L per-lane sums in registers
@@ -143,6 +158,76 @@ def mean_field_fused(q0_t: torch.Tensor, base_t: torch.Tensor,
 
 
 mean_field_fused.launches = 0
+
+
+FRONT_KINDS = ("symmetric", "transfer")
+
+
+def mean_field_fused_front_reference(q0_t, pts, hm, band, inv_temps, thr,
+                                     spatial_weight: float,
+                                     outlier_cost: float,
+                                     kind: str = "symmetric"):
+    """Plain version of `mean_field_fused_front`:
+    geometry.residual_matrix -> labeling.data_costs_t -> the plain sweeps
+    of `mean_field_fused_reference`, on the kernel's packed inputs."""
+    from multih_tpu_torch.models import labeling  # labeling imports us
+
+    k = q0_t.shape[0] - 1
+    hs = hm[:k, :9].reshape(k, 3, 3)
+    r = geometry.residual_matrix(hs, pts[0:2].T, pts[2:4].T, kind)
+    dct = labeling.data_costs_t(r, pts[4], thr, outlier_cost, hm[:k, 18])
+    q = mean_field_fused_reference(q0_t, dct + pts[5:6], band, inv_temps,
+                                   spatial_weight)
+    return q, dct, r
+
+
+def mean_field_fused_front(q0_t: torch.Tensor, pts: torch.Tensor,
+                           hm: torch.Tensor, band: torch.Tensor,
+                           inv_temps: torch.Tensor, thr,
+                           spatial_weight: float, outlier_cost: float,
+                           kind: str = "symmetric"):
+    """`mean_field_fused` with the residual and data-cost front fused in
+    (homography "symmetric" / "transfer" kinds), max(S, 1) launches.
+
+    q0_t: (L, N) float32; pts: (8, N) float32, rows [x1x, x1y, x2x, x2y,
+    valid, sw*deg, 0, 0]; hm: (L, 19) float32, per label [H (9), adj(H)
+    (9), active], the outlier row L-1 all zeros; band: (nb, B, 3B)
+    float32, far-free; inv_temps: (S,) float32; thr: the squared inlier
+    threshold, a 0-dim CUDA tensor (read on the card, never synchronised)
+    or a number. Returns (q (L, N), dct (L, N), r (L-1, N)). CUDA tensors
+    only."""
+    _build.require_cuda(q0_t, pts, hm, band, inv_temps)
+    l, n = q0_t.shape
+    if kind not in FRONT_KINDS:
+        raise ValueError(f"fused front kind {kind!r} not in {FRONT_KINDS}")
+    if pts.shape != (8, n) or hm.shape != (l, 19) or inv_temps.dim() != 1:
+        raise ValueError(f"q0 {tuple(q0_t.shape)}, pts {tuple(pts.shape)}, "
+                         f"hm {tuple(hm.shape)}, inv_temps "
+                         f"{tuple(inv_temps.shape)}")
+    _check_band(band, n, l)
+    thr_t = torch.as_tensor(thr, dtype=torch.float32,
+                            device=q0_t.device).reshape(1).contiguous()
+    _build.require_cuda(thr_t)
+    nb, block, _ = band.shape
+    n_sweeps = inv_temps.shape[0]
+    out = torch.empty_like(q0_t)
+    dct = torch.empty_like(q0_t)
+    r = torch.empty((l - 1, n), dtype=q0_t.dtype, device=q0_t.device)
+    base = torch.empty_like(q0_t)
+    tmp = torch.empty_like(q0_t) if n_sweeps > 1 else out
+    rc = _build.load().multih_mean_field_front(
+        q0_t.data_ptr(), pts.data_ptr(), hm.data_ptr(), band.data_ptr(),
+        inv_temps.data_ptr(), thr_t.data_ptr(), n_sweeps, l, nb, block,
+        float(spatial_weight), float(outlier_cost), int(kind == "symmetric"),
+        out.data_ptr(), dct.data_ptr(), r.data_ptr(), base.data_ptr(),
+        tmp.data_ptr(), _build.stream_handle(q0_t),
+    )
+    _build.check(rc, "mean_field_fused_front")
+    mean_field_fused_front.launches += 1
+    return out, dct, r
+
+
+mean_field_fused_front.launches = 0
 
 
 def icm_fused(labels0: torch.Tensor, base_t: torch.Tensor,

@@ -1,14 +1,17 @@
-"""Synthetic scenes for the port (numpy only).
+"""Correspondence files and synthetic scenes for the port (numpy and
+scipy only).
 
-Byte-for-byte copies of ``multih_tpu.utils.data``'s plane and motion
-scene generators and of ``benchmarks/suite.py``'s scene tables: those
-modules cannot be imported without JAX (``multih_tpu/__init__.py``
-imports it), and the machine with the card has no JAX. The parity tests
-assert both generators give identical arrays and the tables equal rows.
+Byte-for-byte copies of ``multih_tpu.utils.data``'s file readers and
+writer, its plane and motion scene generators and of
+``benchmarks/suite.py``'s scene tables: those modules cannot be imported
+without JAX (``multih_tpu/__init__.py`` imports it), and the machine
+with the card has no JAX. The parity tests assert both generators give
+identical arrays and the tables equal rows.
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -29,6 +32,42 @@ class CorrespondenceSet(NamedTuple):
         if self.gt_labels is None:
             return 0
         return int(np.max(self.gt_labels))
+
+
+def load_adelaide_mat(path: str) -> CorrespondenceSet:
+    """AdelaideRMF .mat: 'data' is 6xN ([x;y;1;x';y';1]), 'label' is N."""
+    from scipy.io import loadmat
+
+    m = loadmat(path)
+    data = m["data"]
+    if data.shape[0] != 6:
+        data = data.T
+    x1 = (data[0:2] / data[2:3]).T.astype(np.float32)
+    x2 = (data[3:5] / data[5:6]).T.astype(np.float32)
+    label = None
+    if "label" in m:
+        label = np.asarray(m["label"]).reshape(-1).astype(np.int32)
+    name = os.path.splitext(os.path.basename(path))[0]
+    return CorrespondenceSet(x1, x2, label, name)
+
+
+def load_correspondences_txt(path: str) -> CorrespondenceSet:
+    """Whitespace table: x y x' y' [gt_label], one correspondence per row."""
+    arr = np.loadtxt(path, dtype=np.float64, ndmin=2)
+    x1 = arr[:, 0:2].astype(np.float32)
+    x2 = arr[:, 2:4].astype(np.float32)
+    label = (
+        arr[:, 4].astype(np.int32) if arr.shape[1] > 4 else None
+    )
+    name = os.path.splitext(os.path.basename(path))[0]
+    return CorrespondenceSet(x1, x2, label, name)
+
+
+def save_correspondences_txt(path: str, cs: CorrespondenceSet) -> None:
+    cols = [cs.x1, cs.x2]
+    if cs.gt_labels is not None:
+        cols.append(cs.gt_labels[:, None].astype(np.float32))
+    np.savetxt(path, np.concatenate(cols, axis=1), fmt="%.6f")
 
 
 def _random_homography(rng: np.random.Generator, scale: float = 640.0):

@@ -260,13 +260,69 @@ class TestCudaKernels:
         """q within 1e-5 max-abs of the plain version (the band product
         sums in another order)."""
         _, q0, base, band = mrf_inputs(rng, n, block, l, cuda_device)
-        inv_t = t((1.0 / np.geomspace(2.0, 0.25, sweeps)).astype(
-            np.float32)).to(cuda_device)
+        # the fit's annealing schedule (a single sweep at temp_end)
+        inv_t = (1.0 / tlab._mf_temps(sweeps, 2.0, 0.25, torch.float32,
+                                      cuda_device))[:sweeps]
         before = tmrf.mean_field_fused.launches
         got = tmrf.mean_field_fused(q0, base, band, inv_t, 0.1)
         assert tmrf.mean_field_fused.launches == before + 1
         ref = tmrf.mean_field_fused_reference(q0, base, band, inv_t, 0.1)
         assert float((got - ref).abs().max()) <= 1e-5
+
+    @pytest.mark.parametrize("kind", ["symmetric", "transfer"])
+    @pytest.mark.parametrize("n,block,sweeps", [
+        (512, 256, 6), (2048, 128, 4), (1024, 64, 1), (512, 128, 0),
+    ])
+    def test_mean_field_front_kernel(self, rng, cuda_device, kind, n, block,
+                                     sweeps):
+        """The fused front against its plain version, thr a device
+        tensor: r to rtol 1e-3 / atol 1e-4 up to 1e6 px^2 and
+        min(r/thr, 8) to atol 1e-4 everywhere; dct equal to
+        data_costs_t of the kernel's own r (rtol 2e-6); q within 1e-5 of
+        the plain sweeps on the kernel's own dct (K4's tolerance) and
+        within 1e-4 of the plain version end to end.
+        Past 1e6 px^2 (a transfer 1000 px off) w nears zero, and its
+        float32 cancellation, not the kernel, sets r's digits: the
+        elementwise sum and the plain version's matmul differ by up to
+        15% at r ~ 1e14 (measured on the card); the cost is saturated
+        there on both sides. Below it, px - u cancels: r ~ 10 px^2 moves
+        by ~1e-4 px^2 between the two roundings, dct by ~1e-5, and one
+        sweep at 1/T = 4 turns that into ~1.1e-5 of q (measured)."""
+        x1, x2, valid, _, adj = windowed_band(rng, n, block, cuda_device)
+        hs = np.eye(3)[None] + rng.normal(0, 0.02, (16, 3, 3))
+        hs[-1] = rng.normal(0, 1.0, (3, 3))  # huge residuals, truncated
+        hs = t(hs.astype(np.float32)).to(cuda_device)
+        active = torch.ones(16, device=cuda_device)
+        active[1] = 0.0
+        q0 = torch.softmax(t(rng.normal(size=(17, n)).astype(np.float32)),
+                           0).to(cuda_device)
+        thr = torch.tensor(9.0, device=cuda_device)
+        pts, hm = tlab.pack_front(x1, x2, valid, hs, active, 0.1, adj)
+        # the fit's annealing schedule (a single sweep at temp_end)
+        inv_t = (1.0 / tlab._mf_temps(sweeps, 2.0, 0.25, torch.float32,
+                                      cuda_device))[:sweeps]
+        args = (q0, pts, hm, adj.band, inv_t, thr, 0.1, 1.0, kind)
+        before = tmrf.mean_field_fused_front.launches
+        q, dct, r = tmrf.mean_field_fused_front(*args)
+        assert tmrf.mean_field_fused_front.launches == before + 1
+        q_ref, _, r_ref = tmrf.mean_field_fused_front_reference(*args)
+        near = r_ref <= 1e6
+        torch.testing.assert_close(r[near], r_ref[near], rtol=1e-3,
+                                   atol=1e-4, msg=lambda m: f"r: {m}")
+        assert bool((r[~near] > 8.0 * thr).all())
+        torch.testing.assert_close(torch.clamp_max(r / thr, 8.0),
+                                   torch.clamp_max(r_ref / thr, 8.0),
+                                   rtol=0, atol=1e-4,
+                                   msg=lambda m: f"min(r/thr, 8): {m}")
+        torch.testing.assert_close(
+            dct, tlab.data_costs_t(r, valid, thr, 1.0, active),
+            rtol=2e-6, atol=1e-6, msg=lambda m: f"dct: {m}")
+        q_own = tmrf.mean_field_fused_reference(q0, dct + pts[5:6],
+                                                adj.band, inv_t, 0.1)
+        assert float((q - q_own).abs().max()) <= 1e-5
+        assert float((q - q_ref).abs().max()) <= 1e-4
+        if sweeps == 0:
+            assert torch.equal(q, q0)
 
     @pytest.mark.parametrize("n,block,l,iterations", [
         (512, 256, 17, 2), (2048, 128, 17, 1), (1024, 64, 9, 3),

@@ -238,18 +238,34 @@ def test_gates_match_reference(n_pts, expect):
         "fused_front", "direct_refit", "gather_labeling",
         "fundamental_fused_front"])
 def test_out_of_slice_raises(kw):
+    """The configs outside the port raise NotImplementedError. The
+    mrf_fused_front cases are in it now: on the CPU (and for the
+    fundamental model anywhere) fused_front_gate keeps the unfused
+    route, so the fit with the flag equals the fit without it."""
     cfg = mt.MultiHConfig(max_points=512, **kw)
-    z = torch.zeros((512, 2))
-    with pytest.raises(NotImplementedError):
-        mt.fit(z, z, torch.ones(512), torch.Generator(), cfg)
+    if not cfg.mrf_fused_front:
+        z = torch.zeros((512, 2))
+        with pytest.raises(NotImplementedError):
+            mt.fit(z, z, torch.ones(512), torch.Generator(), cfg)
+        return
+    cfg = dataclasses.replace(cfg, n_hypotheses=256)
+    cs, _ = tdata.synthetic_scene(400, 2, 0.1, 0.5, seed=3)
+    pts = mt.pad_points(cs.x1, cs.x2, None, 512)
+    fused, plain = (
+        mt.fit(*pts, torch.Generator().manual_seed(0), c, device="cpu")
+        for c in (cfg, dataclasses.replace(cfg, mrf_fused_front=False)))
+    assert torch.equal(fused.labels, plain.labels)
+    assert torch.equal(fused.homographies, plain.homographies)
+    assert torch.equal(fused.energy_trace, plain.energy_trace)
 
 
 @pytest.mark.parametrize("model", ["homography", "fundamental"])
 def test_out_of_slice_arguments_raise(model):
+    """Affine hypotheses and a mesh raise; seed homographies are in the
+    port (tests/test_torch_stream.py)."""
     cfg = mt.MultiHConfig(max_points=512, knn_window=False, model=model)
     z = torch.zeros((512, 2))
-    for kw in (dict(affines=torch.zeros((512, 2, 2))),
-               dict(seed_Hs=torch.zeros((2, 3, 3))), dict(mesh=object())):
+    for kw in (dict(affines=torch.zeros((512, 2, 2))), dict(mesh=object())):
         with pytest.raises(NotImplementedError):
             mt.fit(z, z, torch.ones(512), torch.Generator(), cfg, **kw)
 
