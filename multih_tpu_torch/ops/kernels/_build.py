@@ -47,7 +47,7 @@ _SIGNATURES = {
     "multih_mean_field_front": [_P] * 6 + [_I] * 4 + [_F, _F, _I]
     + [_P] * 6,
     "multih_icm": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P],
-    "multih_window_gather": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    "multih_window_gather": [_P, _P] + [_I] * 7 + [_P, _P],
 }
 
 
@@ -142,8 +142,11 @@ def check(rc: int, what: str) -> None:
 
 
 def stream_handle(t: torch.Tensor) -> int:
-    """The current CUDA stream of t's device, as a pointer-sized int."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current CUDA stream of t's device, as a pointer-sized int: the
+    same handle as torch.cuda.current_stream(t.device).cuda_stream,
+    without building a torch.cuda.Stream object on every launch (the
+    raw accessor Triton's launcher takes)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def require_cuda(*tensors: torch.Tensor, dtype=torch.float32) -> None:

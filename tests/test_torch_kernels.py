@@ -229,29 +229,51 @@ class TestCudaKernels:
         err = (got - ref).abs().amax((1, 2))[well]
         assert bool(torch.isfinite(got).all()) and float(err.max()) < 5e-4
 
-    def test_eig_kernel(self, rng, cuda_device):
-        atas = t(normal_matrices(rng, 256)).to(cuda_device)
+    @staticmethod
+    def _hold_eig(atas):
+        """K3 against its plain versions and float64 eigh: within twice
+        the float32 floor eps32 * lam_max / (lam_2 - lam_1) of float64
+        eigh on every matrix, and where that floor is below 1e-5 within
+        1e-5 of the round-robin plain version (the kernel's order and
+        rounding) and 1e-4 of the cyclic one (the JAX twin's order)."""
+        before = teig.smallest_eigvec_9x9_batch.launches
+        got = teig.smallest_eigvec_9x9_batch(atas)
+        assert teig.smallest_eigvec_9x9_batch.launches == before + 1
+        assert got.shape == (atas.shape[0], 9)
+        floor = eigvec_floor(atas)
+        assert (eigvec_err64(atas, got) <= 2.0 * floor).all()
+        well = floor < 1e-5
+        if well.any():
+            got = got.cpu().numpy()[well]
+            rr = teig.smallest_eigvec_9x9_round_robin_reference(atas)
+            cyc = teig.smallest_eigvec_9x9_batch_reference(atas)
+            assert sign_aligned_err(rr.cpu().numpy()[well], got) <= 1e-5
+            assert sign_aligned_err(cyc.cpu().numpy()[well], got) < 1e-4
+        return well.sum()
+
+    @pytest.mark.parametrize("c", [1, 16, 17, 256, 300])
+    def test_eig_kernel(self, rng, cuda_device, c):
+        """Homography normal matrices at the PEARL (16) and LO-refine
+        (256) batches, one matrix, and ragged last warps (17, 300)."""
+        atas = t(normal_matrices(rng, c)).to(cuda_device)
+        assert self._hold_eig(atas) >= 0.8 * c
+        # and, as before the round-robin order, within 1e-4 of the cyclic
+        # version on every one of these matrices
         got = teig.smallest_eigvec_9x9_batch(atas).cpu().numpy()
         ref = teig.smallest_eigvec_9x9_batch_reference(atas).cpu().numpy()
         assert sign_aligned_err(ref, got) < 1e-4
 
-    def test_eig_kernel_f_normal_matrices(self, rng, cuda_device):
+    @pytest.mark.parametrize("c", [16, 256])
+    def test_eig_kernel_f_normal_matrices(self, rng, cuda_device, c):
         """K3 on the fundamental refit's normal matrices (C=256, the
-        union merge's batch). Their smallest eigenvalue gap is down to
+        union merge's batch; C=16, a PEARL refit's). Their smallest eigenvalue gap is down to
         6e-5 of the largest, so float32 fixes the eigenvector only to
         eps32 * lam_max / gap (up to 2e-3 here): the kernel is held
-        within twice that floor of float64 eigh on every matrix (the
-        plain Jacobi and float32 eigh reach half of it, measured), and
-        within 1e-4 of the plain Jacobi where the floor is below 1e-5."""
-        atas = f_normal_matrices(rng, 256).to(cuda_device)
-        got = teig.smallest_eigvec_9x9_batch(atas)
-        ref = teig.smallest_eigvec_9x9_batch_reference(atas)
-        floor = eigvec_floor(atas)
-        assert (eigvec_err64(atas, got) <= 2.0 * floor).all()
-        well = floor < 1e-5
-        assert well.sum() > 0
-        assert sign_aligned_err(ref.cpu().numpy()[well],
-                                got.cpu().numpy()[well]) < 1e-4
+        within twice that floor of float64 eigh on every matrix
+        (chip_smoke.py prints how far the kernel and its plain version
+        get)."""
+        atas = f_normal_matrices(rng, c).to(cuda_device)
+        self._hold_eig(atas)
 
     @pytest.mark.parametrize("n,block,l,sweeps", [
         (512, 256, 17, 6), (2048, 128, 17, 4), (1024, 64, 9, 1),
@@ -338,24 +360,59 @@ class TestCudaKernels:
         assert torch.equal(got, ref)
         assert bool((got != starts).any())
 
+    @pytest.mark.parametrize("n,block,t_sel", [
+        (2048, 128, 777), (10240, 128, 1600), (2048, 256, 1280),
+        (1024, 256, 1),
+    ])
     @pytest.mark.parametrize("mode", ["index", "rank"])
-    def test_window_gather_kernel(self, rng, cuda_device, mode):
-        """Bit-exact, out-of-range picks and exhausted windows included."""
-        x1, x2, valid, nbr_idx, _ = windowed_band(rng, 2048, 128,
+    def test_window_gather_kernel(self, rng, cuda_device, mode, n, block,
+                                  t_sel):
+        """Bit-exact, out-of-range picks and exhausted windows included:
+        the stress shapes (3B=384, C=8 index / C=15 rank), 3B=768 and a
+        ragged T (777, 1): one to seven runs of T_BLOCK selections a
+        window, the last one partial."""
+        x1, x2, valid, nbr_idx, _ = windowed_band(rng, n, block,
                                                   cuda_device)
         avail = valid.clone()
-        avail[:600] = 0.0
-        win = tsamp.window_source(x1, x2, avail, nbr_idx, 128)
+        avail[:n // 4] = 0.0
+        win = tsamp.window_source(x1, x2, avail, nbr_idx, block)
         # windowed_quadruples gathers by index from the first 8 channels
         win = (win[:, :, :8] if mode == "index" else win).contiguous()
         nb, rows, _ = win.shape
-        sel = t(rng.integers(-2, rows + 3, (nb, 777)).astype(np.int32)).to(
-            cuda_device)
-        got = tgather.window_gather(win, sel, mode)
+        sel = t(rng.integers(-2, rows + 3, (nb, t_sel)).astype(np.int32)
+                ).to(cuda_device)
         ref = tgather.window_gather_reference(win, sel, mode)
-        assert torch.equal(got, ref)
+        assert torch.equal(tgather.window_gather(win, sel, mode), ref)
         zero = (ref == 0).all(1)
-        assert bool(zero.any()) and not bool(zero.all())
+        assert t_sel == 1 or (bool(zero.any()) and not bool(zero.all()))
+
+    def test_window_gather_kernel_large_window(self, rng, cuda_device):
+        """3B=768 rows of C=16 channels: 49,152 bytes of shared memory a
+        block, past the 48 KB default, bit-exact in both modes."""
+        nb, rows, c = 5, 768, 16
+        win = t(rng.normal(size=(nb, rows, c)).astype(np.float32))
+        avail = rng.uniform(size=(nb, rows)) < 0.6
+        win[:, :, tgather.CUM_CH] = t(np.cumsum(avail, 1).astype(np.float32))
+        win = win.to(cuda_device)
+        for mode, hi in (("index", rows + 3), ("rank", int(avail.sum(1).max())
+                                               + 3)):
+            sel = t(rng.integers(-2, hi, (nb, 999)).astype(np.int32)).to(
+                cuda_device)
+            assert torch.equal(tgather.window_gather(win, sel, mode),
+                               tgather.window_gather_reference(win, sel,
+                                                               mode))
+
+    def test_stream_handle(self, cuda_device):
+        """The launches' stream is the current one, on a side stream
+        too."""
+        from multih_tpu_torch.ops.kernels import _build
+
+        x = torch.zeros(4, device=cuda_device)
+        assert _build.stream_handle(x) == \
+            torch.cuda.current_stream().cuda_stream
+        side = torch.cuda.Stream()
+        with torch.cuda.stream(side):
+            assert _build.stream_handle(x) == side.cuda_stream
 
     def test_wrappers_reject_bad_input(self, cuda_device):
         with pytest.raises(ValueError):
@@ -379,11 +436,17 @@ class TestCudaKernels:
             tmrf.icm_fused(torch.zeros((2, 128), dtype=torch.int64,
                                        device=cuda_device), base, band, 1,
                            0.1)
+        sel = torch.zeros((2, 5), dtype=torch.int32, device=cuda_device)
         with pytest.raises(ValueError):
             tgather.window_gather(torch.zeros((2, 192, 8),
-                                              device=cuda_device),
-                                  torch.zeros((2, 5), dtype=torch.int32,
-                                              device=cuda_device), "row")
+                                              device=cuda_device), sel,
+                                  "row")
+        with pytest.raises(ValueError):  # past the shared memory of a block
+            tgather.window_gather(torch.zeros((2, 3840, 16),
+                                              device=cuda_device), sel)
+        with pytest.raises(ValueError):  # 3 x 5 floats: not 16-byte windows
+            tgather.window_gather(torch.zeros((2, 3, 5), device=cuda_device),
+                                  sel)
 
 
 # ---------------------------------------------------------------------------
