@@ -20,9 +20,11 @@ Phases, each raising on failure:
      motion fit's verify shape, K3 at the LO-refine batch C=256 and a
      PEARL batch C=16 and on the F normal matrices of a real refit in a
      motion fit, held to float64 eigh too; K6 at both homography kinds
-     with the threshold a device tensor), with kernel, plain and (where one
-     PyTorch call computes the same function) library times beside each
-     kernel's bound: the larger of its bytes (inputs read once, outputs
+     with the threshold a device tensor; the neighbour list bit-exact;
+     K4, K5 and K6 on the list the fit builds, with their CUDA launches a
+     call counted by torch.profiler: 1, 1 and 2), with kernel, plain and
+     (where one PyTorch call computes the same function) library times
+     beside each kernel's bound: the larger of its bytes (inputs read once, outputs
      written once) at 3.35 TB/s and its operations at 67 TFLOP/s fp32,
      counted from this run's inputs. Two times for the kernel and the
      library call: "call ms", the median of CUDA-event pairs around one
@@ -34,8 +36,8 @@ Phases, each raising on failure:
      before it and read just after: the side config MultiHConfig(
      knn_window=False, knn_approx=False) on BASELINE config 2 (K1-K3);
      then the default config MultiHConfig() on BASELINE config 2 (exact
-     recovery) and three golden scenes (K1-K5), the same with
-     mrf_fused_front=True (K6 once per PEARL iteration, no K4), the card
+     recovery) and three golden scenes (K1-K5 and the list build), the
+     same with mrf_fused_front=True (K6 once per PEARL iteration, no K4), the card
      fit against the CPU fit and the fused-front fit, and the warm fit
      latency at N=512 of the default, fused-front and side configs, one
      fit of each in turns;
@@ -101,6 +103,11 @@ KERNELS = {
     "mean_field_fused_front": dict(
         source="multih_tpu_torch/csrc/mrf_kernel.cu",
         replaces="multih_tpu/ops/kernels/mrf_kernel.py:280"),
+    # the neighbour list K4-K6 read in place of the band that K4's TPU
+    # kernel streams (built once per fit beside the far-free band)
+    "band_list": dict(
+        source="multih_tpu_torch/csrc/mrf_kernel.cu",
+        replaces="multih_tpu/ops/kernels/mrf_kernel.py:118"),
     "window_gather": dict(
         source="multih_tpu_torch/csrc/gather_kernel.cu",
         replaces="multih_tpu/ops/kernels/gather_kernel.py:94"),
@@ -171,6 +178,37 @@ def device_ms(fn, reps: int = 50) -> float:
     busy = busy_us(prof.key_averages())
     check(busy > 0, "the profiler saw no device time")
     return busy / reps / 1e3
+
+
+def cuda_launches(fn, calls: int = 10, tries: int = 5):
+    """(launches a call, the device events of one call) of fn, from
+    torch.profiler over `calls` warm calls. A profile can miss device
+    events (a short window may come back empty), never add one: a session
+    in which some event name does not occur a multiple of `calls` times
+    lost events and is taken again, up to `tries` times; (None, []) when
+    none came back whole."""
+    import collections
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False)]
+        counts = collections.Counter(names)
+        if names and all(c % calls == 0 for c in counts.values()):
+            return len(names) // calls, sorted(
+                n for n, c in counts.items() for _ in range(c // calls))
+    return None, []
 
 
 def busy_us(key_averages) -> float:
@@ -560,10 +598,19 @@ def _windowed_problem(dev, n_points, n_pad, block, seed=42):
     return x1, x2, valid, nbr_idx, adj
 
 
+def _launch_str(n, names) -> str:
+    return ("not measured (the profiler lost events in every session)"
+            if n is None else f"{n} ({', '.join(names)})")
+
+
 def mrf_kernels(rng, dev, record):
-    """K4 and K5 at the default shape (L=17, N=512, B=256, 6 mean-field
-    sweeps, 2 ICM starts x 2 iterations) and the stress shape (L=17,
-    N=10240, B=128, 4 sweeps, 2 starts x 1 iteration)."""
+    """The neighbour list, K4 and K5 at the default shape (L=17, N=512,
+    B=256, 6 mean-field sweeps, 2 ICM starts x 2 iterations) and the
+    stress shape (L=17, N=10240, B=128, 4 sweeps, 2 starts x 1
+    iteration). K4 and K5 read the list the fit builds beside the band
+    (its build is timed on its own); each call's CUDA launches are
+    counted by torch.profiler. Bounds count the list's non-zeros: each
+    pair (8 bytes) read once."""
     import torch
 
     from multih_tpu_torch.ops.kernels import mrf_kernel as mk
@@ -576,51 +623,79 @@ def mrf_kernels(rng, dev, record):
             np.float32)).to(dev) * valid[None, :]
         q0 = torch.softmax(-dct / 2.0, dim=0).contiguous()
         base = (dct + sw * adj.deg.T).contiguous()
-        band = adj.band
+        band, nbr = adj.band, adj.nbr
         inv_t = torch.from_numpy((1.0 / np.geomspace(2.0, 0.25, sweeps))
                                  .astype(np.float32)).to(dev)
         nnz = int((band != 0).sum())
         nb = n // block
         band_bytes = 4 * nb * block * 3 * block
+        list_bytes = 8 * nnz + 4 * n
         shape = f"L={l} N={n} B={block}"
 
-        got = mk.mean_field_fused(q0, base, band, inv_t, sw)
+        got = mk.band_list(band)
+        ref = mk.band_list_reference(band)
+        check(all(torch.equal(a, b) for a, b in zip(got, ref))
+              and all(torch.equal(a, b) for a, b in zip(nbr, ref)),
+              f"neighbour list {shape}: not exact")
+        record("band_list", f"N={n} B={block}", 0.0,
+               lambda: mk.band_list(band),
+               lambda: mk.band_list_reference(band),
+               band_bytes + 8 * n * 3 * block + 4 * n, 0)
+        print(f"  neighbour list {shape}: non-zeros {nnz} of "
+              f"{nb * block * 3 * block} ({100.0 * nnz / (nb * block * 3 * block):.2f}%), "
+              f"{nnz / n:.2f} a row, at most {int(nbr.cnt.max())}")
+
+        got = mk.mean_field_fused(q0, base, band, inv_t, sw, nbr=nbr)
         ref = mk.mean_field_fused_reference(q0, base, band, inv_t, sw)
         err = float((got - ref).abs().max())
         check(bool(torch.isfinite(got).all()) and err <= 1e-5,
               f"mean-field kernel {shape}: max abs err {err}")
         row = record("mean_field_fused", f"{shape} sweeps={sweeps}", err,
-                     lambda: mk.mean_field_fused(q0, base, band, inv_t, sw),
+                     lambda: mk.mean_field_fused(q0, base, band, inv_t, sw,
+                                                 nbr=nbr),
                      lambda: mk.mean_field_fused_reference(q0, base, band,
                                                            inv_t, sw),
-                     band_bytes + 4 * (3 * l * n + sweeps),
+                     list_bytes + 4 * (3 * l * n + sweeps),
                      sweeps * (2 * nnz * l + 8 * l * n))
-        # one launch per sweep: the time of one more sweep, launch
-        # included, from a 1-sweep call against the S-sweep one
-        one = cuda_ms(lambda: mk.mean_field_fused(q0, base, band,
-                                                  inv_t[:1], sw))
-        row["one_sweep_ms"] = one
-        row["per_sweep_ms"] = (row["ms"] - one) / (sweeps - 1)
-        print(f"  mean-field {shape}: 1 sweep {one:.4f} ms, each further "
-              f"sweep {row['per_sweep_ms']:.4f} ms; band non-zeros {nnz} "
-              f"of {nb * block * 3 * block} ({100.0 * nnz / (nb * block * 3 * block):.2f}%)")
+        n_launch, launched = cuda_launches(lambda: mk.mean_field_fused(
+            q0, base, band, inv_t, sw, nbr=nbr))
+        check(n_launch in (1, None), f"mean-field {shape}: launches "
+              f"{launched}")
+        # every sweep in one launch: one more sweep's device time, from a
+        # 1-sweep call against the S-sweep one
+        one = device_ms(lambda: mk.mean_field_fused(q0, base, band,
+                                                    inv_t[:1], sw, nbr=nbr))
+        row.update(launches_per_call=n_launch,
+                   one_sweep_device_ms=one,
+                   per_sweep_device_ms=(row["device_ms"] - one)
+                   / (sweeps - 1))
+        print(f"  mean-field {shape}: CUDA launches a call "
+              f"{_launch_str(n_launch, launched)}; 1 sweep {one:.4f} device ms, each further "
+              f"sweep {row['per_sweep_device_ms']:.4f} device ms")
 
         starts = torch.stack([
             torch.argmin(dct, dim=0),
             torch.from_numpy(rng.integers(0, l, n)).to(dev),
         ]).to(torch.int32).contiguous()
-        got = mk.icm_fused(starts, base, band, icm_it, sw)
+        got = mk.icm_fused(starts, base, band, icm_it, sw, nbr=nbr)
         ref = mk.icm_fused_reference(starts, base, band, icm_it, sw)
         err = float((got - ref).abs().max())
         check(err == 0, f"ICM kernel {shape}: labels differ ({err})")
         check(bool((got != starts).any()), "ICM kernel moved no label")
         s = starts.shape[0]
-        record("icm_fused", f"{shape} S={s} iterations={icm_it}", err,
-               lambda: mk.icm_fused(starts, base, band, icm_it, sw),
-               lambda: mk.icm_fused_reference(starts, base, band, icm_it,
-                                              sw),
-               band_bytes + 4 * (2 * s * n + l * n),
-               icm_it * s * (nnz * l + 3 * l * n))
+        row = record("icm_fused", f"{shape} S={s} iterations={icm_it}", err,
+                     lambda: mk.icm_fused(starts, base, band, icm_it, sw,
+                                          nbr=nbr),
+                     lambda: mk.icm_fused_reference(starts, base, band,
+                                                    icm_it, sw),
+                     list_bytes + 4 * (2 * s * n + l * n),
+                     icm_it * s * (nnz * l + 3 * l * n))
+        n_launch, launched = cuda_launches(lambda: mk.icm_fused(
+            starts, base, band, icm_it, sw, nbr=nbr))
+        check(n_launch in (1, None), f"ICM {shape}: launches {launched}")
+        row["launches_per_call"] = n_launch
+        print(f"  ICM {shape}: CUDA launches a call "
+              f"{_launch_str(n_launch, launched)}")
 
 
 def front_kernels(rng, dev, record):
@@ -660,7 +735,7 @@ def front_kernels(rng, dev, record):
             args = (q0, pts, hm, adj.band, inv_t, thr, sw, 1.0, kind)
 
             def kernel():
-                return mk.mean_field_fused_front(*args)
+                return mk.mean_field_fused_front(*args, nbr=adj.nbr)
 
             def plain():
                 return mk.mean_field_fused_front_reference(*args)
@@ -696,15 +771,23 @@ def front_kernels(rng, dev, record):
                   f"{float(rel.max()):.3g} over all; "
                   f"{int((~near).sum())} of {r.numel()} residuals past "
                   f"1e6 px^2, max {float(r.max()):.3g}")
-            # inputs q0, pts (8, N), hm (L, 19), band, inv_temps, thr read
-            # once; q, dct (L, N) and r (K, N) written once
-            n_bytes = (4 * (n // block) * block * 3 * block
+            # inputs q0, pts (8, N), hm (L, 19), the list's pairs,
+            # inv_temps, thr read once; q, dct (L, N) and r (K, N) written
+            # once
+            n_bytes = (8 * nnz + 4 * n
                        + 4 * (l * n + 8 * n + 19 * l + sweeps + 1)
                        + 4 * (2 * l * n + (l - 1) * n))
             n_ops = (sweeps * (2 * nnz * l + 8 * l * n)
                      + FRONT_OPS[kind] * l * n)
-            record("mean_field_fused_front", f"{shape} sweeps={sweeps} "
-                   f"{kind}", err, kernel, plain, n_bytes, n_ops)
+            row = record("mean_field_fused_front", f"{shape} "
+                         f"sweeps={sweeps} {kind}", err, kernel, plain,
+                         n_bytes, n_ops)
+            n_launch, launched = cuda_launches(kernel)
+            check(n_launch in (2, None), f"fused front {shape}: launches "
+                  f"{launched}")
+            row["launches_per_call"] = n_launch
+            print(f"  front {shape} {kind}: CUDA launches a call "
+                  f"{_launch_str(n_launch, launched)}")
 
 
 def gather_kernels(rng, dev, record):
@@ -782,6 +865,7 @@ def _wrappers():
         "mean_field_fused": mrf_kernel.mean_field_fused,
         "icm_fused": mrf_kernel.icm_fused,
         "mean_field_fused_front": mrf_kernel.mean_field_fused_front,
+        "band_list": mrf_kernel.band_list,
         "window_gather": gather_kernel.window_gather,
     }
 
@@ -889,12 +973,14 @@ def phase_fits(dev):
         return fits
 
     golden_fits, launches["default"] = count_launches(
-        "default-config", k123 + ("mean_field_fused", "icm_fused"),
+        "default-config", k123 + ("mean_field_fused", "icm_fused",
+                                  "band_list"),
         lambda: golden_path("default config"))
     # the fused-front route: K6 takes the place of the residuals, data
     # costs and K4 in every PEARL iteration; K4 does not run
     fused_fits, launches["fused_front"] = count_launches(
-        "fused-front", k123 + ("mean_field_fused_front", "icm_fused"),
+        "fused-front", k123 + ("mean_field_fused_front", "icm_fused",
+                               "band_list"),
         lambda: golden_path("fused front", mrf_fused_front=True))
     n_k6 = (1 + len(GOLDEN_SCENES)) * MultiHConfig().pearl_iterations
     check(launches["fused_front"]["mean_field_fused_front"] == n_k6,
@@ -1093,7 +1179,7 @@ def phase_motion(dev):
 
     print("== 6. the fundamental (multi-motion) fit on the card")
     expect = ("inlier_counts_f", "eig9_smallest", "mean_field_fused",
-              "icm_fused")
+              "icm_fused", "band_list")
     cfg = motion_cfg(512)
     f = mt.make_fit_tau(cfg)
     per_fit, results, path = [], {}, {}
@@ -1173,7 +1259,7 @@ def phase_adaptive(dev):
     gen = torch.Generator(device=dev)
     (res, tau), launches = count_launches(
         "adaptive", ("inlier_counts", "dlt_4pt", "eig9_smallest",
-                     "mean_field_fused", "icm_fused"),
+                     "mean_field_fused", "icm_fused", "band_list"),
         lambda: f(*args, gen.manual_seed(0)))
     check(tau.device.type == "cuda", "tau left the card")
     err = evaluation.misclassification_error(res.labels.cpu().numpy(), gt,
@@ -1208,7 +1294,8 @@ def phase_stream(dev):
                  + ("_preload" if upload == "preload" else ""))
         st, launches[label] = count_launches(
             f"stream {label}", ("inlier_counts", "dlt_4pt", "eig9_smallest",
-                                "mean_field_fused", "icm_fused"),
+                                "mean_field_fused", "icm_fused",
+                                "band_list"),
             lambda: streaming.run_stream(
                 streaming.SyntheticStream(n_frames=30, n_points=480,
                                           n_planes=3, seed=0),

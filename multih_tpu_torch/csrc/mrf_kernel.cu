@@ -1,135 +1,374 @@
-// Fused PEARL relaxation sweeps over a far-free banded adjacency: annealed
-// mean-field (all sweeps) and batched red-black ICM (all half-sweeps of S
-// starts).
+// Fused PEARL relaxation sweeps over a far-free banded adjacency, read
+// through its per-row neighbour list: annealed mean-field (K4, all sweeps
+// in one launch), batched red-black ICM (K5, every half-sweep of every
+// start in one launch), the fused front (K6) and the list build.
 //
 // Replaces the TPU kernels multih_tpu/ops/kernels/mrf_kernel.py
 // (_mf_kernel, launched by mean_field_fused; _icm_kernel, launched by
-// icm_fused). The TPU grid runs (sweep, block) in order with the state in
-// VMEM. Here sweep s+1 of Morton block b needs sweep s of blocks b-1, b
-// and b+1, so the barrier between sweeps is the launch boundary: one
-// launch per sweep (per half-sweep for ICM), the state double-buffered in
-// device memory, all launches issued by one C entry point.
+// icm_fused; _mf_front_kernel, launched by mean_field_fused_front). The
+// TPU grid runs (sweep, block) in order with the state in VMEM. Here
+// sweep s+1 of a point needs sweep s of its neighbours, which lie within
+// one Morton block of it (the band is far-free), so the barrier between
+// sweeps sits inside the launch.
 //
-// Bound on the H100: the band read. Each sweep streams the (nb, B, 3B)
-// float32 band once (15.7 MB at N=10240, B=128) against ~12 non-zeros per
-// row, and the per-launch cost (a few microseconds) is of the same order
-// as that read at these sizes. Design: one warp per point, i.e. per band
-// row. The 32 lanes read the row's 3B entries in coalesced 128-byte
-// steps, and for each non-zero w at window column c (global index
-// (b-1)*B + c; out of range reads zero, label -1, never wrapping) add
-// w * q[:, g] (ICM: w to the accumulator of label lab[g]) into L
-// per-lane sums, kept in registers (L <= LMAX, unrolled, so no local
-// memory). A butterfly of shuffles gives every lane the same L totals
-// (addition commutes exactly), and every lane finishes the point: the
-// label softmax (ICM: the first-minimum argmin and the move test). The
-// neighbours' state is read from L2; the ICM warp also copies its
-// neighbour of the other parity, so half-sweeps launch N/2 warps.
+// The neighbour list (band_list, one warp a row, ballot / popc
+// compaction in column order) holds, for row i, cnt[i] (global column,
+// weight) pairs of the band row's non-zeros in a fixed capacity of 3B
+// slots (no host sync sizes it; the slots past cnt[i] are zero). The
+// band holds ~1-2% non-zeros, so a row is ~7 pairs in place of 3B band
+// entries, and any count up to 3B is read in steps of 32.
+//
+// Bound on the H100: at N=512 a sweep moves ~0.1 MB, a fraction of a
+// microsecond at 3.35 TB/s, so what is left is latency: the chain of
+// dependent loads of a point's neighbours and the barrier a sweep.
+// Layout: one warp a point, one label a lane (two for L <= 64): lane j
+// sums w * q[j, g] over the row's pairs (the 32 pairs of a step are
+// loaded by the 32 lanes and broadcast by shuffles, 8 loads in flight),
+// so the label softmax is one warp max and one warp sum, and the ICM
+// argmin one first-minimum butterfly.
+//
+// Each call is one cooperative launch of as many 8-warp blocks as are
+// resident at once, warps striding over the points (ICM: over the
+// (start, moving point) pairs of every start), this_grid().sync() the
+// barrier between sweeps. Mean-field first copies q0 and base into
+// point-major scratch ((N, L|1) floats, so a neighbour's L values are
+// contiguous), double-buffers the state there (L2-resident) and writes
+// the last sweep label-major; ICM double-buffers the labels. A design
+// with the state in the shared memory of a thread-block cluster
+// (cluster.sync() between sweeps, neighbours through distributed shared
+// memory) was measured beside this one on the H100 and was slower at
+// every shape the fit runs (PERF.md, section 6).
 //
 // Arithmetic is that of the plain versions in ops/kernels/mrf_kernel.py:
 // sw*agree and the subtraction from base are rounded separately
-// (__fmul_rn / __fsub_rn, no FMA contraction), and ICM's agreements are
-// sums of band values {0.5, 1}, exact in any order, so its costs, and
-// its labels, equal the plain version's exactly.
+// (__fmul_rn / __fsub_rn, no FMA contraction), IEEE exp and divide; the
+// mean-field agreement sums in list order, the plain version's bmm in
+// its own (within 1e-5). ICM's agreements are sums of band values
+// {0.5, 1}, exact in any order, so its costs, and its labels, equal the
+// plain version's exactly.
 //
-// K6, the fused front (replaces _mf_front_kernel, launched by
-// mean_field_fused_front): the homography residuals, the data costs and
-// base = dct + sw*deg are computed per point in a pass over the points,
-// as the TPU kernel does in its load pass, and every sweep follows. The
+// K6, the fused front: the homography residuals, the data costs and base
+// = dct + sw*deg per point, as the TPU kernel does in its load pass. The
 // first sweep of point i needs q0 (an input) and point i's own base
-// only, so the front and sweep 0 share one launch (mf_front: the warp
-// of point i computes its L costs, one label per lane, into shared
-// memory, then runs the sweep on them) and the call keeps K4's
-// n_sweeps launches; sweeps 1.. are K4's mf_sweep reading base from
-// device memory. Bound: the band read, as K4; the front adds ~40
-// operations per (label, point) and 8 + 3L floats per point. Residuals
-// use IEEE division and the plain elementwise order (no FMA), so near
-// a vanishing w (r up to 1e9 px^2) they stay the plain version's to
-// float32 rounding; thr is read from device memory.
+// only, so the front and sweep 0 share one launch (mf_front: the warp of
+// point i computes its L costs, one label per lane, into shared memory,
+// then runs the sweep on them); sweeps 1.. are one K4 launch reading base
+// from device memory: 1 or 2 launches a call. Residuals use IEEE
+// division and the plain elementwise order (no FMA), so near a vanishing
+// w (r up to 1e9 px^2) they stay the plain version's to float32
+// rounding; thr is read from device memory.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kWarps = 8;  // points (warps) per block
+constexpr int kWarps = 8;  // warps a block
 constexpr unsigned kFull = 0xffffffffu;
 
-// acc[j] (each lane's partial sums) -> the warp's totals, in every lane.
-template <int LMAX>
-__device__ __forceinline__ void warp_sum(float* acc, int l) {
+__device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
-  for (int j = 0; j < LMAX; ++j) {
-    if (j < l) {
+  for (int off = 16; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(kFull, v, off));
+  return v;
+}
+
+// every lane ends with the same sum: each butterfly step adds the same
+// two values, and addition commutes exactly
+__device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        acc[j] = __fadd_rn(acc[j], __shfl_xor_sync(kFull, acc[j], off));
+  for (int off = 16; off > 0; off >>= 1)
+    v = __fadd_rn(v, __shfl_xor_sync(kFull, v, off));
+  return v;
+}
+
+// q[lbl, g] = p[g * gs + lbl * ls]: label-major (gs 1, ls N) or
+// point-major (gs L|1, ls 1) state in device memory
+struct GlobalQ {
+  const float* p;
+  int gs, ls;
+  __device__ __forceinline__ const float* row(int g) const {
+    return p + static_cast<size_t>(g) * gs;
+  }
+};
+
+// acc[k] = sum over row i's pairs (g, w) of w * q[lane + 32k, g], in list
+// order. Lane e loads pair e of each step of 32; shuffles broadcast them,
+// kIlp pairs at a time, whose loads are all issued before their sums (a
+// pair past the row's end loads nothing, weighs 0 and adds exactly
+// nothing).
+constexpr int kIlp = 8;
+
+template <int LPL>
+__device__ __forceinline__ void agree_row(const GlobalQ& q,
+                                          const int* __restrict__ cols,
+                                          const float* __restrict__ ws,
+                                          int cnt, int lane, int l,
+                                          float (&acc)[LPL]) {
+#pragma unroll
+  for (int k = 0; k < LPL; ++k) acc[k] = 0.f;
+  for (int e0 = 0; e0 < cnt; e0 += 32) {
+    int gv = 0;
+    float wv = 0.f;
+    if (e0 + lane < cnt) {
+      gv = cols[e0 + lane];
+      wv = ws[e0 + lane];
+    }
+    const int m = min(32, cnt - e0);
+    for (int j = 0; j < m; j += kIlp) {
+      float w[kIlp], v[kIlp][LPL];
+#pragma unroll
+      for (int u = 0; u < kIlp; ++u) {
+        const int g = __shfl_sync(kFull, gv, (j + u) & 31);
+        const float wu = __shfl_sync(kFull, wv, (j + u) & 31);
+        w[u] = j + u < m ? wu : 0.f;
+        const float* row = q.row(g);
+#pragma unroll
+        for (int k = 0; k < LPL; ++k) {
+          const int lbl = lane + 32 * k;
+          v[u][k] = lbl < l && j + u < m ? row[lbl * q.ls] : 0.f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kIlp; ++u)
+#pragma unroll
+        for (int k = 0; k < LPL; ++k)
+          acc[k] = __fmaf_rn(w[u], v[u][k], acc[k]);
     }
   }
 }
 
-// Point i's mean-field update, by its warp: dst[:, i] = softmax_l(-(base_l
-// - sw*agree_l(src)) * it), base_l read at base_i[l * bstride].
-template <int LMAX>
-__device__ __forceinline__ void mf_point(const float* __restrict__ src,
-                                         const float* base_i, int bstride,
-                                         const float* __restrict__ band,
-                                         float it, int i, int lane, int l,
-                                         int n, int block, float sw,
-                                         float* __restrict__ dst) {
-  const int bb = 3 * block;
-  const int g0 = (i / block - 1) * block;
-  const float* brow = band + static_cast<size_t>(i) * bb;
-  float acc[LMAX];
+// base_l of the warp's point, b[lbl * bs], one label a lane (loaded
+// before the agreement, so its latency overlaps the neighbours')
+template <int LPL>
+__device__ __forceinline__ void load_base(const float* b, int bs, int lane,
+                                          int l, float (&bv)[LPL]) {
 #pragma unroll
-  for (int j = 0; j < LMAX; ++j) acc[j] = 0.f;
-  for (int c = lane; c < bb; c += 32) {
-    const float w = brow[c];
-    const int g = g0 + c;
-    if (w != 0.f && g >= 0 && g < n) {
-#pragma unroll
-      for (int j = 0; j < LMAX; ++j)
-        if (j < l)
-          acc[j] = __fmaf_rn(w, src[static_cast<size_t>(j) * n + g], acc[j]);
-    }
+  for (int k = 0; k < LPL; ++k) {
+    const int lbl = lane + 32 * k;
+    bv[k] = lbl < l ? b[static_cast<size_t>(lbl) * bs] : 0.f;
   }
-  warp_sum<LMAX>(acc, l);
+}
 
+// acc (agreements) -> the point's marginals softmax_l(-(base_l -
+// sw*agree_l) * it)
+template <int LPL>
+__device__ __forceinline__ void mf_finish(float (&acc)[LPL],
+                                          const float (&bv)[LPL], float it,
+                                          float sw, int lane, int l) {
   float m = -INFINITY;
 #pragma unroll
-  for (int j = 0; j < LMAX; ++j) {
-    if (j < l) {
-      const float cost = __fsub_rn(base_i[static_cast<size_t>(j) * bstride],
-                                   __fmul_rn(sw, acc[j]));
-      acc[j] = __fmul_rn(-cost, it);
-      m = fmaxf(m, acc[j]);
+  for (int k = 0; k < LPL; ++k) {
+    if (lane + 32 * k < l) {
+      const float cost = __fsub_rn(bv[k], __fmul_rn(sw, acc[k]));
+      acc[k] = __fmul_rn(-cost, it);
+      m = fmaxf(m, acc[k]);
     }
   }
-  float sum = 0.f;
+  m = warp_max(m);
+  float s = 0.f;
 #pragma unroll
-  for (int j = 0; j < LMAX; ++j) {
-    if (j < l) {
-      acc[j] = expf(__fsub_rn(acc[j], m));
-      sum = __fadd_rn(sum, acc[j]);
+  for (int k = 0; k < LPL; ++k) {
+    if (lane + 32 * k < l) {
+      acc[k] = expf(__fsub_rn(acc[k], m));
+      s = __fadd_rn(s, acc[k]);
     }
   }
+  s = warp_sum(s);
 #pragma unroll
-  for (int j = 0; j < LMAX; ++j)
-    if (j < l && (j & 31) == lane)
-      dst[static_cast<size_t>(j) * n + i] = __fdiv_rn(acc[j], sum);
+  for (int k = 0; k < LPL; ++k) acc[k] = __fdiv_rn(acc[k], s);
 }
 
-// One mean-field sweep: dst = softmax_l(-(base - sw*agree(src)) * it).
-template <int LMAX>
+// The neighbour list of a far-free band, one warp a row: the row's
+// non-zeros with an in-range global column (b-1)*B + c, in column order.
 __global__ void __launch_bounds__(kWarps * 32)
-mf_sweep(const float* __restrict__ src, const float* __restrict__ base,
-         const float* __restrict__ band, const float* __restrict__ inv_temps,
-         int sweep, int l, int n, int block, float sw,
-         float* __restrict__ dst) {
+band_list(const float* __restrict__ band, int n, int block,
+          int* __restrict__ cols, float* __restrict__ ws,
+          int* __restrict__ cnt) {
   const int lane = threadIdx.x & 31;
   const int i = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (i >= n) return;  // uniform across the warp
-  mf_point<LMAX>(src, base + i, n, band, inv_temps[sweep], i, lane, l, n,
-                 block, sw, dst);
+  const int bb = 3 * block;
+  const int g0 = (i / block - 1) * block;
+  const float* brow = band + static_cast<size_t>(i) * bb;
+  int* ci = cols + static_cast<size_t>(i) * bb;
+  float* wi = ws + static_cast<size_t>(i) * bb;
+  int pos = 0;
+  for (int c0 = 0; c0 < bb; c0 += 32) {
+    const int c = c0 + lane;
+    const float w = c < bb ? brow[c] : 0.f;
+    const int g = g0 + c;
+    const bool keep = c < bb && w != 0.f && g >= 0 && g < n;
+    const unsigned mask = __ballot_sync(kFull, keep);
+    if (keep) {
+      const int k = pos + __popc(mask & ((1u << lane) - 1u));
+      ci[k] = g;
+      wi[k] = w;
+    }
+    pos += __popc(mask);
+  }
+  for (int k = pos + lane; k < bb; k += 32) {
+    ci[k] = 0;
+    wi[k] = 0.f;
+  }
+  if (lane == 0) cnt[i] = pos;
+}
+
+// K4: every sweep in one cooperative launch, state in device
+// memory: a first pass copies q0 and base point-major into tmp (coalesced
+// reads), then every sweep reads its neighbours' L values contiguously.
+template <int LPL>
+__global__ void __launch_bounds__(kWarps * 32)
+mf_grid(const float* __restrict__ q0, const float* __restrict__ base,
+        const int* __restrict__ cols, const float* __restrict__ ws,
+        const int* __restrict__ cnt, int cap,
+        const float* __restrict__ inv_temps, int n_sweeps, int l, int n,
+        float sw, float* __restrict__ out, float* __restrict__ tmp) {
+  cg::grid_group grid = cg::this_grid();
+  const int ls = l | 1;
+  const int lane = threadIdx.x & 31;
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int nt = gridDim.x * blockDim.x;
+  const int gw = tid >> 5, nw = nt >> 5;
+  float* sbase = tmp;
+  float* buf0 = tmp + static_cast<size_t>(n) * ls;
+  float* buf1 = buf0 + static_cast<size_t>(n) * ls;
+  for (int t = tid; t < l * n; t += nt) {
+    const int lbl = t / n, i = t - lbl * n;
+    sbase[static_cast<size_t>(i) * ls + lbl] = base[t];
+    buf0[static_cast<size_t>(i) * ls + lbl] = q0[t];
+  }
+  grid.sync();
+  for (int s = 0; s < n_sweeps; ++s) {
+    const bool last = s == n_sweeps - 1;
+    const GlobalQ q{(s & 1) ? buf1 : buf0, ls, 1};
+    float* dst = (s & 1) ? buf0 : buf1;
+    const float it = inv_temps[s];
+    for (int i = gw; i < n; i += nw) {
+      float acc[LPL], bv[LPL];
+      load_base<LPL>(sbase + static_cast<size_t>(i) * ls, 1, lane, l, bv);
+      agree_row<LPL>(q, cols + static_cast<size_t>(i) * cap,
+                     ws + static_cast<size_t>(i) * cap, cnt[i], lane, l,
+                     acc);
+      mf_finish<LPL>(acc, bv, it, sw, lane, l);
+#pragma unroll
+      for (int k = 0; k < LPL; ++k) {
+        const int lbl = lane + 32 * k;
+        if (lbl < l) {
+          if (last)
+            out[static_cast<size_t>(lbl) * n + i] = acc[k];
+          else
+            dst[static_cast<size_t>(i) * ls + lbl] = acc[k];
+        }
+      }
+    }
+    if (!last) grid.sync();
+  }
+}
+
+// One ICM move of point i (current label cur), by its warp: its first
+// cheapest label (strict <, lowest label on ties) when that beats cur by
+// more than 1e-6, else cur. Lane e of each step of 32 reads pair e's
+// neighbour label; the warp then walks them, lane j adding the weights
+// of label j.
+template <int LPL>
+__device__ __forceinline__ int icm_point(const int* __restrict__ lab,
+                                         int cur,
+                                         const float* base_i, int n,
+                                         const int* __restrict__ ci,
+                                         const float* __restrict__ wi,
+                                         int c, int lane, int l, float sw) {
+  float acc[LPL], bv[LPL];
+  load_base<LPL>(base_i, n, lane, l, bv);
+#pragma unroll
+  for (int k = 0; k < LPL; ++k) acc[k] = 0.f;
+  for (int e0 = 0; e0 < c; e0 += 32) {
+    int lv = -1;
+    float wv = 0.f;
+    if (e0 + lane < c) {
+      lv = lab[ci[e0 + lane]];
+      wv = wi[e0 + lane];
+    }
+    const int m = min(32, c - e0);
+    for (int e = 0; e < m; ++e) {
+      const int lc = __shfl_sync(kFull, lv, e);
+      const float w = __shfl_sync(kFull, wv, e);
+#pragma unroll
+      for (int k = 0; k < LPL; ++k)
+        if (lc == lane + 32 * k) acc[k] = __fadd_rn(acc[k], w);
+    }
+  }
+  float cost[LPL];
+  float bc = INFINITY;
+  int bl = 1 << 30;
+#pragma unroll
+  for (int k = 0; k < LPL; ++k) {
+    const int lbl = lane + 32 * k;
+    cost[k] = 0.f;
+    if (lbl < l) {
+      cost[k] = __fsub_rn(bv[k], __fmul_rn(sw, acc[k]));
+      if (cost[k] < bc) {
+        bc = cost[k];
+        bl = lbl;
+      }
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float oc = __shfl_xor_sync(kFull, bc, o);
+    const int ol = __shfl_xor_sync(kFull, bl, o);
+    if (oc < bc || (oc == bc && ol < bl)) {
+      bc = oc;
+      bl = ol;
+    }
+  }
+  float mine = cost[0];
+#pragma unroll
+  for (int k = 1; k < LPL; ++k)
+    if (cur >= 32 * k) mine = cost[k];
+  float cur_c = __shfl_sync(kFull, mine, cur & 31);
+  if (cur < 0 || cur >= l) cur_c = 0.f;  // the plain one-hot sum
+  return bc < __fsub_rn(cur_c, 1e-6f) ? bl : cur;
+}
+
+// K5: every half-sweep of every start in one cooperative launch,
+// warps striding over the (start, moving point) pairs, the labels
+// double-buffered in device memory, this_grid().sync() between halves.
+template <int LPL>
+__global__ void __launch_bounds__(kWarps * 32)
+icm_grid(const int* __restrict__ labels0, const float* __restrict__ base,
+         const int* __restrict__ cols, const float* __restrict__ ws,
+         const int* __restrict__ cnt, int cap, int halves, int ns, int l,
+         int n, float sw, int* __restrict__ out, int* __restrict__ tmp) {
+  cg::grid_group grid = cg::this_grid();
+  const int lane = threadIdx.x & 31;
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int nt = gridDim.x * blockDim.x;
+  const int gw = tid >> 5, nw = nt >> 5;
+  const size_t total = static_cast<size_t>(ns) * n;
+  for (int h = 0; h < halves; ++h) {
+    const int par = h & 1;
+    const bool last = h == halves - 1;
+    const int* src = h == 0 ? labels0 : tmp + ((h - 1) & 1) * total;
+    int* dst = last ? out : tmp + (h & 1) * total;
+    for (size_t t = tid; t < total; t += nt)
+      if (((t % n) & 1) != static_cast<size_t>(par)) dst[t] = src[t];
+    const int moving = (n - par + 1) / 2;
+    for (int it = gw; it < ns * moving; it += nw) {
+      const int s = it / moving;
+      const int i = 2 * (it - s * moving) + par;
+      const int* lab_s = src + static_cast<size_t>(s) * n;
+      const int moved = icm_point<LPL>(
+          lab_s, lab_s[i], base + i, n,
+          cols + static_cast<size_t>(i) * cap,
+          ws + static_cast<size_t>(i) * cap, cnt[i], lane, l, sw);
+      if (lane == 0) dst[static_cast<size_t>(s) * n + i] = moved;
+    }
+    if (!last) grid.sync();
+  }
 }
 
 // geometry's w guard: |w| < 1e-12 -> +-1e-12 with w's sign.
@@ -155,16 +394,17 @@ __device__ __forceinline__ float sq(float a) { return __fmul_rn(a, a); }
 // base, and keeps base in shared memory for the warp. With `sweep` the
 // warp then runs mean-field sweep 0 from q0, which needs only its own
 // point's base; otherwise it copies q0 to dst (no sweeps).
-template <int LMAX, bool SYMMETRIC>
+template <int LPL, bool SYMMETRIC>
 __global__ void __launch_bounds__(kWarps * 32)
 mf_front(const float* __restrict__ q0, const float* __restrict__ pts,
-         const float* __restrict__ hm, const float* __restrict__ band,
+         const float* __restrict__ hm, const int* __restrict__ cols,
+         const float* __restrict__ ws, const int* __restrict__ cnt, int cap,
          const float* __restrict__ inv_temps, const float* __restrict__ thr_p,
-         int sweep, int l, int n, int block, float sw, float oc,
+         int sweep, int l, int n, float sw, float oc,
          float* __restrict__ dst, float* __restrict__ dct,
          float* __restrict__ r_out, float* __restrict__ base) {
-  __shared__ float s_hm[LMAX * 19];
-  __shared__ float s_base[kWarps][LMAX];
+  __shared__ float s_hm[32 * LPL * 19];
+  __shared__ float s_base[kWarps][32 * LPL];
   for (int t = threadIdx.x; t < l * 19; t += blockDim.x) s_hm[t] = hm[t];
   __syncthreads();
   const int lane = threadIdx.x & 31;
@@ -209,189 +449,140 @@ mf_front(const float* __restrict__ q0, const float* __restrict__ pts,
       dst[static_cast<size_t>(j) * n + i] = q0[static_cast<size_t>(j) * n + i];
     return;
   }
-  mf_point<LMAX>(q0, s_base[w], 1, band, inv_temps[0], i, lane, l, n, block,
-                 sw, dst);
+  float acc[LPL], bv[LPL];
+  load_base<LPL>(s_base[w], 1, lane, l, bv);
+  agree_row<LPL>(GlobalQ{q0, 1, n}, cols + static_cast<size_t>(i) * cap,
+                 ws + static_cast<size_t>(i) * cap, cnt[i], lane, l, acc);
+  mf_finish<LPL>(acc, bv, inv_temps[0], sw, lane, l);
+#pragma unroll
+  for (int kk = 0; kk < LPL; ++kk)
+    if (lane + 32 * kk < l)
+      dst[static_cast<size_t>(lane + 32 * kk) * n + i] = acc[kk];
 }
 
-// One ICM half-sweep of start blockIdx.y: the point of index parity `par`
-// in each pair (2p, 2p+1) moves to its first cheapest label when that
-// beats its current one by more than 1e-6; the other keeps its label.
-template <int LMAX>
-__global__ void __launch_bounds__(kWarps * 32)
-icm_half(const int* __restrict__ src, const float* __restrict__ base,
-         const float* __restrict__ band, int par, int l, int n, int block,
-         float sw, int* __restrict__ dst) {
-  const int lane = threadIdx.x & 31;
-  const int p = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int* lab = src + static_cast<size_t>(blockIdx.y) * n;
-  int* out = dst + static_cast<size_t>(blockIdx.y) * n;
-  const int i = 2 * p + par;
-  const int keep = 2 * p + (1 - par);
-  if (lane == 0 && keep < n) out[keep] = lab[keep];
-  if (i >= n) return;  // uniform across the warp
-  const int bb = 3 * block;
-  const int g0 = (i / block - 1) * block;
-  const float* brow = band + static_cast<size_t>(i) * bb;
-  float acc[LMAX];
-#pragma unroll
-  for (int j = 0; j < LMAX; ++j) acc[j] = 0.f;
-  for (int c = lane; c < bb; c += 32) {
-    const float w = brow[c];
-    const int g = g0 + c;
-    if (w != 0.f && g >= 0 && g < n) {
-      const int lc = lab[g];
-#pragma unroll
-      for (int j = 0; j < LMAX; ++j)
-        if (j == lc) acc[j] = __fadd_rn(acc[j], w);
-    }
+// Launches `kern` cooperatively: as many 8-warp blocks as `want`, but
+// no more than are resident at once, so that every warp reaches each
+// grid sync.
+template <auto kern>
+int launch_grid(int want, void** args, cudaStream_t st) {
+  static int per_sm = -1, sms = 0;  // one static a kernel
+  if (per_sm < 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                  kWarps * 32, 0);
   }
-  warp_sum<LMAX>(acc, l);
-
-  const int cur = lab[i];
-  float new_c = 0.f, cur_c = 0.f;
-  int best = 0;
-#pragma unroll
-  for (int j = 0; j < LMAX; ++j) {
-    if (j < l) {
-      const float cost = __fsub_rn(base[static_cast<size_t>(j) * n + i],
-                                   __fmul_rn(sw, acc[j]));
-      if (j == 0 || cost < new_c) {
-        new_c = cost;
-        best = j;
-      }
-      if (j == cur) cur_c = cost;
-    }
-  }
-  if (lane == 0) out[i] = new_c < __fsub_rn(cur_c, 1e-6f) ? best : cur;
+  const int blocks = min(want, per_sm * sms);
+  if (blocks < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int rc = static_cast<int>(cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(kern), dim3(blocks), dim3(kWarps * 32), args,
+      0, st));
+  return rc ? rc : static_cast<int>(cudaGetLastError());
 }
 
-template <int LMAX>
-int mean_field(const float* q0, const float* base, const float* band,
-               const float* inv_temps, int n_sweeps, int l, int nb,
-               int block, float sw, float* out, float* tmp,
-               cudaStream_t st) {
-  const int n = nb * block;
-  const int grid = (n + kWarps - 1) / kWarps;
-  const float* src = q0;
-  for (int s = 0; s < n_sweeps; ++s) {
-    // the last sweep writes `out`, the ones before alternate
-    float* dst = ((n_sweeps - 1 - s) % 2 == 0) ? out : tmp;
-    mf_sweep<LMAX><<<grid, kWarps * 32, 0, st>>>(src, base, band, inv_temps,
-                                                 s, l, n, block, sw, dst);
-    const int rc = static_cast<int>(cudaGetLastError());
-    if (rc) return rc;
-    src = dst;
-  }
-  return 0;
+template <int LPL>
+int mean_field(const float* q0, const float* base, const int* cols,
+               const float* ws, const int* cnt, int cap,
+               const float* inv_temps, int n_sweeps, int l, int n, float sw,
+               float* out, float* tmp, cudaStream_t st) {
+  void* args[] = {&q0, &base, &cols, &ws, &cnt, &cap, &inv_temps,
+                  &n_sweeps, &l, &n, &sw, &out, &tmp};
+  return launch_grid<mf_grid<LPL>>((n + kWarps - 1) / kWarps, args, st);
 }
 
-// K6: the front fused with sweep 0, then sweeps 1.. as in `mean_field`
-// (base from the front's output): max(n_sweeps, 1) launches.
-template <int LMAX>
+// K6: the front fused with sweep 0 into `mid` (into `out` with one
+// sweep), then sweeps 1.. as one K4 launch: 1 or 2 launches.
+template <int LPL>
 int mean_field_front(const float* q0, const float* pts, const float* hm,
-                     const float* band, const float* inv_temps,
-                     const float* thr, int n_sweeps, int l, int nb,
-                     int block, float sw, float oc, int symmetric,
-                     float* out, float* dct, float* r, float* base,
-                     float* tmp, cudaStream_t st) {
-  const int n = nb * block;
+                     const int* cols, const float* ws, const int* cnt,
+                     int cap, const float* inv_temps, const float* thr,
+                     int n_sweeps, int l, int n, float sw, float oc,
+                     int symmetric, float* out, float* dct, float* r,
+                     float* base, float* mid, float* tmp, cudaStream_t st) {
   const int grid = (n + kWarps - 1) / kWarps;
-  float* dst = ((n_sweeps - 1) % 2 == 0 || n_sweeps == 0) ? out : tmp;
+  float* dst = n_sweeps > 1 ? mid : out;
   if (symmetric)
-    mf_front<LMAX, true><<<grid, kWarps * 32, 0, st>>>(
-        q0, pts, hm, band, inv_temps, thr, n_sweeps > 0, l, n, block, sw, oc,
-        dst, dct, r, base);
+    mf_front<LPL, true><<<grid, kWarps * 32, 0, st>>>(
+        q0, pts, hm, cols, ws, cnt, cap, inv_temps, thr, n_sweeps > 0, l, n,
+        sw, oc, dst, dct, r, base);
   else
-    mf_front<LMAX, false><<<grid, kWarps * 32, 0, st>>>(
-        q0, pts, hm, band, inv_temps, thr, n_sweeps > 0, l, n, block, sw, oc,
-        dst, dct, r, base);
-  int rc = static_cast<int>(cudaGetLastError());
-  if (rc) return rc;
-  const float* src = dst;
-  for (int s = 1; s < n_sweeps; ++s) {
-    dst = ((n_sweeps - 1 - s) % 2 == 0) ? out : tmp;
-    mf_sweep<LMAX><<<grid, kWarps * 32, 0, st>>>(src, base, band, inv_temps,
-                                                 s, l, n, block, sw, dst);
-    rc = static_cast<int>(cudaGetLastError());
-    if (rc) return rc;
-    src = dst;
-  }
-  return 0;
+    mf_front<LPL, false><<<grid, kWarps * 32, 0, st>>>(
+        q0, pts, hm, cols, ws, cnt, cap, inv_temps, thr, n_sweeps > 0, l, n,
+        sw, oc, dst, dct, r, base);
+  const int rc = static_cast<int>(cudaGetLastError());
+  if (rc || n_sweeps <= 1) return rc;
+  return mean_field<LPL>(mid, base, cols, ws, cnt, cap, inv_temps + 1,
+                         n_sweeps - 1, l, n, sw, out, tmp, st);
 }
 
-template <int LMAX>
-int icm(const int* labels0, const float* base, const float* band,
-        int iterations, int ns, int l, int nb, int block, float sw, int* out,
-        int* tmp, cudaStream_t st) {
-  const int n = nb * block;
-  const dim3 grid(((n + 1) / 2 + kWarps - 1) / kWarps, ns);
-  const int halves = 2 * iterations;
-  const int* src = labels0;
-  for (int h = 0; h < halves; ++h) {
-    int* dst = ((halves - 1 - h) % 2 == 0) ? out : tmp;
-    icm_half<LMAX><<<grid, kWarps * 32, 0, st>>>(src, base, band, h % 2, l,
-                                                 n, block, sw, dst);
-    const int rc = static_cast<int>(cudaGetLastError());
-    if (rc) return rc;
-    src = dst;
-  }
-  return 0;
+template <int LPL>
+int icm(const int* labels0, const float* base, const int* cols,
+        const float* ws, const int* cnt, int cap, int iterations, int ns,
+        int l, int n, float sw, int* out, int* tmp, cudaStream_t st) {
+  int halves = 2 * iterations;
+  void* args[] = {&labels0, &base, &cols, &ws, &cnt, &cap, &halves, &ns,
+                  &l, &n, &sw, &out, &tmp};
+  return launch_grid<icm_grid<LPL>>(
+      (ns * ((n + 1) / 2) + kWarps - 1) / kWarps, args, st);
 }
 
 }  // namespace
 
+extern "C" int multih_band_list(const float* band, int nb, int block,
+                                int* cols, float* ws, int* cnt,
+                                void* stream) {
+  const int n = nb * block;
+  band_list<<<(n + kWarps - 1) / kWarps, kWarps * 32, 0,
+              static_cast<cudaStream_t>(stream)>>>(band, n, block, cols, ws,
+                                                   cnt);
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" int multih_mean_field(const float* q0, const float* base,
-                                 const float* band, const float* inv_temps,
-                                 int n_sweeps, int l, int nb, int block,
-                                 float sw, float* out, float* tmp,
+                                 const int* cols, const float* ws,
+                                 const int* cnt, int cap,
+                                 const float* inv_temps, int n_sweeps, int l,
+                                 int n, float sw, float* out, float* tmp,
                                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (l <= 16)
-    return mean_field<16>(q0, base, band, inv_temps, n_sweeps, l, nb, block,
-                          sw, out, tmp, st);
   if (l <= 32)
-    return mean_field<32>(q0, base, band, inv_temps, n_sweeps, l, nb, block,
-                          sw, out, tmp, st);
+    return mean_field<1>(q0, base, cols, ws, cnt, cap, inv_temps, n_sweeps,
+                         l, n, sw, out, tmp, st);
   if (l <= 64)
-    return mean_field<64>(q0, base, band, inv_temps, n_sweeps, l, nb, block,
-                          sw, out, tmp, st);
+    return mean_field<2>(q0, base, cols, ws, cnt, cap, inv_temps, n_sweeps,
+                         l, n, sw, out, tmp, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int multih_mean_field_front(
-    const float* q0, const float* pts, const float* hm, const float* band,
-    const float* inv_temps, const float* thr, int n_sweeps, int l, int nb,
-    int block, float sw, float oc, int symmetric, float* out, float* dct,
-    float* r, float* base, float* tmp, void* stream) {
+    const float* q0, const float* pts, const float* hm, const int* cols,
+    const float* ws, const int* cnt, int cap, const float* inv_temps,
+    const float* thr, int n_sweeps, int l, int n, float sw, float oc,
+    int symmetric, float* out, float* dct, float* r, float* base,
+    float* mid, float* tmp, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (l <= 16)
-    return mean_field_front<16>(q0, pts, hm, band, inv_temps, thr, n_sweeps,
-                                l, nb, block, sw, oc, symmetric, out, dct, r,
-                                base, tmp, st);
   if (l <= 32)
-    return mean_field_front<32>(q0, pts, hm, band, inv_temps, thr, n_sweeps,
-                                l, nb, block, sw, oc, symmetric, out, dct, r,
-                                base, tmp, st);
+    return mean_field_front<1>(q0, pts, hm, cols, ws, cnt, cap, inv_temps,
+                               thr, n_sweeps, l, n, sw, oc, symmetric, out,
+                               dct, r, base, mid, tmp, st);
   if (l <= 64)
-    return mean_field_front<64>(q0, pts, hm, band, inv_temps, thr, n_sweeps,
-                                l, nb, block, sw, oc, symmetric, out, dct, r,
-                                base, tmp, st);
+    return mean_field_front<2>(q0, pts, hm, cols, ws, cnt, cap, inv_temps,
+                               thr, n_sweeps, l, n, sw, oc, symmetric, out,
+                               dct, r, base, mid, tmp, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int multih_icm(const int* labels0, const float* base,
-                          const float* band, int iterations, int ns, int l,
-                          int nb, int block, float sw, int* out, int* tmp,
-                          void* stream) {
+                          const int* cols, const float* ws, const int* cnt,
+                          int cap, int iterations, int ns, int l, int n,
+                          float sw, int* out, int* tmp, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (l <= 16)
-    return icm<16>(labels0, base, band, iterations, ns, l, nb, block, sw, out,
-                   tmp, st);
   if (l <= 32)
-    return icm<32>(labels0, base, band, iterations, ns, l, nb, block, sw, out,
-                   tmp, st);
+    return icm<1>(labels0, base, cols, ws, cnt, cap, iterations, ns, l, n,
+                  sw, out, tmp, st);
   if (l <= 64)
-    return icm<64>(labels0, base, band, iterations, ns, l, nb, block, sw, out,
-                   tmp, st);
+    return icm<2>(labels0, base, cols, ws, cnt, cap, iterations, ns, l, n,
+                  sw, out, tmp, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -124,6 +124,8 @@ class BandedAdjacency(NamedTuple):
       than one block (zero-padded).
     deg: (N, 1) — symmetrized degree.
     n_dropped: () int32 — far edges beyond capacity F.
+    nbr: the far-free band's neighbour list, which the fused MRF kernels
+      read (mrf_kernel.band_list), or None.
     """
 
     band: torch.Tensor
@@ -132,6 +134,7 @@ class BandedAdjacency(NamedTuple):
     far_w: torch.Tensor
     deg: torch.Tensor
     n_dropped: torch.Tensor
+    nbr: mrf_kernel.NeighbourList | None = None
 
     @property
     def block(self) -> int:
@@ -163,13 +166,16 @@ def build_banded_adjacency(
     nbr_w: torch.Tensor,
     block: int = 256,
     far_capacity: int | None = None,
+    neighbour_list: bool | None = None,
 ) -> BandedAdjacency:
     """The directed k-NN graph as the banded symmetric operator, general
     scatter path: each directed edge (i, j, w) adds 0.5 w to both (i<-j)
     and (j<-i); edges between non-adjacent blocks go to the far list
     (capacity default max(block, 0.75 N); overflow counted in n_dropped).
     far_capacity=0 takes the far-free build of a windowed graph
-    (`_build_band_far_free`).
+    (`_build_band_far_free`), which also builds the band's neighbour
+    list for the fused MRF kernels when `neighbour_list` (default: when
+    the band is a CUDA tensor), one launch of mrf_kernel.band_list.
 
     Scatter-adds are index_add_: weights are in {0, 0.5} and sums in
     {0, 0.5, 1}, all exact, so atomic order does not change the band."""
@@ -177,7 +183,12 @@ def build_banded_adjacency(
     if n % block:
         raise ValueError((n, block))
     if far_capacity == 0:
-        return _build_band_far_free(nbr_idx, nbr_w, block)
+        adj = _build_band_far_free(nbr_idx, nbr_w, block)
+        if neighbour_list is None:
+            neighbour_list = adj.band.is_cuda
+        if neighbour_list:
+            adj = adj._replace(nbr=mrf_kernel.band_list(adj.band))
+        return adj
     if far_capacity is None:
         far_capacity = max(block, (3 * n) // 4)
     nb = n // block
@@ -347,7 +358,7 @@ def mean_field_t(dct, nbr_idx, nbr_w, spatial_weight: float,
         base = dct + spatial_weight * adj.deg.T  # (L, N)
         return mrf_kernel.mean_field_fused(
             q.contiguous(), base.contiguous(), adj.band, 1.0 / temps,
-            spatial_weight,
+            spatial_weight, nbr=adj.nbr,
         )
     deg = adj.deg.T  # (1, N)
     for i in range(temps.shape[0]):
@@ -391,7 +402,8 @@ def pearl_relax_fused(x1, x2, valid, Hs, active, thr, outlier_cost: float,
     front = (mrf_kernel.mean_field_fused_front if use_kernel
              else mrf_kernel.mean_field_fused_front_reference)
     return front(q_init.to(torch.float32).contiguous(), pts, hm, adj.band,
-                 1.0 / temps, thr, spatial_weight, outlier_cost, kind=kind)
+                 1.0 / temps, thr, spatial_weight, outlier_cost, kind=kind,
+                 nbr=adj.nbr)
 
 
 def _energies_batch(labels, dct, adj: BandedAdjacency, spatial_weight):
@@ -420,7 +432,7 @@ def _icm_batch(starts, dct, spatial_weight: float, iterations: int,
         base = dct + spatial_weight * adj.deg.T  # (L, N)
         labels = mrf_kernel.icm_fused(
             starts.to(torch.int32).contiguous(), base.contiguous(),
-            adj.band, iterations, spatial_weight,
+            adj.band, iterations, spatial_weight, nbr=adj.nbr,
         ).to(starts.dtype)
     else:
         labels = _icm_sweeps(starts, dct, spatial_weight, iterations, adj)

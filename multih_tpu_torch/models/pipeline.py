@@ -909,6 +909,7 @@ def fit(x1, x2, valid, key, cfg: MultiHConfig, affines=None, tau=None,
         adj = labeling.build_banded_adjacency(
             nbr_idx, nbr_w, cfg.agree_block,
             far_capacity=0 if windowed else None,
+            neighbour_list=_kernels_enabled(cfg, dev),
         )
     if cfg.sampling_motion_weight > 0.0:
         feat = torch.cat([x1, cfg.sampling_motion_weight * (x2 - x1)], dim=1)

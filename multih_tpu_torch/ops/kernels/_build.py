@@ -43,10 +43,11 @@ _SIGNATURES = {
     "multih_inlier_counts": [_P, _I, _P, _I, _P, _I, _P, _P],
     "multih_dlt_4pt": [_P, _I, _P, _P],
     "multih_eig9_smallest": [_P, _I, _P, _P],
-    "multih_mean_field": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P],
-    "multih_mean_field_front": [_P] * 6 + [_I] * 4 + [_F, _F, _I]
-    + [_P] * 6,
-    "multih_icm": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P],
+    "multih_band_list": [_P, _I, _I, _P, _P, _P, _P],
+    "multih_mean_field": [_P] * 5 + [_I, _P, _I, _I, _I, _F] + [_P] * 3,
+    "multih_mean_field_front": [_P] * 6 + [_I, _P, _P, _I, _I, _I, _F, _F,
+                                           _I] + [_P] * 7,
+    "multih_icm": [_P] * 5 + [_I] * 5 + [_F] + [_P] * 3,
     "multih_window_gather": [_P, _P] + [_I] * 7 + [_P, _P],
 }
 

@@ -1,6 +1,6 @@
 """Fused PEARL relaxation sweeps over the banded adjacency: the CUDA
-mean-field, fused-front mean-field and red-black ICM kernels and their
-plain PyTorch versions.
+mean-field, fused-front mean-field and red-black ICM kernels, the
+neighbour-list build they read, and their plain PyTorch versions.
 
 Replaces ``multih_tpu/ops/kernels/mrf_kernel.py`` (``_mf_kernel`` via
 ``mean_field_fused``, ``_mf_front_kernel`` via ``mean_field_fused_front``,
@@ -9,14 +9,15 @@ far-edge-free band (the windowed k-NN graph's): per Morton block b the
 agreement is the (L, 3B) window of the state times band[b]^T, and block
 0's left third and block nb-1's right third read zeros (labels -1).
 
-The TPU grid runs (sweep, block) in order with the state in VMEM; on the
-card, sweep s+1 of block b needs sweep s of blocks b-1, b, b+1, so the
-kernels (``csrc/mrf_kernel.cu``) take one launch per sweep (per
-half-sweep for ICM), the state double-buffered in device memory, all
-launches issued from one C entry point: one ctypes call per function.
-Each launch is one warp per point: the lanes stream the point's band row
-in coalesced loads, add the non-zero entries' neighbour state into L
-per-lane sums, and meet in a shuffle butterfly.
+The kernels (``csrc/mrf_kernel.cu``) read the band through its
+neighbour list (`band_list`: per row, the count and the (global column,
+weight) pairs of its non-zeros in column order, in a fixed capacity of
+3B slots), built once per fit beside the band. Each wrapper call is one
+cooperative launch that runs every sweep (every half-sweep of every
+start for ICM), a grid-wide sync the barrier between them, the state in
+device memory. The fused front is its front and first sweep in one
+launch, then the other sweeps in one mean-field launch. In every kernel
+one warp updates a point, one label a lane (two for L > 32).
 
 The plain versions repeat the kernels' arithmetic order (they are the
 parity oracle on the card and the CPU tests' stand-in for the Pallas
@@ -32,31 +33,34 @@ data costs and base in the launch of the first sweep
 (csrc/mrf_kernel.cu, mf_front); its plain version is
 geometry.residual_matrix -> labeling.data_costs_t -> the plain sweeps.
 
-Tolerances against the plain versions: mean-field q within 1e-5
-max-abs (the band product sums in another order); ICM labels exact (the
-band values {0, 0.5, 1} make every agreement sum exact, and the kernel
-rounds sw*agree and the subtraction separately, as PyTorch does); the
-front's r to rtol 1e-3 / atol 1e-4 below 1e6 px^2 and min(r/thr, 8) to
-atol 1e-4 everywhere (the elementwise residual against the plain
-matmul; past 1e6 px^2 w nears zero, float32 cancellation sets r's
-digits and the cost is saturated), its dct equal to data_costs_t of its
-own r, its q within 1e-5 of the plain sweeps on its own dct and within
-1e-4 of the plain version (r's last bits, where px - u cancels, reach q
-through 1/T up to 4).
+Tolerances against the plain versions: the neighbour list bit-exact;
+mean-field q within 1e-5 max-abs (the agreement sums in list order, the
+plain bmm in its own); ICM labels exact (the band values {0, 0.5, 1}
+make every agreement sum exact, and the kernel rounds sw*agree and the
+subtraction separately, as PyTorch does); the front's r to rtol 1e-3 /
+atol 1e-4 below 1e6 px^2 and min(r/thr, 8) to atol 1e-4 everywhere (the
+elementwise residual against the plain matmul; past 1e6 px^2 w nears
+zero, float32 cancellation sets r's digits and the cost is saturated),
+its dct equal to data_costs_t of its own r, its q within 1e-5 of the
+plain sweeps on its own dct and within 1e-4 of the plain version (r's
+last bits, where px - u cancels, reach q through 1/T up to 4).
 
 The wrappers take CUDA tensors only and raise on anything else; the
-callers (labeling.mean_field_t, labeling._icm_batch,
-labeling.pearl_relax_fused) choose the plain versions for CPU tensors.
+callers (labeling.build_banded_adjacency, labeling.mean_field_t,
+labeling._icm_batch, labeling.pearl_relax_fused) choose the plain
+versions for CPU tensors.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from multih_tpu_torch.ops import geometry
 from multih_tpu_torch.ops.kernels import _build
 
-MAX_LABELS = 64  # the kernels keep L per-lane sums in registers
+MAX_LABELS = 64  # one or two labels a lane of a warp
 
 
 def _band_window(state: torch.Tensor, nb: int, block: int, fill):
@@ -117,6 +121,57 @@ def icm_fused_reference(labels0, base_t, band, iterations: int,
     return labels
 
 
+class NeighbourList(NamedTuple):
+    """A far-free band's rows as lists: row i's cnt[i] non-zeros with an
+    in-range column, in column order, at cols[i, :cnt[i]] (global point
+    indices) and ws[i, :cnt[i]] (their weights); the slots past cnt[i]
+    hold 0. Capacity 3B a row, so nothing sizes it on the host."""
+
+    cols: torch.Tensor  # (N, 3B) int32
+    ws: torch.Tensor  # (N, 3B) float32
+    cnt: torch.Tensor  # (N,) int32
+
+
+def band_list_reference(band: torch.Tensor) -> NeighbourList:
+    """Plain version of `band_list`."""
+    nb, block, bb = band.shape
+    n = nb * block
+    dev = band.device
+    rows = band.reshape(n, bb)
+    g = ((torch.arange(n, device=dev) // block - 1)[:, None] * block
+         + torch.arange(bb, device=dev)[None, :])
+    keep = (rows != 0) & (g >= 0) & (g < n)
+    cnt = keep.sum(1)
+    # kept entries first, in column order
+    order = torch.argsort((~keep).to(torch.int8), dim=1, stable=True)
+    used = torch.arange(bb, device=dev)[None, :] < cnt[:, None]
+    cols = torch.where(used, torch.gather(g, 1, order), 0)
+    ws = torch.where(used, torch.gather(rows, 1, order), 0.0)
+    return NeighbourList(cols.to(torch.int32), ws.contiguous(),
+                         cnt.to(torch.int32))
+
+
+def band_list(band: torch.Tensor) -> NeighbourList:
+    """The neighbour list of a far-free (nb, B, 3B) float32 band, one
+    launch (a warp a row, ballot compaction). CUDA tensors only."""
+    _build.require_cuda(band)
+    nb, block, bb = band.shape
+    if bb != 3 * block:
+        raise ValueError(f"band {tuple(band.shape)} is not (nb, B, 3B)")
+    n = nb * block
+    cols = torch.empty((n, bb), dtype=torch.int32, device=band.device)
+    ws = torch.empty((n, bb), dtype=torch.float32, device=band.device)
+    cnt = torch.empty((n,), dtype=torch.int32, device=band.device)
+    rc = _build.load().multih_band_list(
+        band.data_ptr(), nb, block, cols.data_ptr(), ws.data_ptr(),
+        cnt.data_ptr(), _build.stream_handle(band))
+    _build.check(rc, "band_list")
+    band_list.launches += 1
+    return NeighbourList(cols, ws, cnt)
+
+
+band_list.launches = 0
+
 def _check_band(band: torch.Tensor, n: int, rows: int):
     nb, block, bb = band.shape
     if bb != 3 * block or nb * block != n:
@@ -125,14 +180,37 @@ def _check_band(band: torch.Tensor, n: int, rows: int):
         raise ValueError(f"{rows} labels > {MAX_LABELS}")
 
 
+def _neighbours(band: torch.Tensor, nbr: NeighbourList | None):
+    """The caller's list, checked against the band, or the band's, built
+    now (one more launch)."""
+    if nbr is None:
+        return band_list(band)
+    n, bb = band.shape[0] * band.shape[1], band.shape[2]
+    _build.require_cuda(nbr.cols, nbr.cnt, dtype=torch.int32)
+    _build.require_cuda(nbr.ws)
+    if (nbr.cols.shape != (n, bb) or nbr.ws.shape != (n, bb)
+            or nbr.cnt.shape != (n,)):
+        raise ValueError(f"neighbour list {tuple(nbr.cols.shape)} does not "
+                         f"fit band {tuple(band.shape)}")
+    return nbr
+
+
+def _scratch(l: int, n: int, like: torch.Tensor) -> torch.Tensor:
+    """Mean-field's point-major base and two state buffers."""
+    return torch.empty((3 * n * (l | 1),), dtype=like.dtype,
+                       device=like.device)
+
+
 def mean_field_fused(q0_t: torch.Tensor, base_t: torch.Tensor,
                      band: torch.Tensor, inv_temps: torch.Tensor,
-                     spatial_weight: float) -> torch.Tensor:
-    """All annealed mean-field sweeps, one launch each.
+                     spatial_weight: float,
+                     nbr: NeighbourList | None = None) -> torch.Tensor:
+    """All annealed mean-field sweeps in one launch.
 
     q0_t, base_t: (L, N) float32 label-major (base = dct + sw*deg^T);
-    band: (nb, B, 3B) float32, far-free; inv_temps: (S,) float32.
-    Returns the (L, N) marginals after S sweeps. CUDA tensors only."""
+    band: (nb, B, 3B) float32, far-free; inv_temps: (S,) float32; nbr:
+    the band's `band_list` (built here when None). Returns the (L, N)
+    marginals after S sweeps. CUDA tensors only."""
     _build.require_cuda(q0_t, base_t, band, inv_temps)
     l, n = q0_t.shape
     if base_t.shape != q0_t.shape or inv_temps.dim() != 1:
@@ -140,17 +218,17 @@ def mean_field_fused(q0_t: torch.Tensor, base_t: torch.Tensor,
                          f"{tuple(base_t.shape)}, inv_temps "
                          f"{tuple(inv_temps.shape)}")
     _check_band(band, n, l)
-    nb, block, _ = band.shape
     n_sweeps = inv_temps.shape[0]
     if n_sweeps == 0:
         return q0_t.clone()
+    nbr = _neighbours(band, nbr)
     out = torch.empty_like(q0_t)
-    tmp = torch.empty_like(q0_t) if n_sweeps > 1 else out
+    tmp = _scratch(l, n, out)
     rc = _build.load().multih_mean_field(
-        q0_t.data_ptr(), base_t.data_ptr(), band.data_ptr(),
-        inv_temps.data_ptr(), n_sweeps, l, nb, block,
-        float(spatial_weight), out.data_ptr(), tmp.data_ptr(),
-        _build.stream_handle(q0_t),
+        q0_t.data_ptr(), base_t.data_ptr(), nbr.cols.data_ptr(),
+        nbr.ws.data_ptr(), nbr.cnt.data_ptr(), band.shape[2],
+        inv_temps.data_ptr(), n_sweeps, l, n, float(spatial_weight),
+        out.data_ptr(), tmp.data_ptr(), _build.stream_handle(q0_t),
     )
     _build.check(rc, "mean_field_fused")
     mean_field_fused.launches += 1
@@ -166,10 +244,12 @@ FRONT_KINDS = ("symmetric", "transfer")
 def mean_field_fused_front_reference(q0_t, pts, hm, band, inv_temps, thr,
                                      spatial_weight: float,
                                      outlier_cost: float,
-                                     kind: str = "symmetric"):
+                                     kind: str = "symmetric", nbr=None):
     """Plain version of `mean_field_fused_front`:
     geometry.residual_matrix -> labeling.data_costs_t -> the plain sweeps
-    of `mean_field_fused_reference`, on the kernel's packed inputs."""
+    of `mean_field_fused_reference`, on the kernel's packed inputs (it
+    reads the band; `nbr`, the kernel's view of it, is accepted so the
+    two are called alike)."""
     from multih_tpu_torch.models import labeling  # labeling imports us
 
     k = q0_t.shape[0] - 1
@@ -185,17 +265,19 @@ def mean_field_fused_front(q0_t: torch.Tensor, pts: torch.Tensor,
                            hm: torch.Tensor, band: torch.Tensor,
                            inv_temps: torch.Tensor, thr,
                            spatial_weight: float, outlier_cost: float,
-                           kind: str = "symmetric"):
+                           kind: str = "symmetric",
+                           nbr: NeighbourList | None = None):
     """`mean_field_fused` with the residual and data-cost front fused in
-    (homography "symmetric" / "transfer" kinds), max(S, 1) launches.
+    (homography "symmetric" / "transfer" kinds): the front and sweep 0 in
+    one launch, the other sweeps in one more.
 
     q0_t: (L, N) float32; pts: (8, N) float32, rows [x1x, x1y, x2x, x2y,
     valid, sw*deg, 0, 0]; hm: (L, 19) float32, per label [H (9), adj(H)
     (9), active], the outlier row L-1 all zeros; band: (nb, B, 3B)
     float32, far-free; inv_temps: (S,) float32; thr: the squared inlier
     threshold, a 0-dim CUDA tensor (read on the card, never synchronised)
-    or a number. Returns (q (L, N), dct (L, N), r (L-1, N)). CUDA tensors
-    only."""
+    or a number; nbr: the band's `band_list` (built here when None).
+    Returns (q (L, N), dct (L, N), r (L-1, N)). CUDA tensors only."""
     _build.require_cuda(q0_t, pts, hm, band, inv_temps)
     l, n = q0_t.shape
     if kind not in FRONT_KINDS:
@@ -205,22 +287,25 @@ def mean_field_fused_front(q0_t: torch.Tensor, pts: torch.Tensor,
                          f"hm {tuple(hm.shape)}, inv_temps "
                          f"{tuple(inv_temps.shape)}")
     _check_band(band, n, l)
+    nbr = _neighbours(band, nbr)
     thr_t = torch.as_tensor(thr, dtype=torch.float32,
                             device=q0_t.device).reshape(1).contiguous()
     _build.require_cuda(thr_t)
-    nb, block, _ = band.shape
     n_sweeps = inv_temps.shape[0]
     out = torch.empty_like(q0_t)
     dct = torch.empty_like(q0_t)
     r = torch.empty((l - 1, n), dtype=q0_t.dtype, device=q0_t.device)
     base = torch.empty_like(q0_t)
-    tmp = torch.empty_like(q0_t) if n_sweeps > 1 else out
+    mid, tmp = ((torch.empty_like(q0_t), _scratch(l, n, out))
+                if n_sweeps > 1 else (out, out))
     rc = _build.load().multih_mean_field_front(
-        q0_t.data_ptr(), pts.data_ptr(), hm.data_ptr(), band.data_ptr(),
-        inv_temps.data_ptr(), thr_t.data_ptr(), n_sweeps, l, nb, block,
+        q0_t.data_ptr(), pts.data_ptr(), hm.data_ptr(), nbr.cols.data_ptr(),
+        nbr.ws.data_ptr(), nbr.cnt.data_ptr(), band.shape[2],
+        inv_temps.data_ptr(), thr_t.data_ptr(), n_sweeps, l, n,
         float(spatial_weight), float(outlier_cost), int(kind == "symmetric"),
-        out.data_ptr(), dct.data_ptr(), r.data_ptr(), base.data_ptr(),
-        tmp.data_ptr(), _build.stream_handle(q0_t),
+        out.data_ptr(), dct.data_ptr(), r.data_ptr(),
+        base.data_ptr(), mid.data_ptr(), tmp.data_ptr(),
+        _build.stream_handle(q0_t),
     )
     _build.check(rc, "mean_field_fused_front")
     mean_field_fused_front.launches += 1
@@ -232,13 +317,15 @@ mean_field_fused_front.launches = 0
 
 def icm_fused(labels0: torch.Tensor, base_t: torch.Tensor,
               band: torch.Tensor, iterations: int,
-              spatial_weight: float) -> torch.Tensor:
-    """All 2*iterations red-black ICM half-sweeps of S starts, one launch
-    each, parity 0 first.
+              spatial_weight: float,
+              nbr: NeighbourList | None = None) -> torch.Tensor:
+    """All 2*iterations red-black ICM half-sweeps of S starts in one
+    launch, parity 0 first.
 
     labels0: (S, N) int32; base_t: (L, N) float32 (dct + sw*deg^T);
-    band: (nb, B, 3B) float32, far-free. Returns (S, N) int32. The
-    constant-labeling escape stays with the caller. CUDA tensors only."""
+    band: (nb, B, 3B) float32, far-free; nbr: the band's `band_list`
+    (built here when None). Returns (S, N) int32. The constant-labeling
+    escape stays with the caller. CUDA tensors only."""
     _build.require_cuda(labels0, dtype=torch.int32)
     _build.require_cuda(base_t, band)
     ns, n = labels0.shape
@@ -247,15 +334,17 @@ def icm_fused(labels0: torch.Tensor, base_t: torch.Tensor,
         raise ValueError(f"labels {tuple(labels0.shape)}, base "
                          f"{tuple(base_t.shape)}")
     _check_band(band, n, l)
-    nb, block, _ = band.shape
     if iterations <= 0:
         return labels0.clone()
+    nbr = _neighbours(band, nbr)
     out = torch.empty_like(labels0)
-    tmp = torch.empty_like(labels0)
+    tmp = torch.empty((2 * ns * n,), dtype=torch.int32,
+                      device=labels0.device)  # the labels, double-buffered
     rc = _build.load().multih_icm(
-        labels0.data_ptr(), base_t.data_ptr(), band.data_ptr(), iterations,
-        ns, l, nb, block, float(spatial_weight), out.data_ptr(),
-        tmp.data_ptr(), _build.stream_handle(labels0),
+        labels0.data_ptr(), base_t.data_ptr(), nbr.cols.data_ptr(),
+        nbr.ws.data_ptr(), nbr.cnt.data_ptr(), band.shape[2], iterations,
+        ns, l, n, float(spatial_weight), out.data_ptr(), tmp.data_ptr(),
+        _build.stream_handle(labels0),
     )
     _build.check(rc, "icm_fused")
     icm_fused.launches += 1

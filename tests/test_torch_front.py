@@ -162,9 +162,10 @@ def windowed_adj():
 
 @pytest.fixture(scope="module")
 def jax_windowed_adj(windowed_adj):
-    """The same band as the JAX package's BandedAdjacency."""
+    """The same band as the JAX package's BandedAdjacency (its six
+    fields; the port's seventh, the neighbour list, is the card's)."""
     return jlab.BandedAdjacency(*[jnp.asarray(a.numpy())
-                                  for a in windowed_adj])
+                                  for a in windowed_adj[:6]])
 
 
 CUDA = torch.device("cuda")  # a device name only: no card is touched

@@ -11,6 +11,7 @@ on the GPU when there is one (the kernel path) and on the CPU otherwise
 (the plain path).
 """
 
+import collections
 import os
 
 import numpy as np
@@ -150,6 +151,20 @@ def mrf_inputs(rng, n, block, l, device):
     return dct, q0, base, adj.band
 
 
+def add_hub(rng, band, row=3, n_nz=80):
+    """band with row `row` (in block 0) given `n_nz` non-zeros in {0.5,
+    1} at in-range columns (past 32: more than one step of the list), and
+    three in its block's left third, out of range, which every reader
+    ignores."""
+    nb, block, bb = band.shape
+    rows = band.clone().reshape(nb * block, bb)
+    cols = rng.choice(np.arange(block, bb), n_nz, replace=False)
+    rows[row, cols] = t(rng.choice([0.5, 1.0], n_nz).astype(np.float32)
+                        ).to(band.device)
+    rows[row, :3] = 1.0
+    return rows.reshape(nb, block, bb).contiguous()
+
+
 def sign_aligned_err(ref, got):
     sign = np.sign(np.sum(ref * got, axis=1, keepdims=True))
     return np.abs(ref - got * sign).max()
@@ -275,21 +290,102 @@ class TestCudaKernels:
         atas = f_normal_matrices(rng, c).to(cuda_device)
         self._hold_eig(atas)
 
-    @pytest.mark.parametrize("n,block,l,sweeps", [
-        (512, 256, 17, 6), (2048, 128, 17, 4), (1024, 64, 9, 1),
-    ])
-    def test_mean_field_kernel(self, rng, cuda_device, n, block, l, sweeps):
-        """q within 1e-5 max-abs of the plain version (the band product
-        sums in another order)."""
+    # (N, B, L, sweeps): one and two labels a lane, one to ~3 points a
+    # warp of the cooperative grid
+    MF_SHAPES = [
+        (512, 256, 17, 6), (1024, 256, 17, 6), (2048, 128, 17, 4),
+        (10240, 128, 17, 4), (1024, 64, 9, 1), (512, 256, 9, 6),
+        (512, 256, 64, 6), (10240, 128, 64, 4), (20480, 256, 17, 3),
+    ]
+
+    @pytest.mark.parametrize("hub", [False, True])
+    @pytest.mark.parametrize("n,block,l,sweeps", MF_SHAPES)
+    def test_mean_field_kernel(self, rng, cuda_device, n, block, l, sweeps,
+                               hub):
+        """q within 1e-5 max-abs of the plain version (the agreement sums
+        in list order), one launch a call; with a hub row of 80
+        neighbours."""
         _, q0, base, band = mrf_inputs(rng, n, block, l, cuda_device)
+        if hub:
+            band = add_hub(rng, band)
         # the fit's annealing schedule (a single sweep at temp_end)
         inv_t = (1.0 / tlab._mf_temps(sweeps, 2.0, 0.25, torch.float32,
                                       cuda_device))[:sweeps]
+        nbr = tmrf.band_list(band)
         before = tmrf.mean_field_fused.launches
-        got = tmrf.mean_field_fused(q0, base, band, inv_t, 0.1)
+        got = tmrf.mean_field_fused(q0, base, band, inv_t, 0.1, nbr=nbr)
         assert tmrf.mean_field_fused.launches == before + 1
         ref = tmrf.mean_field_fused_reference(q0, base, band, inv_t, 0.1)
         assert float((got - ref).abs().max()) <= 1e-5
+        # without a list the wrapper builds one: the same result
+        assert torch.equal(tmrf.mean_field_fused(q0, base, band, inv_t, 0.1),
+                           got)
+
+    @pytest.mark.parametrize("n,block", [(512, 256), (10240, 128),
+                                         (1024, 64)])
+    def test_band_list_kernel(self, rng, cuda_device, n, block):
+        """Bit-exact against its plain version: a windowed band (30
+        invalid points: empty rows) and the same with a hub row."""
+        _, _, _, _, adj = windowed_band(rng, n, block, cuda_device)
+        for band in (adj.band, add_hub(rng, adj.band)):
+            got = tmrf.band_list(band)
+            ref = tmrf.band_list_reference(band)
+            for a, b in zip(got, ref):
+                assert a.dtype == b.dtype and torch.equal(a, b)
+            assert int((got.cnt == 0).sum()) >= 30
+        assert int(got.cnt.max()) > 32
+        # the fit's adjacency carries the same list
+        for a, b in zip(adj.nbr, tmrf.band_list_reference(adj.band)):
+            assert torch.equal(a, b)
+
+    @pytest.mark.parametrize("n,block,l", [(512, 256, 17), (10240, 128, 17),
+                                           (10240, 128, 64)])
+    def test_mrf_kernels_one_launch(self, rng, cuda_device, n, block, l):
+        """torch.profiler sees one CUDA kernel a K4 call and a K5 call
+        (the list given), and two a K6 call with more than one sweep."""
+        from torch.profiler import ProfilerActivity, profile
+
+        def kernels(fn, calls=10):
+            """CUDA launches a call over `calls` calls. A profile can
+            miss device events (a short window may come back empty),
+            never add one: a session in which some name does not occur a
+            multiple of `calls` times is taken again."""
+            fn()
+            torch.cuda.synchronize()
+            for _ in range(5):
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    for _ in range(calls):
+                        fn()
+                    torch.cuda.synchronize()
+                counts = collections.Counter(
+                    e.name for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+                if counts and all(c % calls == 0 for c in counts.values()):
+                    return sum(counts.values()) // calls
+            raise AssertionError("the profiler lost device events in "
+                                 "every session")
+
+        x1, x2, valid, _, adj = windowed_band(rng, n, block, cuda_device)
+        dct = t(rng.uniform(0, 2.0, (l, n)).astype(np.float32)).to(
+            cuda_device)
+        q0 = torch.softmax(-dct, 0).contiguous()
+        base = (dct + 0.1 * adj.deg.T).contiguous()
+        inv_t = torch.linspace(0.5, 4.0, 4, device=cuda_device)
+        starts = torch.stack([torch.argmin(dct, 0)] * 3).to(
+            torch.int32).contiguous()
+        assert kernels(lambda: tmrf.mean_field_fused(
+            q0, base, adj.band, inv_t, 0.1, nbr=adj.nbr)) == 1
+        assert kernels(lambda: tmrf.icm_fused(
+            starts, base, adj.band, 2, 0.1, nbr=adj.nbr)) == 1
+        hs = torch.eye(3, device=cuda_device).expand(l - 1, 3, 3)
+        pts, hm = tlab.pack_front(x1, x2, valid, hs,
+                                  torch.ones(l - 1, device=cuda_device),
+                                  0.1, adj)
+        thr = torch.tensor(9.0, device=cuda_device)
+        assert kernels(lambda: tmrf.mean_field_fused_front(
+            q0, pts, hm, adj.band, inv_t, thr, 0.1, 1.0,
+            nbr=adj.nbr)) == 2
 
     @pytest.mark.parametrize("kind", ["symmetric", "transfer"])
     @pytest.mark.parametrize("n,block,sweeps", [
@@ -346,16 +442,26 @@ class TestCudaKernels:
         if sweeps == 0:
             assert torch.equal(q, q0)
 
-    @pytest.mark.parametrize("n,block,l,iterations", [
-        (512, 256, 17, 2), (2048, 128, 17, 1), (1024, 64, 9, 3),
+    @pytest.mark.parametrize("hub", [False, True])
+    @pytest.mark.parametrize("n,block,l,iterations,s", [
+        (512, 256, 17, 2, 3), (1024, 256, 17, 2, 3), (2048, 128, 17, 1, 3),
+        (10240, 128, 17, 1, 3), (1024, 64, 9, 3, 3), (512, 256, 9, 2, 1),
+        (512, 256, 64, 2, 3), (10240, 128, 64, 1, 2),
     ])
-    def test_icm_kernel(self, rng, cuda_device, n, block, l, iterations):
-        """Labels equal the plain version's exactly."""
+    def test_icm_kernel(self, rng, cuda_device, n, block, l, iterations, s,
+                        hub):
+        """Labels equal the plain version's exactly, one launch a call:
+        one and two labels a lane, S=1 and 3 starts, with and without a
+        hub row of 80 neighbours."""
         dct, q0, base, band = mrf_inputs(rng, n, block, l, cuda_device)
+        if hub:
+            band = add_hub(rng, band)
         starts = torch.stack([torch.argmin(dct, 0), torch.argmax(q0, 0),
                               t(rng.integers(0, l, n)).to(cuda_device)]
-                             ).to(torch.int32).contiguous()
+                             )[:s].to(torch.int32).contiguous()
+        before = tmrf.icm_fused.launches
         got = tmrf.icm_fused(starts, base, band, iterations, 0.1)
+        assert tmrf.icm_fused.launches == before + 1
         ref = tmrf.icm_fused_reference(starts, base, band, iterations, 0.1)
         assert torch.equal(got, ref)
         assert bool((got != starts).any())
@@ -436,6 +542,10 @@ class TestCudaKernels:
             tmrf.icm_fused(torch.zeros((2, 128), dtype=torch.int64,
                                        device=cuda_device), base, band, 1,
                            0.1)
+        with pytest.raises(ValueError):  # the list of another band
+            tmrf.mean_field_fused(base, base, band, torch.ones(
+                2, device=cuda_device), 0.1, nbr=tmrf.band_list(
+                    band[:, :32, :96].contiguous()))
         sel = torch.zeros((2, 5), dtype=torch.int32, device=cuda_device)
         with pytest.raises(ValueError):
             tgather.window_gather(torch.zeros((2, 192, 8),
@@ -500,7 +610,9 @@ def test_golden_scene(golden_suite, name):
     agreement with the golden labeling (test_golden_parity.py:85-98)."""
     err, golden, agree, n = golden_suite[name]
     slack = min(2.0 * 100.0 / n, 1.0)
-    assert abs(err - golden) <= 0.5 + slack, (err, golden)
+    # 1e-9: a mean exactly on the bound passes (float rounding of the
+    # 3-key mean and of 0.5 + slack)
+    assert abs(err - golden) <= 0.5 + slack + 1e-9, (err, golden)
     assert agree >= 97.0, agree
 
 
