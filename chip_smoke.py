@@ -16,17 +16,22 @@ Phases, each raising on failure:
   2. build: nvcc compiles multih_tpu_torch/csrc/*.cu, one process per
      source (build seconds and the ptxas register / spill report);
   3. kernel parity: every kernel against its plain PyTorch version on the
-     card at the main paths' shapes (K1 also at its epipolar kinds on the
-     motion fit's verify shape, K3 at the LO-refine batch C=256 and a
-     PEARL batch C=16 and on the F normal matrices of a real refit in a
-     motion fit, held to float64 eigh too; K6 at both homography kinds
+     card at the main paths' shapes (K1 in both reciprocal modes, also
+     past one shared-memory tile, on a split point axis and at its
+     epipolar kinds on the motion fit's verify shape, with its CUDA
+     launches a call: 1; K2 from the sampler's (32, S) rows with
+     degenerate and padded quads, ok exact, H's within 5e-4 of the plain
+     version and 1e-6 of float64, 1 launch a call; K3 at the LO-refine
+     batch C=256 and a PEARL batch C=16 and on the F normal matrices of
+     a real refit in a motion fit, held to float64 eigh too; K6 at both homography kinds
      with the threshold a device tensor; the neighbour list bit-exact;
      K4, K5 and K6 on the list the fit builds, with their CUDA launches a
      call counted by torch.profiler: 1, 1 and 2), with kernel, plain and
      (where one PyTorch call computes the same function) library times
      beside each kernel's bound: the larger of its bytes (inputs read once, outputs
-     written once) at 3.35 TB/s and its operations at 67 TFLOP/s fp32,
-     counted from this run's inputs. Two times for the kernel and the
+     written once) at 3.35 TB/s and its operations at 67 TFLOP/s fp32
+     (fp64 at 34, K1's reciprocals at the MUFU rate), counted from this
+     run's inputs. Two times for the kernel and the
      library call: "call ms", the median of CUDA-event pairs around one
      call (the wrapper's host work included: the card is idle when the
      first event fires), and "device ms", the device time of the call's
@@ -112,17 +117,29 @@ KERNELS = {
         source="multih_tpu_torch/csrc/gather_kernel.cu",
         replaces="multih_tpu/ops/kernels/gather_kernel.py:94"),
 }
-# H100 SXM peaks (NVIDIA's data sheet, at 700 W): HBM bytes/s, fp32
-# non-tensor-core FLOP/s
+# H100 SXM peaks (NVIDIA's data sheet, at 700 W): HBM bytes/s, fp32 and
+# fp64 non-tensor-core FLOP/s
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOP_S = 67e12
+PEAK_FP64_S = 34e12
 # operations per (hypothesis, point) pair of the count kernel, counted
 # from the residual formulas of csrc/residual_kernel.cu (mul, add, div,
-# max, compare each one); per 4-point DLT solve and per 9x9 eigensolve
-# from the notes of csrc/dlt_kernel.cu and csrc/eig_kernel.cu
+# max, compare each one); per 9x9 eigensolve from the notes of
+# csrc/eig_kernel.cu; per 4-point DLT solve counted from
+# csrc/dlt_kernel.cu's solve (fp64, given to `bound` as the fp32
+# operations of the same time)
 COUNT_OPS = {"symmetric": 40, "transfer": 20, "sampson": 52,
              "f_symmetric": 39, "f_transfer": 25, "f_sampson": 37}
-DLT_OPS = 1500
+# reciprocals per pair of the count kernel (one MUFU op each with the
+# fast reciprocal), and the MUFU rate: 16 a cycle on each of the 132 SMs
+# at the 1.98 GHz boost clock (the Hopper white paper)
+COUNT_RCPS = {"symmetric": 2, "transfer": 1, "sampson": 1,
+              "f_symmetric": 2, "f_transfer": 1, "f_sampson": 1}
+PEAK_MUFU_S = 16 * 132 * 1.98e9
+# per solve (fp64), plus the (32, S) entry's 8 triangle areas and tests
+# (fp32)
+DLT_OPS = 520 * PEAK_FLOP_S / PEAK_FP64_S
+DLT_TEST_OPS = 70
 EIG_OPS = 13000
 # per (label, point) of K6's front, counted from csrc/mrf_kernel.cu's
 # mf_front: the residual (transfer 19, symmetric 40) and the data cost
@@ -161,21 +178,26 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = 50) -> float:
+def device_ms(fn, reps: int = 50, tries: int = 5) -> float:
     """"Device ms" of fn(): the device time of every kernel and copy that
     `reps` warm calls ran (busy_us), over reps. No host work and no gap
-    between launches is in it."""
+    between launches is in it. A session that came back with no device
+    events is taken again, up to `tries` times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    busy = busy_us(prof.key_averages())
+    busy = 0.0
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        busy = busy_us(prof.key_averages())
+        if busy > 0:
+            break
     check(busy > 0, "the profiler saw no device time")
     return busy / reps / 1e3
 
@@ -241,12 +263,13 @@ def check(cond, msg: str) -> None:
         raise AssertionError(msg)
 
 
-def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound(n_bytes: float, n_ops: float,
+          n_mufu: float = 0.0) -> tuple[float, str]:
     """(ms, what bounds it): the least time the card could take, the
-    larger of the bytes at the HBM rate and the operations at the fp32
-    rate."""
+    largest of the bytes at the HBM rate, the operations at the fp32
+    rate and the reciprocals at the MUFU rate."""
     t_bytes = n_bytes / PEAK_BYTES_S * 1e3
-    t_ops = n_ops / PEAK_FLOP_S * 1e3
+    t_ops = max(n_ops / PEAK_FLOP_S, n_mufu / PEAK_MUFU_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -315,36 +338,28 @@ def _quads(rng, s):
     return p1, p2
 
 
-def dlt_parity(got, packed):
-    """Hold DLT kernel results to the plain version: 5e-4 max-abs (the
-    JAX kernel's tolerance) on the non-degenerate quads whose float32
-    solve is well conditioned, i.e. where the plain float32 solve is
-    within 1e-4 of the float64 one. On the ill-conditioned rest (~0.2%
-    of this recipe's quads) no float32 solver holds 5e-4: the plain
-    version itself is up to 2.1e-3 from float64 there (measured on the
-    CPU over 51200 quads), so those are reported, kernel and plain each
-    against float64, not held. Returns (max-abs error on the
-    well-conditioned quads, ill-conditioned count, kernel and plain
-    max-abs error vs float64 on them)."""
+def _sampler_rows(rng, s, device):
+    """(32, S) sampler rows of `_quads` (row 8q + c = channel c of quad
+    point q: x1, y1, x2, y2, avail) as the sampler hands them over (a
+    transposed view, strides (1, 32)), with collinear triples, duplicate
+    points, padded points (avail 0) and quads ~0.01 px wide, whose
+    triangle areas straddle the 1e-4 degeneracy threshold."""
     import torch
 
-    from multih_tpu_torch.ops import geometry
-    from multih_tpu_torch.ops.kernels import dlt_kernel
-
-    ref = dlt_kernel.homography_4pt_packed_reference(packed)
-    ref64 = dlt_kernel.homography_4pt_packed_reference(packed.double())
-    p = packed.reshape(2, 4, 2, -1)  # image, point, coord, quad
-    degen = (geometry.quad_degenerate_t(p[0, :, 0], p[0, :, 1], 1e-4)
-             | geometry.quad_degenerate_t(p[1, :, 0], p[1, :, 1], 1e-4))
-    e_plain = (ref.double() - ref64).abs().amax((1, 2))
-    e_kern = (got.double() - ref64).abs().amax((1, 2))
-    well = ~degen & (e_plain < 1e-4)
-    ill = ~degen & ~well
-    err = float((got - ref).abs().amax((1, 2))[well].max())
-    check(err < 5e-4, f"DLT kernel: max abs err {err} vs the plain version")
-    zero = torch.zeros(1, dtype=e_kern.dtype, device=e_kern.device)
-    return (err, int(ill.sum()), float(torch.cat([e_kern[ill], zero]).max()),
-            float(torch.cat([e_plain[ill], zero]).max()))
+    p1, p2 = _quads(rng, s)
+    avail = np.ones((s, 4), np.float32)
+    i = np.arange(s)
+    p1[i % 7 == 1, 2] = (p1[i % 7 == 1, 0] + p1[i % 7 == 1, 1]) * 0.5
+    p2[i % 11 == 2, 3] = p2[i % 11 == 2, 1]
+    pad = np.flatnonzero(i % 13 == 3)
+    avail[pad, rng.integers(0, 4, pad.size)] = 0.0
+    tiny = i % 5 == 4
+    base = rng.uniform(0, 640, (int(tiny.sum()), 1, 2)).astype(np.float32)
+    p1[tiny] = base + rng.uniform(0, 0.02, (int(tiny.sum()), 4, 2))
+    p2[tiny] = base + rng.uniform(0, 0.02, (int(tiny.sum()), 4, 2))
+    rows = np.zeros((s, 4, 8), np.float32)
+    rows[:, :, 0:2], rows[:, :, 2:4], rows[:, :, 4] = p1, p2, avail
+    return torch.from_numpy(rows.reshape(s, 32)).to(device).T
 
 
 def _normal_matrices(rng, c):
@@ -466,10 +481,11 @@ def phase_kernels(dev):
     check(_build.stream_handle(x) == torch.cuda.current_stream().cuda_stream,
           "stream handle: not the current stream's")
 
-    def record(name, shape, err, kernel, plain, n_bytes, n_ops, lib=None):
+    def record(name, shape, err, kernel, plain, n_bytes, n_ops, lib=None,
+               n_mufu=0.0):
         """Times kernel() (call ms and device ms), plain() (call ms) and
         the library call lib() (both) and prints one row."""
-        b_ms, b_by = bound(n_bytes, n_ops)
+        b_ms, b_by = bound(n_bytes, n_ops, n_mufu)
         row = dict(shape=shape, ms=cuda_ms(kernel),
                    device_ms=device_ms(kernel),
                    plain_ms=cuda_ms(plain, reps=5), bound_ms=b_ms,
@@ -488,28 +504,55 @@ def phase_kernels(dev):
         r["shapes"].append(row)
         return row
 
+    def count_rows(name, Hs, x1, x2, valid, kind):
+        """K1 in both reciprocal modes against the plain version: max
+        |dcount| <= 2 and mean < 0.5, then timed, with its CUDA launches
+        a call; the bound counts the reciprocals at the MUFU rate too,
+        and the launch shape and that MUFU time are printed beside it."""
+        s, n = Hs.shape[0], x1.shape[0]
+        ref = rk.inlier_counts_reference(Hs, x1, x2, valid, thr, kind)
+        check(float(ref.max()) > 0, f"no inliers in the count check {kind}")
+        for approx in (True, False):
+            mode = "approx" if approx else "exact"
+
+            def kernel():
+                return rk.inlier_counts_padded(Hs, x1, x2, valid, thr,
+                                               kind=kind, approx_rcp=approx)
+            d = (kernel() - ref).abs()
+            check(float(d.max()) <= 2.0 and float(d.mean()) < 0.5,
+                  f"count kernel {kind} {mode} {s}x{n}: max "
+                  f"{float(d.max())} mean {float(d.mean())}")
+            row = record(name, f"{s}x{n} {kind} {mode}", float(d.max()),
+                         kernel, lambda: rk.inlier_counts_reference(
+                             Hs, x1, x2, valid, thr, kind),
+                         4 * (s * 9 + 5 * n + s), s * n * COUNT_OPS[kind],
+                         n_mufu=s * n * COUNT_RCPS[kind])
+            n_launch, launched = cuda_launches(kernel)
+            check(n_launch in (1, None), f"count kernel {kind} {s}x{n}: "
+                  f"launches {launched}")
+            row["launches_per_call"] = n_launch
+            shape = rk.launch_shape(s, n, *rk._limits(Hs.device.index))
+            print(f"  count {kind} {mode} {s}x{n}: {int(ref.sum())} "
+                  f"inliers, mean |dcount| {float(d.mean()):.4f}, (warps, "
+                  f"CTAs) {shape}; CUDA "
+                  f"launches a call {_launch_str(n_launch, launched)}; "
+                  f"reciprocals at the MUFU rate "
+                  f"{s * n * COUNT_RCPS[kind] / PEAK_MUFU_S * 1e3:.5f} ms")
+
     # K1: hypotheses solved from scene quads, at the claim / verify sweep
     # (2051 x 512, symmetric) and the stress ranking sweep (102400 x 1280,
-    # transfer) shapes; sampson checked at the small shape
+    # transfer); sampson at the small shape; more points than one
+    # shared-memory tile holds (2051 x 10240: a cluster of 5 CTAs) and a
+    # pool so small that a hypothesis's points are split over 8 warps in
+    # each of a cluster of 8 CTAs (16 x 10240)
     x1, x2, valid = _scene_points(10000, 10240, 42, dev)
     thr = torch.full((), 9.0, device=dev)
     for s, n, kind in ((2051, 512, "symmetric"), (2051, 512, "sampson"),
-                       (102400, 1280, "transfer")):
+                       (102400, 1280, "transfer"),
+                       (2051, 10240, "symmetric"), (16, 10240, "symmetric")):
         idx = torch.from_numpy(rng.integers(0, 10000, (s, 4))).to(dev)
         Hs = geometry.homography_4pt_batch_qr(x1[idx], x2[idx]).contiguous()
-        px, py, pv = x1[:n].contiguous(), x2[:n].contiguous(), valid[:n]
-        got = rk.inlier_counts_padded(Hs, px, py, pv, thr, kind=kind)
-        ref = rk.inlier_counts_reference(Hs, px, py, pv, thr, kind)
-        d = (got - ref).abs()
-        check(float(ref.max()) > 0, "no inliers in the count check")
-        check(float(d.max()) <= 2.0 and float(d.mean()) < 0.5,
-              f"count kernel {kind} {s}x{n}: max {float(d.max())} "
-              f"mean {float(d.mean())}")
-        record("inlier_counts", f"{s}x{n} {kind}", float(d.max()),
-               lambda: rk.inlier_counts_padded(Hs, px, py, pv, thr,
-                                               kind=kind),
-               lambda: rk.inlier_counts_reference(Hs, px, py, pv, thr, kind),
-               4 * (s * 9 + 5 * n + s), s * n * COUNT_OPS[kind])
+        count_rows("inlier_counts", Hs, x1[:n], x2[:n], valid[:n], kind)
 
     # K1's epipolar kinds at the motion fit's verify shape (2048
     # hypotheses + 3 claims x 512 points), F's solved from 8-point
@@ -517,37 +560,48 @@ def phase_kernels(dev):
     x1, x2, valid = _motion_points("fm4_a", 512, dev)
     n_valid = int(valid.sum())
     for kind in ("f_sampson", "f_symmetric", "f_transfer"):
-        s = 2051
-        idx = torch.from_numpy(rng.integers(0, n_valid, (s, 8))).to(dev)
+        idx = torch.from_numpy(rng.integers(0, n_valid, (2051, 8))).to(dev)
         Fs = fmodel.fundamental_8pt_batch_qr(x1[idx], x2[idx]).contiguous()
-        got = rk.inlier_counts_padded(Fs, x1, x2, valid, thr, kind=kind)
-        ref = rk.inlier_counts_reference(Fs, x1, x2, valid, thr, kind)
-        d = (got - ref).abs()
-        check(float(ref.max()) > 0, "no inliers in the F count check")
-        check(float(d.max()) <= 2.0 and float(d.mean()) < 0.5,
-              f"count kernel {kind} {s}x512: max {float(d.max())} "
-              f"mean {float(d.mean())}")
-        record("inlier_counts_f", f"{s}x512 {kind}", float(d.max()),
-               lambda: rk.inlier_counts_padded(Fs, x1, x2, valid, thr,
-                                               kind=kind),
-               lambda: rk.inlier_counts_reference(Fs, x1, x2, valid, thr,
-                                                  kind),
-               4 * (s * 9 + 5 * 512 + s), s * 512 * COUNT_OPS[kind])
+        count_rows("inlier_counts_f", Fs, x1, x2, valid, kind)
 
-    # K2: minimal solves per progressive round, default and stress
+    # K2: the minimal solves of a progressive round, default and stress,
+    # from the sampler's (32, S) rows (ok exact, H's within 5e-4 of the
+    # plain version where its float32 solve is well conditioned, and
+    # within 1e-6 of float64 on every usable quad: the kernel solves in
+    # double)
     for s in (512, 51200):
-        p1, p2 = _quads(rng, s)
-        packed = torch.from_numpy(np.concatenate(
-            [p1.reshape(-1, 8).T, p2.reshape(-1, 8).T])).to(dev).contiguous()
-        got = dlt_kernel.homography_4pt_packed(packed)
-        check(bool(torch.isfinite(got).all()), "DLT kernel: non-finite H")
-        err, n_ill, e_k, e_p = dlt_parity(got, packed)
-        print(f"  dlt S={s}: {n_ill} ill-conditioned quads, max abs err vs "
-              f"float64 there: kernel {e_k:.3g}, plain {e_p:.3g}")
-        record("dlt_4pt", f"S={s}", err,
-               lambda: dlt_kernel.homography_4pt_packed(packed),
-               lambda: dlt_kernel.homography_4pt_packed_reference(packed),
-               4 * 25 * s, DLT_OPS * s)
+        gt = _sampler_rows(rng, s, dev)
+        hs, ok = dlt_kernel.homography_4pt_gt(gt)
+        ref_h, ref_ok = dlt_kernel.homography_4pt_gt_reference(gt)
+        check(torch.equal(ok, ref_ok), f"DLT kernel S={s}: ok differs "
+              f"from the plain version's on {int((ok != ref_ok).sum())}")
+        check(bool(torch.isfinite(hs).all()), "DLT kernel: non-finite H")
+        ref64 = dlt_kernel.homography_4pt_gt_reference(gt.double())[0]
+        e_plain = (ref_h.double() - ref64).abs().amax((1, 2))
+        well = (ref_ok > 0) & (e_plain < 1e-4)
+        err = float((hs - ref_h).abs().amax((1, 2))[well].max())
+        check(err < 5e-4, f"DLT kernel S={s}: max abs err {err}")
+        ill = (ref_ok > 0) & ~well
+        e64 = (hs.double() - ref64).abs().amax((1, 2))
+        e_all = float(e64[ref_ok > 0].max())
+        check(e_all < 1e-6, f"DLT kernel S={s}: max abs err {e_all} vs "
+              f"float64 on the usable quads")
+        e_k = float(e64[ill].max()) if ill.any() else 0.0
+        print(f"  dlt S={s}: {int(ref_ok.sum())} usable quads, ok exact; "
+              f"max abs err vs float64 {e_all:.3g} on them; "
+              f"{int(ill.sum())} ill-conditioned, max abs err vs float64 "
+              f"there: kernel {e_k:.3g}, plain "
+              f"{float(e_plain[ill].max()) if ill.any() else 0.0:.3g}")
+        row = record("dlt_4pt", f"S={s} (32, S) rows", err,
+                     lambda: dlt_kernel.homography_4pt_gt(gt),
+                     lambda: dlt_kernel.homography_4pt_gt_reference(gt),
+                     4 * 30 * s, (DLT_OPS + DLT_TEST_OPS) * s)
+        n_launch, launched = cuda_launches(
+            lambda: dlt_kernel.homography_4pt_gt(gt))
+        check(n_launch in (1, None), f"DLT S={s}: launches {launched}")
+        row["launches_per_call"] = n_launch
+        print(f"  dlt S={s}: CUDA launches a call "
+              f"{_launch_str(n_launch, launched)}")
 
     # K3: homography normal matrices at the LO-refine batch
     # (n_candidates) and a PEARL refit batch (max_labels), then the 256 of
@@ -859,8 +913,8 @@ def _wrappers():
                                               residual_kernel)
 
     return {
-        "inlier_counts": residual_kernel.inlier_counts,
-        "dlt_4pt": dlt_kernel.homography_4pt_packed,
+        "inlier_counts": residual_kernel.inlier_counts_padded,
+        "dlt_4pt": dlt_kernel.homography_4pt_gt,
         "eig9_smallest": eig_kernel.smallest_eigvec_9x9_batch,
         "mean_field_fused": mrf_kernel.mean_field_fused,
         "icm_fused": mrf_kernel.icm_fused,

@@ -13,8 +13,10 @@ differently:
   plain PyTorch paths, as the JAX package's CPU runs take its jnp paths.
 - ``knn_approx``: the port always builds the exact k-NN graph
   (``lax.approx_max_k`` is TPU-only and exact on the CPU anyway).
-- ``pallas_approx_rcp``: not read yet; the count kernel divides with
-  IEEE division.
+- ``pallas_approx_rcp``: the count kernel multiplies by the hardware
+  fast reciprocal (``rcp.approx.ftz.f32``) where the TPU kernel takes
+  ``pl.reciprocal(..., approx=True)``; False divides exactly. The plain
+  path always divides exactly.
 """
 
 from __future__ import annotations

@@ -243,43 +243,30 @@ def _solve_minimal(x1, x2, avail, idx, cfg: MultiHConfig):
 
 def _solve_from_gt(gt, cfg: MultiHConfig):
     """(32, S) rows (row 8q+c = channel c of quad point q; channel 4 =
-    avail) -> (Hs (S, 3, 3), ok (S,))."""
-    def row(q, c):
-        return gt[8 * q + c]
-
-    x1x = torch.stack([row(q, 0) for q in range(4)])  # (4, S)
-    x1y = torch.stack([row(q, 1) for q in range(4)])
-    x2x = torch.stack([row(q, 2) for q in range(4)])
-    x2y = torch.stack([row(q, 3) for q in range(4)])
-    degenerate = geometry.quad_degenerate_t(x1x, x1y, 1e-4) | \
-        geometry.quad_degenerate_t(x2x, x2y, 1e-4)
-    uses_pad = ((row(0, 4) == 0) | (row(1, 4) == 0)
-                | (row(2, 4) == 0) | (row(3, 4) == 0))
-    ok = (~(degenerate | uses_pad)).to(gt.dtype)
-    packed = torch.cat(
-        [torch.stack([x1x, x1y], dim=1).reshape(8, -1),
-         torch.stack([x2x, x2y], dim=1).reshape(8, -1)], dim=0
-    )  # (16, S): xa ya xb yb ... per image
+    avail) -> (Hs (S, 3, 3), ok (S,)): ok is 0 where a quad is
+    degenerate or uses an unavailable point. One K2 launch on CUDA, the
+    plain version's eager ops otherwise."""
     if _kernels_enabled(cfg, gt.device):
-        Hs = dlt_kernel.homography_4pt_packed(packed)
-    else:
-        Hs = dlt_kernel.homography_4pt_packed_reference(packed)
-    return Hs, ok
+        return dlt_kernel.homography_4pt_gt(gt)
+    return dlt_kernel.homography_4pt_gt_reference(gt)
 
 
 def count_inliers(Hs, x1, x2, valid, cfg: MultiHConfig, tau=None,
                   kind: str | None = None):
     """Inlier counts of the whole pool without materializing (S, N): the
     count kernel on CUDA, residual_chunk-sized chunks of the plain
-    residual otherwise. `kind` overrides cfg.residual; the fundamental
+    residual otherwise (the kernel takes the fast reciprocal when
+    cfg.pallas_approx_rcp, as the reference passes it at
+    pipeline.py:510). `kind` overrides cfg.residual; the fundamental
     model's kinds carry an ``f_`` prefix (pipeline.py:506)."""
     kind = kind or cfg.residual
     if cfg.model == "fundamental":
         kind = f"f_{kind}"
     thr = _thr(cfg, tau, x1)
     if _kernels_enabled(cfg, x1.device):
-        return residual_kernel.inlier_counts_padded(Hs, x1, x2, valid, thr,
-                                                    kind=kind)
+        return residual_kernel.inlier_counts_padded(
+            Hs, x1, x2, valid, thr, kind=kind,
+            approx_rcp=cfg.pallas_approx_rcp)
     return residual_kernel.inlier_counts_reference(
         Hs, x1, x2, valid, thr, kind, chunk=cfg.residual_chunk
     )

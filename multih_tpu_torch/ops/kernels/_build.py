@@ -40,8 +40,10 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # entry point -> argtypes; each returns cudaError_t as int
 _SIGNATURES = {
-    "multih_inlier_counts": [_P, _I, _P, _I, _P, _I, _P, _P],
-    "multih_dlt_4pt": [_P, _I, _P, _P],
+    "multih_inlier_counts": [_P] + [_I] * 4 + ([_P] + [_I] * 2) * 3
+                            + [_P] + [_I] * 4 + [_P, _P],
+    "multih_inlier_counts_limits": [_P],
+    "multih_dlt_4pt_gt": [_P, _I, _I, _I, _P, _P, _P],
     "multih_eig9_smallest": [_P, _I, _P, _P],
     "multih_band_list": [_P, _I, _I, _P, _P, _P, _P],
     "multih_mean_field": [_P] * 5 + [_I, _P, _I, _I, _I, _F] + [_P] * 3,
@@ -150,12 +152,14 @@ def stream_handle(t: torch.Tensor) -> int:
     return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
-def require_cuda(*tensors: torch.Tensor, dtype=torch.float32) -> None:
-    """Checks the kernels' inputs: CUDA, `dtype`, contiguous."""
+def require_cuda(*tensors: torch.Tensor, dtype=torch.float32,
+                 contiguous: bool = True) -> None:
+    """Checks the kernels' inputs: CUDA, `dtype`, contiguous (unless the
+    kernel takes strides)."""
     for t in tensors:
         if t.device.type != "cuda":
             raise ValueError(f"expected a CUDA tensor, got {t.device}")
         if t.dtype != dtype:
             raise ValueError(f"expected {dtype}, got {t.dtype}")
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError("expected a contiguous tensor")

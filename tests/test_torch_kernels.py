@@ -12,6 +12,7 @@ on the GPU when there is one (the kernel path) and on the CPU otherwise
 """
 
 import collections
+import dataclasses
 import os
 
 import numpy as np
@@ -117,6 +118,70 @@ def pack_quads(p1, p2):
     return np.concatenate([p1.reshape(-1, 8).T, p2.reshape(-1, 8).T])
 
 
+def sampler_rows(rng, s):
+    """(32, S) float32 sampler rows (row 8q + c = channel c of quad point
+    q: x1, y1, x2, y2, avail) of `quads`, with collinear triples (one
+    point the midpoint of two others, image 1), duplicate points (image
+    2), padded points (avail 0) and quads ~0.01 px wide, whose triangle
+    areas straddle the 1e-4 degeneracy threshold."""
+    p1, p2 = quads(rng, s)
+    avail = np.ones((s, 4), np.float32)
+    for i in range(s):
+        if i % 7 == 1:
+            p1[i, 2] = (p1[i, 0] + p1[i, 1]) * np.float32(0.5)
+        if i % 11 == 2:
+            p2[i, 3] = p2[i, 1]
+        if i % 13 == 3:
+            avail[i, rng.integers(0, 4)] = 0.0
+        if i % 5 == 4:
+            base = rng.uniform(0, 640, 2)
+            p1[i] = base + rng.uniform(0, 0.02, (4, 2))
+            p2[i] = base + rng.uniform(0, 0.02, (4, 2))
+    rows = np.zeros((s, 4, 8), np.float32)
+    rows[:, :, 0:2], rows[:, :, 2:4], rows[:, :, 4] = p1, p2, avail
+    return rows.reshape(s, 32).T.copy()
+
+
+def sampler_rows_ok(gt):
+    """The usable-quad mask of (32, S) sampler rows in numpy float32,
+    each product and difference rounded on its own: no 3 points of a
+    quad with twice their triangle's area below 1e-4 in either image,
+    and no point with avail 0."""
+    q = gt.reshape(4, 8, -1)
+    bad = (q[:, 4] == 0).any(0)
+    for cx, cy in ((0, 1), (2, 3)):
+        px, py = q[:, cx], q[:, cy]
+        for a, b, c in ((0, 1, 2), (0, 1, 3), (0, 2, 3), (1, 2, 3)):
+            area = np.abs((px[b] - px[a]) * (py[c] - py[a])
+                          - (py[b] - py[a]) * (px[c] - px[a]))
+            bad |= area < np.float32(1e-4)
+    return (~bad).astype(np.float32)
+
+
+def launches_per_call(fn, calls=10):
+    """CUDA launches a call of fn over `calls` calls, from
+    torch.profiler. A profile can miss device events (a short window may
+    come back empty), never add one: a session in which some name does
+    not occur a multiple of `calls` times is taken again."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        counts = collections.Counter(
+            e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+        if counts and all(c % calls == 0 for c in counts.values()):
+            return sum(counts.values()) // calls
+    raise AssertionError("the profiler lost device events in every "
+                         "session")
+
+
 def normal_matrices(rng, c):
     """(C, 9, 9) DLT normal matrices of noisy 12-point samples."""
     x1 = rng.uniform(-1, 1, (c, 12, 2))
@@ -205,9 +270,9 @@ class TestCudaKernels:
         Hs, x1, x2, valid = count_problem(rng, 2051, 1536)
         args = [t(a).to(cuda_device) for a in (Hs, x1, x2, valid)]
         thr = torch.tensor(900.0, device=cuda_device)
-        before = tres.inlier_counts.launches
+        before = tres.inlier_counts_padded.launches
         got = tres.inlier_counts_padded(*args, thr, kind=kind)
-        assert tres.inlier_counts.launches == before + 1
+        assert tres.inlier_counts_padded.launches == before + 1
         ref = tres.inlier_counts_reference(*args, thr, kind)
         d = (got - ref).abs()
         assert float(ref.max()) > 0
@@ -228,21 +293,108 @@ class TestCudaKernels:
         assert float(d.max()) <= 2.0 and float(d.mean()) < 0.5
 
     def test_dlt_kernel(self, rng, cuda_device):
-        """5e-4 on the non-degenerate quads whose float32 solve is well
-        conditioned (plain float32 within 1e-4 of float64); on the rest
-        no float32 solver holds 5e-4 (see chip_smoke.dlt_parity)."""
+        """Random quads in contiguous (32, S) rows: ok exact, H's within
+        5e-4 of the plain version on the usable quads whose float32 solve
+        is well conditioned (plain float32 within 1e-4 of float64; on the
+        rest no float32 solver holds 5e-4), and within 1e-6 of float64 on
+        every usable quad (the kernel solves in double)."""
         p1, p2 = quads(rng, 1301)
-        packed = t(pack_quads(p1, p2)).to(cuda_device)
-        got = tdlt.homography_4pt_packed(packed)
-        ref = tdlt.homography_4pt_packed_reference(packed)
-        ref64 = tdlt.homography_4pt_packed_reference(packed.double())
-        degen = (tgeo.quad_degenerate_t(t(p1[:, :, 0].T), t(p1[:, :, 1].T),
-                                        1e-4)
-                 | tgeo.quad_degenerate_t(t(p2[:, :, 0].T), t(p2[:, :, 1].T),
-                                          1e-4)).to(cuda_device)
-        well = ~degen & ((ref.double() - ref64).abs().amax((1, 2)) < 1e-4)
+        rows = np.zeros((1301, 4, 8), np.float32)
+        rows[:, :, 0:2], rows[:, :, 2:4], rows[:, :, 4] = p1, p2, 1.0
+        gt = t(rows.reshape(1301, 32).T.copy()).to(cuda_device)
+        got, ok = tdlt.homography_4pt_gt(gt)
+        ref, ref_ok = tdlt.homography_4pt_gt_reference(gt)
+        ref64 = tdlt.homography_4pt_gt_reference(gt.double())[0]
+        assert torch.equal(ok, ref_ok) and float(ok[5]) == 0.0
+        well = (ref_ok > 0) & ((ref.double() - ref64).abs().amax((1, 2))
+                               < 1e-4)
         err = (got - ref).abs().amax((1, 2))[well]
         assert bool(torch.isfinite(got).all()) and float(err.max()) < 5e-4
+        err64 = (got.double() - ref64).abs().amax((1, 2))[ref_ok > 0]
+        assert float(err64.max()) < 1e-6
+
+    @pytest.mark.parametrize("approx", [True, False])
+    @pytest.mark.parametrize("kind", list(tres.KINDS))
+    def test_count_kernel_modes(self, rng, cuda_device, kind, approx):
+        """Both reciprocal modes, every kind, at pools of 1, 7 and 2051
+        hypotheses over 1000 points (not a multiple of 32): within the
+        JAX kernel's tolerance of the plain version, one launch a call."""
+        _, x1, x2, valid = count_problem(rng, 1, 1000)
+        thr = torch.tensor(900.0, device=cuda_device)
+        for s in (1, 7, 2051):
+            hs = random_fs(rng, s) if kind.startswith("f_") else \
+                random_hs(rng, s)
+            args = [t(a).to(cuda_device) for a in (hs, x1, x2, valid)]
+            before = tres.inlier_counts_padded.launches
+            got = tres.inlier_counts_padded(*args, thr, kind=kind,
+                                            approx_rcp=approx)
+            assert tres.inlier_counts_padded.launches == before + 1
+            ref = tres.inlier_counts_reference(*args, thr, kind)
+            d = (got - ref).abs()
+            assert got.dtype == torch.float32 and got.shape == (s,)
+            assert float(d.max()) <= 2.0 and float(d.mean()) < 0.5
+            if s == 2051:
+                assert float(ref.max()) > 0
+                assert launches_per_call(lambda: tres.inlier_counts_padded(
+                    *args, thr, kind=kind, approx_rcp=approx)) == 1
+
+    @pytest.mark.parametrize("approx", [True, False])
+    @pytest.mark.parametrize("s,n", [(16, 10240), (64, 20000)])
+    def test_count_kernel_split_and_tiles(self, rng, cuda_device,
+                                          monkeypatch, approx, s, n):
+        """Small pools over many points: the point axis split over warps
+        and over a cluster of CTAs (S=16, N=10240: 8 warps x 8 CTAs; S=64,
+        N=20000: 2 tiles a CTA of 8), and, forced, over fewer, down to
+        one CTA looping over its tiles. Every launch shape gives the same
+        counts (exact integer sums), and so do strided (subsampled)
+        points."""
+        hs, x1, x2, valid = count_problem(rng, s, n)
+        Hs, x1, x2, valid = [t(a).to(cuda_device) for a in (hs, x1, x2,
+                                                            valid)]
+        thr = torch.tensor(900.0, device=cuda_device)
+        ref = tres.inlier_counts_reference(Hs, x1, x2, valid, thr)
+        got = tres.inlier_counts_padded(Hs, x1, x2, valid, thr,
+                                        approx_rcp=approx)
+        d = (got - ref).abs()
+        assert float(ref.max()) > 0
+        assert float(d.max()) <= 2.0 and float(d.mean()) < 0.5
+        for shape in ((1, 1), (8, 1), (2, 3), (4, 8), (1, 8)):
+            monkeypatch.setattr(tres, "launch_shape",
+                                lambda *a, shape=shape: shape)
+            assert torch.equal(tres.inlier_counts_padded(
+                Hs, x1, x2, valid, thr, approx_rcp=approx), got)
+        monkeypatch.undo()
+        sub = tres.inlier_counts_padded(Hs, x1[::3], x2[::3], valid[::3],
+                                        thr, approx_rcp=approx)
+        assert torch.equal(sub, tres.inlier_counts_padded(
+            Hs, x1[::3].contiguous(), x2[::3].contiguous(),
+            valid[::3].contiguous(), thr, approx_rcp=approx))
+
+    def test_dlt_gt_kernel(self, rng, cuda_device):
+        """The (32, S) entry: ok equal to the plain version's bit for bit
+        (collinear, duplicate and padded quads, and quads whose areas
+        straddle the threshold), H's within 5e-4 on the usable quads
+        whose float32 solve is well conditioned and within 1e-6 of
+        float64 on every usable quad, the sampler's transposed view read
+        where it lies, one launch a call."""
+        gt = t(sampler_rows(rng, 4099)).to(cuda_device)
+        ref_h, ref_ok = tdlt.homography_4pt_gt_reference(gt)
+        ref64 = tdlt.homography_4pt_gt_reference(gt.double())[0]
+        view = gt.T.contiguous().T  # strides (1, 32), as the sampler's
+        for rows in (gt, view):
+            before = tdlt.homography_4pt_gt.launches
+            hs, ok = tdlt.homography_4pt_gt(rows)
+            assert tdlt.homography_4pt_gt.launches == before + 1
+            assert torch.equal(ok, ref_ok)
+            assert bool(torch.isfinite(hs).all())
+            well = (ref_ok > 0) & ((ref_h.double() - ref64).abs().amax(
+                (1, 2)) < 1e-4)
+            assert int(well.sum()) > 1000
+            assert float((hs - ref_h).abs().amax((1, 2))[well].max()) < 5e-4
+            assert float((hs.double() - ref64).abs().amax((1, 2))[
+                ref_ok > 0].max()) < 1e-6
+        assert 0 < int(ref_ok.sum()) < gt.shape[1]
+        assert launches_per_call(lambda: tdlt.homography_4pt_gt(view)) == 1
 
     @staticmethod
     def _hold_eig(atas):
@@ -343,29 +495,7 @@ class TestCudaKernels:
     def test_mrf_kernels_one_launch(self, rng, cuda_device, n, block, l):
         """torch.profiler sees one CUDA kernel a K4 call and a K5 call
         (the list given), and two a K6 call with more than one sweep."""
-        from torch.profiler import ProfilerActivity, profile
-
-        def kernels(fn, calls=10):
-            """CUDA launches a call over `calls` calls. A profile can
-            miss device events (a short window may come back empty),
-            never add one: a session in which some name does not occur a
-            multiple of `calls` times is taken again."""
-            fn()
-            torch.cuda.synchronize()
-            for _ in range(5):
-                with profile(activities=[ProfilerActivity.CPU,
-                                         ProfilerActivity.CUDA]) as prof:
-                    for _ in range(calls):
-                        fn()
-                    torch.cuda.synchronize()
-                counts = collections.Counter(
-                    e.name for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
-                if counts and all(c % calls == 0 for c in counts.values()):
-                    return sum(counts.values()) // calls
-            raise AssertionError("the profiler lost device events in "
-                                 "every session")
-
+        kernels = launches_per_call
         x1, x2, valid, _, adj = windowed_band(rng, n, block, cuda_device)
         dct = t(rng.uniform(0, 2.0, (l, n)).astype(np.float32)).to(
             cuda_device)
@@ -521,18 +651,21 @@ class TestCudaKernels:
             assert _build.stream_handle(x) == side.cuda_stream
 
     def test_wrappers_reject_bad_input(self, cuda_device):
-        with pytest.raises(ValueError):
-            tdlt.homography_4pt_packed(
-                torch.zeros((16, 8), dtype=torch.float64, device=cuda_device))
+        with pytest.raises(ValueError):  # float64 rows
+            tdlt.homography_4pt_gt(torch.zeros((32, 8), dtype=torch.float64,
+                                               device=cuda_device))
+        x = torch.zeros((64, 2), device=cuda_device)
+        v = torch.zeros(64, device=cuda_device)
+        hs = torch.zeros((8, 3, 3), device=cuda_device)
+        with pytest.raises(ValueError):  # a Python threshold
+            tres.inlier_counts_padded(hs, x, x, v, 9.0)
+        with pytest.raises(ValueError):  # float64 validity
+            tres.inlier_counts_padded(hs, x, x, v.double(),
+                                      torch.tensor(9.0, device=cuda_device))
         with pytest.raises(ValueError):
             teig.smallest_eigvec_9x9_batch(
                 torch.zeros((4, 9, 9), dtype=torch.float64,
                             device=cuda_device))
-        with pytest.raises(ValueError):
-            tres.inlier_counts(
-                torch.zeros((8, 9), device=cuda_device),
-                torch.zeros((5, 64), device=cuda_device),
-                torch.tensor(9.0, device=cuda_device))
         band = torch.zeros((2, 64, 192), device=cuda_device)
         base = torch.zeros((3, 128), device=cuda_device)
         with pytest.raises(ValueError):  # band does not fit N
@@ -562,6 +695,68 @@ class TestCudaKernels:
 # ---------------------------------------------------------------------------
 # the golden contract of tests/test_golden_parity.py, for the port
 # ---------------------------------------------------------------------------
+
+class TestKernelEntries:
+    """K1's and K2's wrappers on the CPU: what they pass on, their plain
+    versions, their argument checks."""
+
+    def test_count_inliers_passes_approx_rcp(self, rng, monkeypatch):
+        hs, x1, x2, valid = [t(a) for a in count_problem(rng, 40, 200)]
+        plain = {a: tpipe.count_inliers(
+            hs, x1, x2, valid, mt.MultiHConfig(pallas_approx_rcp=a))
+            for a in (True, False)}
+        assert torch.equal(plain[True], plain[False])  # the flag is K1's
+        seen = []
+
+        def wrapper(*args, **kw):
+            seen.append(kw)
+            return plain[True]
+        monkeypatch.setattr(tpipe, "_kernels_enabled", lambda cfg, dev: True)
+        monkeypatch.setattr(tres, "inlier_counts_padded", wrapper)
+        for a in (True, False):
+            cfg = mt.MultiHConfig(pallas_approx_rcp=a)
+            tpipe.count_inliers(hs, x1, x2, valid, cfg)
+            tpipe.count_inliers(hs, x1, x2, valid, dataclasses.replace(
+                cfg, model="fundamental", residual="sampson"))
+        assert [(k["approx_rcp"], k["kind"]) for k in seen] == [
+            (True, "symmetric"), (True, "f_sampson"),
+            (False, "symmetric"), (False, "f_sampson")]
+
+    def test_dlt_gt_plain_entry(self, rng):
+        """The (32, S) entry on the CPU: ok as a numpy float32 evaluation
+        of the same tests (collinear, duplicate, padded and ~0.01 px
+        quads), the H's those of the plain solve of the same quads, and
+        the pipeline's solve the same."""
+        gt = sampler_rows(rng, 300)
+        hs, ok = tdlt.homography_4pt_gt(t(gt))
+        want = sampler_rows_ok(gt)
+        assert 50 < want.sum() < 290
+        assert np.array_equal(ok.numpy(), want)
+        q = gt.reshape(4, 8, -1)
+        packed = np.concatenate([q[:, 0:2].reshape(8, -1),
+                                 q[:, 2:4].reshape(8, -1)])
+        assert torch.equal(hs, tdlt.homography_4pt_packed_reference(
+            t(packed)))
+        hs2, ok2 = tpipe._solve_from_gt(t(gt), mt.MultiHConfig())
+        assert torch.equal(hs2, hs) and torch.equal(ok2, ok)
+
+    def test_entries_reject_bad_input(self, rng):
+        hs, x1, x2, valid = [t(a) for a in count_problem(rng, 4, 64)]
+        thr = torch.tensor(9.0)
+        with pytest.raises(ValueError):
+            tdlt.homography_4pt_gt(torch.zeros((16, 8)))
+        with pytest.raises(ValueError):
+            tres.inlier_counts_padded(hs, x1, x2, valid, thr, kind="f_foo")
+        with pytest.raises(ValueError):  # x1 not (N, 2)
+            tres.inlier_counts_padded(hs, x1.T, x2, valid, thr)
+        with pytest.raises(ValueError):  # valid not (N,)
+            tres.inlier_counts_padded(hs, x1, x2, valid[:10], thr)
+        h100 = (132, 8, 2048, 8)  # SMs; warps a block, tile, CTAs a cluster
+        assert [tres.launch_shape(s, n, *h100) for s, n in (
+            (2051, 512), (102400, 1280), (2051, 10240), (16, 10240),
+            (64, 20000), (7, 512), (1, 100))
+        ] == [(2, 1), (1, 1), (1, 5), (8, 8), (8, 8), (4, 1), (1, 1)]
+
 
 @pytest.fixture(scope="module")
 def golden_suite():

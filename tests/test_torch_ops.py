@@ -179,7 +179,8 @@ class TestKernelPlainVersions:
         p1, p2 = quads(rng, 300)
         ref = np.asarray(jdlt.homography_4pt_pallas(
             jnp.asarray(p1), jnp.asarray(p2), interpret=True))
-        got = tdlt.homography_4pt_packed(t(pack_quads(p1, p2))).numpy()
+        got = tdlt.homography_4pt_packed_reference(
+            t(pack_quads(p1, p2))).numpy()
         assert got.shape == (300, 3, 3) and np.isfinite(got).all()
         degen = np.asarray(jgeo.quad_degenerate_batch(jnp.asarray(p1), 1e-4)
                            | jgeo.quad_degenerate_batch(jnp.asarray(p2), 1e-4))

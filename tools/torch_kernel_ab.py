@@ -3,14 +3,28 @@
 turns, beside their library calls, and the fits' device busy time.
 
     python3 tools/torch_kernel_ab.py --old DIR [--new DIR] [--rounds 1]
-        [--parts eig gather mrf fits]
+        [--parts count dlt eig gather mrf fits]
 
 DIR is a checkout that holds `multih_tpu_torch/` (`--new` defaults to
 this repository). Each round runs the trees in the order old, new, new,
 old, each in a child process that imports the port from its tree,
 builds that tree's kernels into its own `build/` (timed apart from the
 rest), and times at chip_smoke.py's phase 3 shapes (`--parts` picks
-which, all by default):
+which, all but dltlanes by default):
+  - count: K1 `inlier_counts_padded` at 2051x512 (symmetric, sampson),
+    102400x1280 (transfer), 2051x10240 and 16x10240 (symmetric) on the
+    stress scene's points and at 2051x512 in the three epipolar kinds on
+    fm4_a, in both reciprocal modes where the tree has them, each with
+    its CUDA launches a call;
+  - dlt: K2 through the pipeline's `_solve_from_gt` on (32, S) sampler
+    rows at S=512 and S=51200, with its CUDA launches a call (ok held
+    equal to the plain path's; the H's error against it printed, not
+    held: a float32 solve, as the parent's kernel is, can miss 5e-4 on
+    ~1 quad in 50k);
+  - dltlanes (this tree only: `--child . --parts dltlanes`): K2's
+    kernel against two variants built from `tools/dlt_lanes.cu` on the
+    same rows, at S=512 and S=51200: 4 lanes a solve, and a floor that
+    stages and writes the same bytes with no solve;
   - eig: K3 `smallest_eigvec_9x9_batch` on homography normal matrices at
     C=256 (the LO refine) and C=16 (a PEARL refit), and on the 256 F
     normal matrices of a real refit on fm4_a; `torch.linalg.eigh` on
@@ -217,6 +231,156 @@ def mrf_part(cs, dev, timed, out):
             timed(f"band_list {shape} B={block}", lambda: mk.band_list(band))
 
 
+def count_part(cs, dev, timed, out):
+    """K1 at chip_smoke.py phase 3's shapes, each held to its plain
+    version first (max |dcount| <= 2, mean < 0.5), with its CUDA
+    launches a call: in both reciprocal modes where the tree's wrapper
+    takes `approx_rcp`, else once ("exact": IEEE division)."""
+    import inspect
+
+    import numpy as np
+    import torch
+
+    from multih_tpu_torch.ops import fmodel, geometry
+    from multih_tpu_torch.ops.kernels import residual_kernel as rk
+
+    rng = np.random.default_rng(3)
+    modes = ((True, "approx"), (False, "exact")) if "approx_rcp" in \
+        inspect.signature(rk.inlier_counts_padded).parameters else \
+        ((None, "exact"),)
+    thr = torch.full((), 9.0, device=dev)
+    problems = []
+    x1, x2, valid = cs._scene_points(10000, 10240, 42, dev)
+    for s, n, kind in ((2051, 512, "symmetric"), (2051, 512, "sampson"),
+                       (102400, 1280, "transfer"),
+                       (2051, 10240, "symmetric"), (16, 10240, "symmetric")):
+        idx = torch.from_numpy(rng.integers(0, 10000, (s, 4))).to(dev)
+        Hs = geometry.homography_4pt_batch_qr(x1[idx], x2[idx]).contiguous()
+        problems.append((Hs, x1[:n], x2[:n], valid[:n], kind))
+    f1, f2, fv = cs._motion_points("fm4_a", 512, dev)
+    for kind in ("f_sampson", "f_symmetric", "f_transfer"):
+        idx = torch.from_numpy(rng.integers(0, int(fv.sum()), (2051, 8))
+                               ).to(dev)
+        Fs = fmodel.fundamental_8pt_batch_qr(f1[idx], f2[idx]).contiguous()
+        problems.append((Fs, f1, f2, fv, kind))
+    for Hs, px, py, pv, kind in problems:
+        ref = rk.inlier_counts_reference(Hs, px, py, pv, thr, kind)
+        for approx, mode in modes:
+            kw = {} if approx is None else dict(approx_rcp=approx)
+
+            def fn():
+                return rk.inlier_counts_padded(Hs, px, py, pv, thr,
+                                               kind=kind, **kw)
+            d = (fn() - ref).abs()
+            name = f"K1 {Hs.shape[0]}x{px.shape[0]} {kind} {mode}"
+            if float(d.max()) > 2.0 or float(d.mean()) >= 0.5:
+                raise AssertionError(f"{name}: max {float(d.max())} mean "
+                                     f"{float(d.mean())}")
+            timed(name, fn)
+            out[name]["launches_per_call"] = cs.cuda_launches(fn)[0]
+            print(f"  {name:46s} CUDA launches a call "
+                  f"{out[name]['launches_per_call']}")
+
+
+def dlt_part(cs, dev, timed, out):
+    """K2 at chip_smoke.py phase 3's S=512 and S=51200: the pipeline's
+    `_solve_from_gt` on the sampler's (32, S) rows (collinear, duplicate,
+    padded and ~0.01 px quads), against the same call on the plain path
+    (ok held equal; the H's max-abs error printed where the plain
+    float32 solve is within 1e-4 of float64), with its CUDA launches a
+    call."""
+    import numpy as np
+    import torch
+
+    import multih_tpu_torch as mt
+    from multih_tpu_torch.models import pipeline
+
+    rng = np.random.default_rng(4)
+    cfg = mt.MultiHConfig()
+    plain = mt.MultiHConfig(use_pallas=False)
+    for s in (512, 51200):
+        gt = cs._sampler_rows(rng, s, dev)
+        hs, ok = pipeline._solve_from_gt(gt, cfg)
+        ref_h, ref_ok = pipeline._solve_from_gt(gt, plain)
+        ref64 = pipeline._solve_from_gt(gt.double(), plain)[0]
+        well = (ref_ok > 0) & ((ref_h.double() - ref64).abs().amax((1, 2))
+                               < 1e-4)
+        err = float((hs - ref_h).abs().amax((1, 2))[well].max())
+        if not torch.equal(ok, ref_ok):
+            raise AssertionError(f"K2 S={s}: ok differs from the plain "
+                                 f"path's")
+        print(f"  K2 S={s}: ok equal; H max abs err {err:.3g} vs the plain "
+              f"path where its float32 solve is within 1e-4 of float64"
+              f"{' (past 5e-4)' if err >= 5e-4 else ''}")
+        name = f"K2 _solve_from_gt S={s}"
+
+        def fn():
+            return pipeline._solve_from_gt(gt, cfg)
+        timed(name, fn)
+        out[name]["launches_per_call"] = cs.cuda_launches(fn)[0]
+        print(f"  {name:46s} CUDA launches a call "
+              f"{out[name]['launches_per_call']}")
+
+
+def dltlanes_part(cs, dev, timed, out):
+    """K2's kernel (`homography_4pt_gt`: one thread a solve, 32 a block)
+    against `tools/dlt_lanes.cu`'s 4-lanes-a-solve variant and its floor
+    (the same grid, staging and writes, no solve), on the same sampler
+    rows (the sampler's transposed view) at S=512 and S=51200. The
+    variant is held to what the kernel is held to: ok equal to the plain
+    version's, H's within 1e-6 of float64 on every usable quad."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    from multih_tpu_torch.ops.kernels import _build, dlt_kernel
+
+    src = os.path.join(REPO, "tools", "dlt_lanes.cu")
+    so = os.path.join(str(_build.BUILD_DIR), "libdlt_lanes.so")
+    subprocess.run([_build._nvcc(), *_build.FLAGS, "-shared", src, "-o", so],
+                   check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(so)
+    entries = {}
+    for name in ("multih_dlt_4pt_gt_lanes", "multih_dlt_4pt_gt_floor"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + \
+            [ctypes.c_void_p] * 3
+        fn.restype = ctypes.c_int
+        entries[name] = fn
+
+    def run(entry, gt):
+        s = gt.shape[1]
+        h = torch.empty((s, 3, 3), dtype=torch.float32, device=dev)
+        ok = torch.empty(s, dtype=torch.float32, device=dev)
+        _build.check(entry(gt.data_ptr(), s, *gt.stride(), h.data_ptr(),
+                           ok.data_ptr(), _build.stream_handle(gt)), "dlt")
+        return h, ok
+
+    rng = np.random.default_rng(5)
+    for s in (512, 51200):
+        gt = cs._sampler_rows(rng, s, dev)
+        ref_h, ref_ok = dlt_kernel.homography_4pt_gt_reference(gt)
+        ref64 = dlt_kernel.homography_4pt_gt_reference(gt.double())[0]
+        use = ref_ok > 0
+        lanes = entries["multih_dlt_4pt_gt_lanes"]
+        for label, fn in (
+                ("kernel", lambda: dlt_kernel.homography_4pt_gt(gt)),
+                ("4 lanes a solve", lambda: run(lanes, gt))):
+            h, ok = fn()
+            e64 = float((h.double() - ref64).abs().amax((1, 2))[use].max())
+            if not torch.equal(ok, ref_ok) or not e64 < 1e-6:
+                raise AssertionError(f"K2 {label} S={s}: ok equal "
+                                     f"{torch.equal(ok, ref_ok)}, max abs "
+                                     f"err vs float64 {e64}")
+            print(f"  K2 {label} S={s}: ok equal, max abs err vs float64 "
+                  f"{e64:.3g}")
+            timed(f"K2 {label} S={s}", fn)
+        floor = entries["multih_dlt_4pt_gt_floor"]
+        timed(f"K2 floor (stage and write, no solve) S={s}",
+              lambda: run(floor, gt))
+
+
 def fits_part(cs, dev, timed, out):
     """The default fit at N=512 (easy2_a, the golden tau) and the motion
     fit on fm4_a (chip_smoke phase 6's warm fit): device busy time per fit
@@ -243,8 +407,9 @@ def fits_part(cs, dev, timed, out):
               f"{lat:.2f} ms")
 
 
-PARTS = {"eig": eig_part, "gather": gather_part, "mrf": mrf_part,
-         "fits": fits_part}
+PARTS = {"count": count_part, "dlt": dlt_part, "dltlanes": dltlanes_part,
+         "eig": eig_part,
+         "gather": gather_part, "mrf": mrf_part, "fits": fits_part}
 
 
 def main(argv=None) -> int:
@@ -253,7 +418,7 @@ def main(argv=None) -> int:
     ap.add_argument("--new", default=REPO)
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--parts", nargs="+", choices=sorted(PARTS),
-                    default=list(PARTS))
+                    default=[p for p in PARTS if p != "dltlanes"])
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.child:
