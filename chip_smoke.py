@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port of the Multi-H fit on one GPU: the
 homography fit (default and fused-front routes), the fundamental
-(multi-motion) fit, the adaptive-threshold fit and the frame stream.
+(multi-motion) fit, the adaptive-threshold fit, the frame stream and the
+mixed plane + motion fit.
 
 Run from the repository root on a host with a CUDA card and the CUDA
 toolkit:
 
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --profile  # also torch.profiler breakdowns of
-                                     # the N=512, stress and motion fits
+                                     # the N=512, stress, motion and
+                                     # mixed fits
 
 Phases, each raising on failure:
   1. environment: torch / CUDA / nvcc / triton, the card's name and power
@@ -17,16 +19,19 @@ Phases, each raising on failure:
      source (build seconds and the ptxas register / spill report);
   3. kernel parity: every kernel against its plain PyTorch version on the
      card at the main paths' shapes (K1 in both reciprocal modes, also
-     past one shared-memory tile, on a split point axis and at its
-     epipolar kinds on the motion fit's verify shape, with its CUDA
-     launches a call: 1; K2 from the sampler's (32, S) rows with
-     degenerate and padded quads, ok exact, H's within 5e-4 of the plain
-     version and 1e-6 of float64, 1 launch a call; K3 at the LO-refine
-     batch C=256 and a PEARL batch C=16 and on the F normal matrices of
-     a real refit in a motion fit, held to float64 eigh too; K6 at both homography kinds
-     with the threshold a device tensor; the neighbour list bit-exact;
-     K4, K5 and K6 on the list the fit builds, with their CUDA launches a
-     call counted by torch.profiler: 1, 1 and 2), with kernel, plain and
+     past one shared-memory tile, on a split point axis, at its
+     epipolar kinds on the motion fit's verify shape and at both kinds
+     on the mixed stages' (2051 x 1024), with its CUDA launches a call:
+     1; K2 from the sampler's (32, S) rows with degenerate and padded
+     quads, ok exact, H's within 5e-4 of the plain version and 1e-6 of
+     float64, 1 launch a call; K3 at the LO-refine batch C=256 and a
+     PEARL batch C=16 and on the F normal matrices of a real refit in a
+     motion fit and in the mixed polish (C=8), held to float64 eigh too;
+     K6 at both homography kinds with the threshold a device tensor; the
+     neighbour list bit-exact; K4, K5 and K6 on the list the fit builds,
+     K4, K5 and the list also at the mixed stages' L=9, N=1024, with
+     their CUDA launches a call counted by torch.profiler: 1, 1 and 2),
+     with kernel, plain and
      (where one PyTorch call computes the same function) library times
      beside each kernel's bound: the larger of its bytes (inputs read once, outputs
      written once) at 3.35 TB/s and its operations at 67 TFLOP/s fp32
@@ -63,7 +68,18 @@ Phases, each raising on failure:
   7. one two-pass adaptive-threshold fit (fit_adaptive) on a noise-1 px
      scene, tau printed;
   8. run_stream on the CLI's `stream synth` defaults, warm-started and
-     cold, at pipeline depths 1 and 3 (p50 / p95 ms, fps, mean planes).
+     cold, at pipeline depths 1 and 3 (p50 / p95 ms, fps, mean planes);
+  9. the mixed plane + motion fit (make_fit_mixed) at the mixed goldens'
+     configs (max_points 1024, n_hypotheses 2048, max_labels 8, the F
+     stage residual="sampson"): mx21_a and mx22_b, 3 keys each, against
+     their goldens (class-resolved counts exact on every key, 3-key mean
+     |delta| <= 3.5 pp), with the launches of every fit (K1 at both
+     kinds, K2, K3, K4, K5 and the list build; no K6, no K7); one fit
+     at max_points 640, where both stages take the gather-path labeling
+     (no K4, K5 or list build), and one fit_mixed_adaptive on a noise-1
+     px scene there (tau_h, tau_f printed); the warm latency (median of
+     5) and the device busy time per fit at N=1024, with each stage's
+     host and device ms (mixed_fit_h, mixed_fit_f, mixed_polish).
 Then one JSON line of per-kernel results, the card line, and the last
 line {"ok": true, "device": {...}}. Without a CUDA device, or outside
 the repository, it exits nonzero and prints no result.
@@ -378,40 +394,63 @@ def _normal_matrices(rng, c):
 
 
 def _motion_points(name, n_pad, device):
+    from multih_tpu_torch.utils import data
+
+    return _suite_points(data.motion_suite_scene(name), n_pad, device)
+
+
+def _suite_points(cs, n_pad, device):
     import torch
 
     from multih_tpu_torch import pad_points
-    from multih_tpu_torch.utils import data
 
-    cs = data.motion_suite_scene(name)
     return [torch.from_numpy(a).to(device)
             for a in pad_points(cs.x1, cs.x2, None, n_pad)]
 
 
-def _f_refit_normal_matrices(dev):
-    """(256, 9, 9) normal matrices of a real F refit on the card: the
-    first C=256 batch that one motion fit on fm4_a hands the eigensolve
-    (the LO refine of the 256 top-counted hypotheses), taken as it is
-    handed over."""
-    from multih_tpu_torch import make_fit_tau
+def _captured_normal_matrices(run, c: int, last: bool = False):
+    """(c, 9, 9) normal matrices of a real refit on the card: the first
+    (or the last) batch of c that run() hands the eigensolve, taken as it
+    is handed over."""
     from multih_tpu_torch.ops import geometry
 
     seen = []
     solve = geometry.smallest_eigvecs
 
     def capture(atas, *args):
-        if atas.shape[0] == 256 and not seen:
+        if atas.shape[0] == c:
             seen.append(atas.clone())
         return solve(atas, *args)
 
     geometry.smallest_eigvecs = capture
     try:
-        make_fit_tau(motion_cfg(512))(*_motion_points("fm4_a", 512, dev),
-                                      _cpu_draws(0), 3.0)
+        run()
     finally:
         geometry.smallest_eigvecs = solve
-    check(len(seen) == 1, "the motion fit made no C=256 refit")
-    return seen[0].contiguous()
+    check(len(seen) > 0, f"the fit made no C={c} refit")
+    return seen[-1 if last else 0].contiguous()
+
+
+def _f_refit_normal_matrices(dev):
+    """The first C=256 batch of one motion fit on fm4_a (the LO refine
+    of the 256 top-counted hypotheses)."""
+    from multih_tpu_torch import make_fit_tau
+
+    return _captured_normal_matrices(
+        lambda: make_fit_tau(motion_cfg(512))(
+            *_motion_points("fm4_a", 512, dev), _cpu_draws(0), 3.0), 256)
+
+
+def _mixed_polish_normal_matrices(dev):
+    """The last C=8 batch of one mixed fit on mx21_a at N=1024: the
+    polish's second Tukey-weighted F refit of its Kf=8 motions."""
+    from multih_tpu_torch import make_fit_mixed
+    from multih_tpu_torch.utils import data
+
+    pts = _suite_points(data.mixed_suite_scene("mx21_a"), 1024, dev)
+    return _captured_normal_matrices(
+        lambda: make_fit_mixed(*mixed_cfgs(1024))(*pts, _cpu_draws(0)), 8,
+        last=True)
 
 
 def eig_parity(atas, got):
@@ -466,6 +505,7 @@ def phase_kernels(dev):
     from multih_tpu_torch.ops import fmodel, geometry
     from multih_tpu_torch.ops.kernels import _build, dlt_kernel, eig_kernel
     from multih_tpu_torch.ops.kernels import residual_kernel as rk
+    from multih_tpu_torch.utils import data
 
     print("== 3. kernel parity and timing (kernel vs plain vs library; "
           "bound)")
@@ -564,6 +604,19 @@ def phase_kernels(dev):
         Fs = fmodel.fundamental_8pt_batch_qr(x1[idx], x2[idx]).contiguous()
         count_rows("inlier_counts_f", Fs, x1, x2, valid, kind)
 
+    # K1 at the mixed fit's stage verify shape (2048 hypotheses + 3
+    # claims x 1024 points of mx21_a) in the two kinds its stages count:
+    # H's from 4-point and F's from 8-point samples of its points
+    x1, x2, valid = _suite_points(data.mixed_suite_scene("mx21_a"), 1024,
+                                  dev)
+    idx = torch.from_numpy(rng.integers(0, int(valid.sum()),
+                                        (2051, 8))).to(dev)
+    Hs = geometry.homography_4pt_batch_qr(x1[idx[:, :4]],
+                                          x2[idx[:, :4]]).contiguous()
+    count_rows("inlier_counts", Hs, x1, x2, valid, "symmetric")
+    Fs = fmodel.fundamental_8pt_batch_qr(x1[idx], x2[idx]).contiguous()
+    count_rows("inlier_counts_f", Fs, x1, x2, valid, "f_sampson")
+
     # K2: the minimal solves of a progressive round, default and stress,
     # from the sampler's (32, S) rows (ok exact, H's within 5e-4 of the
     # plain version where its float32 solve is well conditioned, and
@@ -606,10 +659,13 @@ def phase_kernels(dev):
     # K3: homography normal matrices at the LO-refine batch
     # (n_candidates) and a PEARL refit batch (max_labels), then the 256 of
     # a real F refit on fm4_a (their smallest eigenvalue gaps differ from
-    # the homography ones'); the plain time is the round-robin version's
+    # the homography ones') and the 8 of the mixed polish's F refit; the
+    # plain time is the round-robin version's
     sets = [(f"C={c}", _normal_matrices(rng, c).to(dev).contiguous())
             for c in (256, 16)]
     sets.append(("C=256 F normal matrices", _f_refit_normal_matrices(dev)))
+    sets.append(("C=8 F normal matrices (mixed polish)",
+                 _mixed_polish_normal_matrices(dev)))
     for shape, atas in sets:
         c = atas.shape[0]
         got = eig_kernel.smallest_eigvec_9x9_batch(atas)
@@ -659,9 +715,10 @@ def _launch_str(n, names) -> str:
 
 def mrf_kernels(rng, dev, record):
     """The neighbour list, K4 and K5 at the default shape (L=17, N=512,
-    B=256, 6 mean-field sweeps, 2 ICM starts x 2 iterations) and the
-    stress shape (L=17, N=10240, B=128, 4 sweeps, 2 starts x 1
-    iteration). K4 and K5 read the list the fit builds beside the band
+    B=256, 6 mean-field sweeps, 2 ICM starts x 2 iterations), the stress
+    shape (L=17, N=10240, B=128, 4 sweeps, 2 starts x 1 iteration) and
+    the mixed fit's stage shape (L=9, N=1024, B=256, 6 sweeps, 2 starts x
+    2 iterations). K4 and K5 read the list the fit builds beside the band
     (its build is timed on its own); each call's CUDA launches are
     counted by torch.profiler. Bounds count the list's non-zeros: each
     pair (8 bytes) read once."""
@@ -669,9 +726,10 @@ def mrf_kernels(rng, dev, record):
 
     from multih_tpu_torch.ops.kernels import mrf_kernel as mk
 
-    l, sw = 17, 0.1
-    for n_points, n, block, sweeps, icm_it in ((500, 512, 256, 6, 2),
-                                               (10000, 10240, 128, 4, 1)):
+    sw = 0.1
+    for l, n_points, n, block, sweeps, icm_it in (
+            (17, 500, 512, 256, 6, 2), (17, 10000, 10240, 128, 4, 1),
+            (9, 1000, 1024, 256, 6, 2)):
         _, _, valid, _, adj = _windowed_problem(dev, n_points, n, block)
         dct = torch.from_numpy(rng.uniform(0, 2.0, (l, n)).astype(
             np.float32)).to(dev) * valid[None, :]
@@ -1090,13 +1148,29 @@ def phase_fits(dev):
 
 STAGES = ("knn_graph", "banded_adjacency", "sampling_knn", "hypothesize",
           "verify", "lo_refine", "select", "pearl", "split_refine",
-          "union_refit_merge", "f_refine_phases", "finalize")
+          "union_refit_merge", "f_refine_phases", "finalize", "mixed_fit_h",
+          "mixed_fit_f", "mixed_polish", "mixed_probe_h", "mixed_probe_f")
+
+
+def stage_ms(key_averages, reps: int) -> dict:
+    """{stage: (host ms, device ms)} per call of each STAGES range in a
+    profile: the range's host wall time, and the device time of the
+    kernels and copies launched inside it (its children's, recursively:
+    FunctionEvent.device_time_total)."""
+    from torch.autograd import DeviceType
+
+    return {e.key: (e.cpu_time_total / reps / 1e3,
+                    e.device_time_total / reps / 1e3)
+            for e in key_averages
+            if e.key in STAGES and e.device_type == DeviceType.CPU
+            and e.cpu_time_total > 0}
 
 
 def _profile(label: str, fn, reps: int = 5):
     """torch.profiler over `reps` warm calls of fn: device time by op and
-    kernel, the device busy time (busy_us) and each stage's host time per
-    call."""
+    kernel (printed), the device busy time (busy_us) and
+    each stage's host and device time per call (stage_ms). Returns
+    (busy ms per call, stage_ms)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1108,12 +1182,13 @@ def _profile(label: str, fn, reps: int = 5):
         torch.cuda.synchronize()
     ka = prof.key_averages()
     print(ka.table(sort_by="self_cuda_time_total", row_limit=20))
-    busy = busy_us(ka)
-    print(f"device busy {busy / reps / 1e3:.3f} ms/fit ({reps} fits)")
-    for e in ka:
-        if e.key in STAGES and e.cpu_time_total > 0:
-            print(f"stage {e.key:17s} host {e.cpu_time_total / reps / 1e3:9.3f}"
-                  f" ms/fit")
+    busy = busy_us(ka) / reps / 1e3
+    print(f"device busy {busy:.3f} ms/fit ({reps} fits)")
+    stages = stage_ms(ka, reps)
+    for name, (host, dev) in stages.items():
+        print(f"stage {name:17s} host {host:9.3f} ms/fit, device "
+              f"{dev:8.3f} ms/fit")
+    return busy, stages
 
 
 def stress_cfg():
@@ -1369,11 +1444,163 @@ def phase_stream(dev):
     return out, total
 
 
+MIXED_SCENES = ("mx21_a", "mx22_b")
+
+
+def mixed_cfgs(npad: int):
+    """The mixed goldens' configs (tests/test_golden_parity.py:217-223)."""
+    from multih_tpu_torch import MultiHConfig
+
+    cfg_h = MultiHConfig(max_points=npad, n_hypotheses=2048, max_labels=8)
+    return cfg_h, dataclasses.replace(cfg_h, model="fundamental",
+                                      residual="sampson")
+
+
+def _class_counts(res):
+    act, is_f = res.active.cpu().numpy(), res.is_f.cpu().numpy()
+    return int(act[is_f == 0].sum()), int(act[is_f == 1].sum())
+
+
+def phase_mixed(dev):
+    """The mixed plane + motion fit: the golden contract on mx21_a and
+    mx22_b at N=1024 (banded stages), one fit and one adaptive fit at
+    N=640 (the gather-path labeling in both stages; tests/test_mixed.py's
+    TestMixedScene and TestMixedAdaptiveTau cases), the launches of every
+    fit, the warm latency and device busy time per fit at N=1024."""
+    import torch
+
+    import multih_tpu_torch as mt
+    from multih_tpu_torch.utils import data, evaluation
+
+    print("== 9. the mixed plane + motion fit on the card")
+    banded = ("inlier_counts", "inlier_counts_f", "dlt_4pt",
+              "eig9_smallest", "mean_field_fused", "icm_fused", "band_list")
+    cfg_h, cfg_f = mixed_cfgs(1024)
+    k_union = cfg_h.max_labels + cfg_f.max_labels
+    f = mt.make_fit_mixed(cfg_h, cfg_f)
+    results, per_fit, path = {}, [], {}
+
+    def tally(launches, into):
+        per_fit.append(launches)
+        for kname, c in launches.items():
+            into[kname] = into.get(kname, 0) + c
+
+    for name in MIXED_SCENES:
+        g = np.load(os.path.join(ROOT, "tests", "goldens", f"{name}.npz"))
+        cs = data.mixed_suite_scene(name)
+        args = _to(dev, *mt.pad_points(cs.x1, cs.x2, None, 1024))
+        counts, errs = [], []
+        for k in range(3):
+            # the CPU generator of key k, as tests/test_torch_mixed.py
+            res, fit_launches = count_launches(
+                f"mixed {name} key {k}", banded,
+                lambda: f(*args, _cpu_draws(k)), quiet=True)
+            check(fit_launches["mean_field_fused_front"] == 0
+                  and fit_launches["window_gather"] == 0,
+                  f"mixed fit launched K6 or K7: {fit_launches}")
+            tally(fit_launches, path)
+            check(bool(torch.isfinite(res.models[res.active > 0]).all()),
+                  "non-finite model")
+            lab = res.labels.cpu().numpy()[: cs.n_points]
+            check(lab.min() >= 0 and lab.max() <= k_union, "labels range")
+            counts.append(_class_counts(res))
+            errs.append(evaluation.misclassification_error(
+                lab, cs.gt_labels, k_union))
+        g_f = int(g["n_fundamental"])
+        golden = (int(g["n_planes"]) - g_f, g_f)
+        golden_err = float(g["misclassification"])
+        delta = float(np.mean(errs)) - golden_err
+        results[name] = dict(counts=counts, misclassification=errs,
+                             golden_misclassification=golden_err,
+                             golden_counts=golden, delta=delta)
+        print(f"mixed {name} (N=1024): (planes, motions) {counts} (golden "
+              f"{golden}), misclassification {np.mean(errs):.3f}% (golden "
+              f"{golden_err:.3f}%), delta {delta:+.3f} pp")
+        check(counts == [golden] * 3, f"{name}: class counts {counts}, "
+              f"golden {golden}")
+        check(abs(delta) <= 3.5, f"{name}: delta {delta:+.3f} pp > 3.5")
+    print("kernel launches per mixed fit:",
+          [{k: v for k, v in c.items() if v} for c in per_fit])
+    print("kernel launches on the mixed path:", path)
+
+    # N=640: no multiple of agree_block 256, so both stages (and the
+    # polish, as always) take the gather-path labeling: no band, no list,
+    # no K4 / K5
+    cfg_h6, cfg_f6 = mixed_cfgs(640)
+    gather = {}
+    no_band = ("mean_field_fused", "icm_fused", "band_list",
+               "mean_field_fused_front", "window_gather")
+    cs, _, _ = data.synthetic_mixed_scene(600, 2, 1, 0.1, 0.5, seed=4)
+    x1, x2, valid, gt = mt.pad_points(cs.x1, cs.x2, cs.gt_labels, 640)
+    args = _to(dev, x1, x2, valid)
+    res, fit_launches = count_launches(
+        "mixed N=640 (gather path)", ("inlier_counts", "inlier_counts_f",
+                                      "dlt_4pt", "eig9_smallest"),
+        lambda: mt.make_fit_mixed(cfg_h6, cfg_f6)(*args, _cpu_draws(0)))
+    check(all(fit_launches[k] == 0 for k in no_band),
+          f"gather-path mixed fit launched a band kernel: {fit_launches}")
+    tally(fit_launches, gather)
+    err = evaluation.misclassification_error(res.labels.cpu().numpy(), gt,
+                                             k_union)
+    out_640 = dict(counts=_class_counts(res), misclassification=err)
+    print(f"mixed N=640 (gather path): (planes, motions) "
+          f"{out_640['counts']}, misclassification {err:.3f}%")
+    check(out_640["counts"] == (2, 1) and err < 6.0,
+          f"mixed N=640: {out_640}")
+
+    cs, _, _ = data.synthetic_mixed_scene(600, 2, 1, 0.1, 1.0, seed=11)
+    x1, x2, valid, gt = mt.pad_points(cs.x1, cs.x2, cs.gt_labels, 640)
+    args = _to(dev, x1, x2, valid)
+    (res, tau_h, tau_f), fit_launches = count_launches(
+        "mixed adaptive N=640", ("inlier_counts", "inlier_counts_f",
+                                 "dlt_4pt", "eig9_smallest"),
+        lambda: mt.make_fit_mixed_adaptive(cfg_h6, cfg_f6)(
+            *args, _cpu_draws(0)))
+    check(all(fit_launches[k] == 0 for k in no_band),
+          f"gather-path adaptive fit launched a band kernel: {fit_launches}")
+    tally(fit_launches, gather)
+    check(tau_h.device.type == "cuda" and tau_f.device.type == "cuda",
+          "taus left the card")
+    err = evaluation.misclassification_error(res.labels.cpu().numpy(), gt,
+                                             k_union)
+    adaptive = dict(tau_h=float(tau_h), tau_f=float(tau_f),
+                    counts=_class_counts(res), misclassification=err)
+    print(f"mixed adaptive, noise 1 px: tau_h {adaptive['tau_h']:.4f} px, "
+          f"tau_f {adaptive['tau_f']:.4f} px, (planes, motions) "
+          f"{adaptive['counts']}, misclassification {err:.3f}%")
+    check(4.5 < adaptive["tau_h"] < 7.5 and 4.0 < adaptive["tau_f"] < 7.5
+          and adaptive["counts"] == (2, 1) and err < 3.0,
+          f"mixed adaptive fit: {adaptive}")
+    print("kernel launches on the gather-path mixed fits:", gather)
+
+    # warm latency and device busy time per fit at N=1024, mx21_a
+    cs = data.mixed_suite_scene("mx21_a")
+    args = _to(dev, *mt.pad_points(cs.x1, cs.x2, None, 1024))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    times = host_ms(lambda: f(*args, gen), reps=5)
+    lat = dict(median_ms=statistics.median(times), min_ms=min(times),
+               max_ms=max(times), reps=len(times))
+    print(f"warm mixed fit latency mx21_a N=1024: median "
+          f"{lat['median_ms']:.2f} ms (min {lat['min_ms']:.2f}, max "
+          f"{lat['max_ms']:.2f}, {len(times)} fits)")
+    busy, stages = _profile("N=1024 mx21_a, mixed fit",
+                            lambda: f(*args, gen), reps=3)
+    out = dict(scenes=results, n640=out_640, adaptive=adaptive,
+               latency_mx21_a=lat, busy_ms=busy,
+               idle_share=1.0 - busy / lat["median_ms"],
+               stages={k: dict(host_ms=h, device_ms=d)
+                       for k, (h, d) in stages.items()},
+               launches_per_fit=per_fit)
+    print(f"mixed fit N=1024: device busy {busy:.3f} ms of "
+          f"{lat['median_ms']:.2f} ms, idle share {out['idle_share']:.3f}")
+    return out, path, gather
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile the N=512 (default and fused-front), "
-                         "stress and motion fits")
+                         "stress, motion and mixed fits")
     args = ap.parse_args(argv)
 
     import torch
@@ -1394,6 +1621,7 @@ def main(argv=None) -> int:
     motion, launches["motion"], profile_motion = phase_motion(dev)
     adaptive, launches["adaptive"] = phase_adaptive(dev)
     stream, launches["stream_run"] = phase_stream(dev)
+    mixed, launches["mixed"], launches["mixed_gather"] = phase_mixed(dev)
     if args.profile:
         profile_fit()
         profile_stress()
@@ -1417,7 +1645,8 @@ def main(argv=None) -> int:
         ))
     print(json.dumps({"kernels": rows, "fit_latency_n512": latency,
                       "stress": stress, "motion": motion,
-                      "adaptive": adaptive, "stream": stream}))
+                      "adaptive": adaptive, "stream": stream,
+                      "mixed": mixed}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,12 +2,13 @@
 agreement operator, data costs, annealed mean-field and batched red-black
 ICM over the Potts MRF.
 
-Counterpart of ``multih_tpu/models/labeling.py`` for the banded paths:
-the row-blocked exact k-NN build with the banded adjacency and its exact
-far-edge list, and the windowed k-NN build with its far-free band, on
-which the fused mean-field / ICM kernels (ops/kernels/mrf_kernel.py) run
-on the card. The gather-path labeling (no banded adjacency) is not
-ported; asking for it raises NotImplementedError.
+Counterpart of ``multih_tpu/models/labeling.py``: the row-blocked exact
+k-NN build with the banded adjacency and its exact far-edge list, the
+windowed k-NN build with its far-free band, on which the fused
+mean-field / ICM kernels (ops/kernels/mrf_kernel.py) run on the card,
+and the gather path (``adj=None``): the symmetrized agreement as a
+gather plus an ``index_add_`` over the k-NN graph itself, for points in
+any order and any N (no kernel: it runs in plain PyTorch everywhere).
 """
 
 from __future__ import annotations
@@ -277,14 +278,6 @@ def _mrf_kernel_ok(adj: BandedAdjacency | None) -> bool:
     return adj is not None and adj.far_w.shape[0] == 0
 
 
-def _require_band(adj):
-    if adj is None:
-        raise NotImplementedError(
-            "the gather/scatter agreement path (no banded adjacency) is "
-            "not ported yet"
-        )
-
-
 # ---------------------------------------------------------------------------
 # energy terms
 # ---------------------------------------------------------------------------
@@ -308,24 +301,55 @@ def _onehot_t(labels, l, dtype):
     return (labels[..., None, :] == ids[:, None]).to(dtype)
 
 
-def _potts_t(labels, adj: BandedAdjacency, dct):
-    """Potts energy 0.5 * sum_i (deg_i - agree_onehot[l_i, i])."""
-    onehot = _onehot_t(labels, dct.shape[0], dct.dtype)
-    own = (onehot * adj.agree_t(onehot)).sum(0)
-    return 0.5 * (adj.deg[:, 0] - own).sum()
-
-
 def total_energy_t(labels, dct, nbr_idx, nbr_w, spatial_weight: float,
                    label_cost: float, active, adj=None):
-    """E(L) = data + lambda * Potts + beta * |used active labels|."""
-    _require_band(adj)
+    """E(L) = data + lambda * Potts + beta * |used active labels|, the
+    Potts term through the band's agreement operator or the gather
+    path's (labeling.py:478)."""
     l = dct.shape[0]
-    oh = _onehot_t(labels, l, dct.dtype)
-    e_data = (oh * dct).sum()
-    e_smooth = spatial_weight * _potts_t(labels, adj, dct)
-    used = oh[:l - 1].amax(1) > 0
-    e_label = label_cost * (used & (active > 0)).sum()
-    return e_data + e_smooth + e_label
+    agree_fn, deg = _agree_and_deg_t(nbr_idx, nbr_w, adj, dct.dtype)
+    e_mrf = _energies_batch(labels[None], dct, agree_fn, deg,
+                            spatial_weight)[0]
+    used = _onehot_t(labels, l, dct.dtype)[:l - 1].amax(1) > 0
+    return e_mrf + label_cost * (used & (active > 0)).sum()
+
+
+# ---------------------------------------------------------------------------
+# the gather path's agreement operator (no banded adjacency)
+# ---------------------------------------------------------------------------
+
+def _neighbor_agreement_t(p_t, nbr_idx, nbr_w):
+    """Label-major symmetrized k-NN agreement (labeling.py:504): p_t is
+    (L, N); returns (L, N) = 0.5 * (the direct gather over each point's
+    own edges + the reverse scatter-add over the edges that point at
+    it), the counterpart of the band's agree_t. The scatter is
+    index_add_: on CUDA its atomic order moves the last bits of a float
+    sum from run to run (0/1 one-hots sum exactly)."""
+    idx = nbr_idx.long()
+    direct = (p_t[:, idx] * nbr_w).sum(2)
+    contrib = (p_t[:, :, None] * nbr_w).reshape(p_t.shape[0], -1)
+    rev = torch.zeros_like(p_t).index_add_(1, idx.reshape(-1), contrib)
+    return 0.5 * (direct + rev)
+
+
+def _degree(nbr_idx, nbr_w, dtype):
+    """Symmetrized degree (N, 1) under the same 0.5 * (direct + reverse)
+    convention (labeling.py:520)."""
+    n = nbr_idx.shape[0]
+    direct = nbr_w.sum(1)
+    rev = torch.zeros((n,), dtype=dtype, device=nbr_w.device).index_add_(
+        0, nbr_idx.reshape(-1).long(), nbr_w.reshape(-1).to(dtype))
+    return (0.5 * (direct + rev))[:, None]
+
+
+def _agree_and_deg_t(nbr_idx, nbr_w, adj: BandedAdjacency | None, dtype):
+    """The agreement operator (L, N) -> (L, N) and the (1, N) degree: the
+    band's when an adjacency was built, the gather path's otherwise
+    (labeling.py:543)."""
+    if adj is not None:
+        return adj.agree_t, adj.deg.T
+    return (lambda p_t: _neighbor_agreement_t(p_t, nbr_idx, nbr_w),
+            _degree(nbr_idx, nbr_w, dtype).T)
 
 
 # ---------------------------------------------------------------------------
@@ -346,11 +370,11 @@ def mean_field_t(dct, nbr_idx, nbr_w, spatial_weight: float,
                  iterations: int, temp_start: float, temp_end: float,
                  q_init=None, adj=None, use_kernel: bool = False):
     """Annealed mean-field for the Potts MRF, label-major (L, N):
-    q <- softmax_l(-(D + lambda (deg - agree(q))) / T) per sweep. The
+    q <- softmax_l(-(D + lambda (deg - agree(q))) / T) per sweep, over the
+    band when `adj` is given, over the k-NN graph's gather otherwise. The
     JAX lax.scan over temperatures (labeling.py:640) is a Python loop.
     With `use_kernel` and a far-free band, all sweeps run in the fused
     kernel (mrf_kernel.mean_field_fused), one call."""
-    _require_band(adj)
     q = torch.softmax(-dct, dim=0) if q_init is None else q_init
     temps = _mf_temps(iterations, temp_start, temp_end, dct.dtype,
                       dct.device)
@@ -360,9 +384,9 @@ def mean_field_t(dct, nbr_idx, nbr_w, spatial_weight: float,
             q.contiguous(), base.contiguous(), adj.band, 1.0 / temps,
             spatial_weight, nbr=adj.nbr,
         )
-    deg = adj.deg.T  # (1, N)
+    agree_fn, deg = _agree_and_deg_t(nbr_idx, nbr_w, adj, dct.dtype)
     for i in range(temps.shape[0]):
-        pair = spatial_weight * (deg - adj.agree_t(q))
+        pair = spatial_weight * (deg - agree_fn(q))
         q = torch.softmax(-(dct + pair) / temps[i], dim=0)
     return q
 
@@ -406,53 +430,59 @@ def pearl_relax_fused(x1, x2, valid, Hs, active, thr, outlier_cost: float,
                  nbr=adj.nbr)
 
 
-def _energies_batch(labels, dct, adj: BandedAdjacency, spatial_weight):
-    """(S, N) labelings -> (S,) data + lambda * Potts energies."""
+def _energies_batch(labels, dct, agree_fn, deg, spatial_weight):
+    """(S, N) labelings -> (S,) data + lambda * Potts energies, no
+    label-cost term (labeling.py:792). Potts is 0.5 * sum_i (deg_i -
+    agree(onehot)[l_i, i]) through either agreement operator: the
+    directed-edge sum of w * [l_p != l_q] / 2 (labeling.py:761)."""
     s, n = labels.shape
     l = dct.shape[0]
     onehot = _onehot_t(labels, l, dct.dtype)  # (S, L, N)
     e_data = (onehot * dct[None]).sum((1, 2))
-    agree = adj.agree_t(onehot.reshape(s * l, n)).reshape(s, l, n)
+    agree = agree_fn(onehot.reshape(s * l, n)).reshape(s, l, n)
     own = (onehot * agree).sum(1)
-    e_potts = 0.5 * (adj.deg[None, :, 0] - own).sum(1)
+    e_potts = 0.5 * (deg - own).sum(1)
     return e_data + spatial_weight * e_potts
 
 
 def _icm_batch(starts, dct, spatial_weight: float, iterations: int,
-               adj: BandedAdjacency, use_kernel: bool = False):
-    """Red-black ICM from S start labelings at once, (S, N) -> (S, N):
-    each half-sweep moves the points of one index parity to their
-    cheapest label when it beats the current one by more than 1e-6, then
-    the constant-labeling escape adopts the best constant labeling if it
-    has lower energy. The fori_loop (labeling.py:869) is a Python loop;
-    with `use_kernel` and a far-free band the half-sweeps run in the
-    fused kernel (mrf_kernel.icm_fused), one call."""
-    _require_band(adj)
+               adj: BandedAdjacency | None, use_kernel: bool = False,
+               nbr_idx=None, nbr_w=None):
+    """Red-black ICM from S start labelings at once, (S, N) -> (S, N),
+    over the band when `adj` is given, over the k-NN graph (nbr_idx,
+    nbr_w) otherwise: each half-sweep moves the points of one index
+    parity to their cheapest label (the first minimum on ties) when it
+    beats the current one by more than 1e-6, then the constant-labeling
+    escape adopts the best constant labeling if it has lower energy
+    (labeling.py:702-753). The fori_loop is a Python loop; with
+    `use_kernel` and a far-free band the half-sweeps run in the fused
+    kernel (mrf_kernel.icm_fused), one call."""
+    agree_fn, deg = _agree_and_deg_t(nbr_idx, nbr_w, adj, dct.dtype)
     if use_kernel and _mrf_kernel_ok(adj):
-        base = dct + spatial_weight * adj.deg.T  # (L, N)
+        base = dct + spatial_weight * deg  # (L, N)
         labels = mrf_kernel.icm_fused(
             starts.to(torch.int32).contiguous(), base.contiguous(),
             adj.band, iterations, spatial_weight, nbr=adj.nbr,
         ).to(starts.dtype)
     else:
-        labels = _icm_sweeps(starts, dct, spatial_weight, iterations, adj)
-    e_cur = _energies_batch(labels, dct, adj, spatial_weight)
+        labels = _icm_sweeps(starts, dct, spatial_weight, iterations,
+                             agree_fn, deg)
+    e_cur = _energies_batch(labels, dct, agree_fn, deg, spatial_weight)
     e_const = dct.sum(1)
     return torch.where((e_const.min() < e_cur)[:, None],
                        torch.argmin(e_const).to(labels.dtype), labels)
 
 
 def _icm_sweeps(starts, dct, spatial_weight: float, iterations: int,
-                adj: BandedAdjacency):
+                agree_fn, deg):
     """The red-black half-sweeps of `_icm_batch`, plain PyTorch."""
     s, n = starts.shape
     l = dct.shape[0]
-    deg = adj.deg.T  # (1, N)
     parity = torch.arange(n, device=starts.device) % 2
 
     def half(labels, par):
         onehot = _onehot_t(labels, l, dct.dtype)  # (S, L, N)
-        agree = adj.agree_t(onehot.reshape(s * l, n)).reshape(s, l, n)
+        agree = agree_fn(onehot.reshape(s * l, n)).reshape(s, l, n)
         cost = dct[None] + spatial_weight * (deg[None] - agree)
         # first minimum on ties, as the JAX compare-select chain
         new_c, new = cost.min(dim=1)
@@ -469,11 +499,12 @@ def _icm_sweeps(starts, dct, spatial_weight: float, iterations: int,
 
 def best_labeling_t(starts, dct, nbr_idx, nbr_w, spatial_weight: float,
                     icm_iterations: int, adj=None, use_kernel: bool = False):
-    """ICM from several start labelings, batched; returns the
-    lowest-energy result (first on ties)."""
-    _require_band(adj)
-    stacked = torch.stack(starts)
-    polished = _icm_batch(stacked, dct, spatial_weight, icm_iterations,
-                          adj, use_kernel=use_kernel)
-    energies = _energies_batch(polished, dct, adj, spatial_weight)
+    """ICM from several start labelings, polished together
+    (`_icm_batch`); returns the one of lowest data + Potts energy, the
+    first on ties, without a label-cost term (labeling.py:923-960)."""
+    polished = _icm_batch(torch.stack(starts), dct, spatial_weight,
+                          icm_iterations, adj, use_kernel=use_kernel,
+                          nbr_idx=nbr_idx, nbr_w=nbr_w)
+    agree_fn, deg = _agree_and_deg_t(nbr_idx, nbr_w, adj, dct.dtype)
+    energies = _energies_batch(polished, dct, agree_fn, deg, spatial_weight)
     return polished.index_select(0, torch.argmin(energies).view(1))[0]

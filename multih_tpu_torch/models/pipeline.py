@@ -3,10 +3,11 @@ and homographies (or, for model="fundamental", motion labels and
 fundamental matrices) out.
 
 Counterpart of ``multih_tpu/models/pipeline.py::fit``, both model
-classes, stage for stage: Morton sort -> k-NN graph (windowed or exact)
-+ banded adjacency -> progressive hypothesis generation (sampling +
-minimal 4-pt DLT, or 8/12-point F solves) -> verification counts + top-M
--> LO refine (moment refit + 9x9 eigensolve) -> NMS select (coverage
+classes, stage for stage: Morton sort (with spatial_sort) -> k-NN graph
+(windowed or exact) + banded adjacency where `banded_gate` holds (else
+the labeling takes the gather path) -> progressive hypothesis generation
+(sampling + minimal 4-pt DLT, or 8/12-point F solves) -> verification
+counts + top-M -> LO refine (moment refit + 9x9 eigensolve) -> NMS select (coverage
 select for F) -> PEARL iterations -> for F the split move and the
 refinement phases -> finalize. Each stage is wrapped in a
 ``torch.profiler.record_function`` of the JAX ``named_scope``'s name.
@@ -31,8 +32,7 @@ stable, `.at[].add` scatters are index_add_, and lax.scan / fori_loop
 bodies are Python loops that never wait on the device.
 
 Out of the port so far, `fit` raises NotImplementedError: affine
-hypotheses, a mesh, the gather-path labeling and the direct
-(non-moment) refit.
+hypotheses, a mesh and the direct (non-moment) refit.
 """
 
 from __future__ import annotations
@@ -808,12 +808,9 @@ def _f_refine_phases(Hs, active, q, draws, x1, x2, valid, nbr_idx, nbr_w,
     return Hs, q
 
 
-def _check_slice(cfg: MultiHConfig, n_pts: int, affines, mesh):
+def _check_slice(cfg: MultiHConfig, affines, mesh):
     """NotImplementedError for everything outside the ported slice."""
     unsupported = []
-    if not banded_gate(cfg, n_pts):
-        unsupported.append("the gather-path labeling (needs spatial_sort "
-                           "and N a multiple >= 2 of agree_block)")
     if not cfg.refit_moments:
         unsupported.append("refit_moments=False")
     if affines is not None:
@@ -863,7 +860,7 @@ def fit(x1, x2, valid, key, cfg: MultiHConfig, affines=None, tau=None,
     reference and are not ported."""
     x1, x2, valid = _inputs(x1, x2, valid, device)
     n_pts = x1.shape[0]
-    _check_slice(cfg, n_pts, affines, mesh)
+    _check_slice(cfg, affines, mesh)
     if isinstance(key, torch.Generator):
         if key.device.type != x1.device.type:
             raise ValueError(f"generator on {key.device}, points on "
@@ -876,11 +873,13 @@ def fit(x1, x2, valid, key, cfg: MultiHConfig, affines=None, tau=None,
     thr = _thr(cfg, tau, x1)
 
     # Morton order; labels are scattered back at the end
-    perm = morton_order(x1, valid)
-    x1, x2, valid = x1[perm], x2[perm], valid[perm]
+    if cfg.spatial_sort:
+        perm = morton_order(x1, valid)
+        x1, x2, valid = x1[perm], x2[perm], valid[perm]
 
     # pipeline.py:1121-1169: the windowed graph when the banded gate
-    # holds and cfg.knn_window, for both graphs; its band is far-free
+    # holds and cfg.knn_window, for both graphs; its band is far-free.
+    # Without the gate the labeling takes the gather path (adj None).
     windowed = graph_path(cfg, n_pts) == "windowed"
 
     def graph_of(feats):
@@ -892,12 +891,14 @@ def fit(x1, x2, valid, key, cfg: MultiHConfig, affines=None, tau=None,
 
     with record_function("knn_graph"):
         nbr_idx, nbr_w = graph_of(x1)
-    with record_function("banded_adjacency"):
-        adj = labeling.build_banded_adjacency(
-            nbr_idx, nbr_w, cfg.agree_block,
-            far_capacity=0 if windowed else None,
-            neighbour_list=_kernels_enabled(cfg, dev),
-        )
+    adj = None
+    if banded_gate(cfg, n_pts):
+        with record_function("banded_adjacency"):
+            adj = labeling.build_banded_adjacency(
+                nbr_idx, nbr_w, cfg.agree_block,
+                far_capacity=0 if windowed else None,
+                neighbour_list=_kernels_enabled(cfg, dev),
+            )
     if cfg.sampling_motion_weight > 0.0:
         feat = torch.cat([x1, cfg.sampling_motion_weight * (x2 - x1)], dim=1)
         with record_function("sampling_knn"):
@@ -1003,8 +1004,9 @@ def fit(x1, x2, valid, key, cfg: MultiHConfig, affines=None, tau=None,
         labels = torch.where(valid > 0, labels, k).to(torch.int32)
         member = (labels[None, :] == torch.arange(k, device=dev)[:, None])
         support = (member.to(x1.dtype) * valid[None, :]).sum(1)
-        # scatter labels back to the caller's point order
-        labels = torch.empty_like(labels).index_copy_(0, perm, labels)
+        if cfg.spatial_sort:
+            # scatter labels back to the caller's point order
+            labels = torch.empty_like(labels).index_copy_(0, perm, labels)
 
     trace = torch.stack(energies)
     return FitResult(
@@ -1015,7 +1017,8 @@ def fit(x1, x2, valid, key, cfg: MultiHConfig, affines=None, tau=None,
         energy=trace[-1],
         energy_trace=trace,
         n_hypotheses_ok=n_hyp_ok,
-        n_far_dropped=adj.n_dropped,
+        n_far_dropped=(adj.n_dropped if adj is not None
+                       else torch.zeros((), dtype=torch.int32, device=dev)),
     )
 
 

@@ -2,7 +2,7 @@
 scipy only).
 
 Byte-for-byte copies of ``multih_tpu.utils.data``'s file readers and
-writer, its plane and motion scene generators and of
+writer, its plane, motion and mixed scene generators and of
 ``benchmarks/suite.py``'s scene tables: those modules cannot be imported
 without JAX (``multih_tpu/__init__.py`` imports it), and the machine
 with the card has no JAX. The parity tests assert both generators give
@@ -318,6 +318,120 @@ def motion_suite_scene(name: str) -> CorrespondenceSet:
             cs, _ = synthetic_motion_scene(
                 n_points=n, n_motions=motions, outlier_rate=outl,
                 noise_px=noise, seed=seed,
+            )
+            return cs._replace(name=name)
+    raise KeyError(name)
+
+
+def synthetic_mixed_scene(
+    n_points: int = 600,
+    n_planes: int = 2,
+    n_motions: int = 1,
+    outlier_rate: float = 0.1,
+    noise_px: float = 0.0,
+    seed: int = 0,
+    image_size: float = 640.0,
+) -> tuple[CorrespondenceSet, np.ndarray, np.ndarray]:
+    """Mixed plane + motion two-view scene with known GT — the fixture of
+    the mixed multi-class fit (models/mixed.py): planar structures (each
+    an independent random homography region, as `synthetic_scene`) and
+    independently moving non-planar rigid bodies (3D blobs under their
+    own (R, t), as `synthetic_motion_scene`) in ONE correspondence set.
+
+    GT label convention: 0 = outlier, 1..P = planes,
+    P+1..P+M = motions. Points are split evenly between the plane and
+    motion halves (then evenly within each half).
+
+    Returns (CorrespondenceSet, (P, 3, 3) true homographies,
+    (M, 3, 3) true fundamental matrices)."""
+    rng = np.random.default_rng(seed)
+    n_out = int(round(n_points * outlier_rate))
+    n_in = n_points - n_out
+    if n_planes == 0:
+        n_h, n_f = 0, n_in          # pure-motion scene: no plane half
+    elif n_motions == 0:
+        n_h, n_f = n_in, 0          # pure-plane scene: no motion half
+    else:
+        n_h = n_in // 2
+        n_f = n_in - n_h
+
+    parts_x1, parts_x2, parts_lab = [], [], []
+    if n_planes > 0:
+        cs_h, Hs = synthetic_scene(
+            n_h, n_planes, 0.0, noise_px, seed=seed * 7919 + 1,
+            image_size=image_size,
+        )
+        parts_x1.append(cs_h.x1)
+        parts_x2.append(cs_h.x2)
+        parts_lab.append(cs_h.gt_labels)
+    else:
+        Hs = np.zeros((0, 3, 3), np.float32)
+    if n_motions > 0:
+        cs_f, Fs = synthetic_motion_scene(
+            n_f, n_motions, 0.0, noise_px, seed=seed * 7919 + 2,
+            image_size=image_size,
+        )
+        parts_x1.append(cs_f.x1)
+        parts_x2.append(cs_f.x2)
+        parts_lab.append(
+            np.where(cs_f.gt_labels > 0, cs_f.gt_labels + n_planes, 0)
+        )
+    else:
+        Fs = np.zeros((0, 3, 3), np.float32)
+    if n_out:
+        parts_x1.append(
+            rng.uniform(0, image_size, (n_out, 2)).astype(np.float32)
+        )
+        parts_x2.append(
+            rng.uniform(0, image_size, (n_out, 2)).astype(np.float32)
+        )
+        parts_lab.append(np.zeros(n_out, np.int32))
+
+    x1 = np.concatenate(parts_x1).astype(np.float32)
+    x2 = np.concatenate(parts_x2).astype(np.float32)
+    lab = np.concatenate(parts_lab).astype(np.int32)
+    perm = rng.permutation(x1.shape[0])
+    cs = CorrespondenceSet(
+        x1[perm], x2[perm], lab[perm],
+        f"synthetic_mixed_p{n_planes}_m{n_motions}_s{seed}",
+    )
+    return cs, Hs, Fs
+
+
+# benchmarks/suite.py's MIXED_SUITE (frozen rows; the parity tests assert
+# they are equal): name, n_points, n_planes, n_motions, outlier_rate,
+# noise_px, seed. The golden labelings tests/goldens/mx*.npz belong to
+# these scenes (models/mixed.py's defaults, tau 3 for both classes).
+MIXED_SUITE = [
+    ("mx21_a", 600, 2, 1, 0.10, 0.5, 301),
+    ("mx12_a", 600, 1, 2, 0.15, 0.5, 312),
+    ("mx22_a", 700, 2, 2, 0.10, 0.5, 303),
+    ("mx22_b", 700, 2, 2, 0.30, 0.5, 324),
+    ("mx03_a", 500, 0, 3, 0.15, 0.5, 307),   # pure-motion edge
+    ("mx30_a", 500, 3, 0, 0.15, 0.5, 305),   # pure-plane edge
+]
+
+
+def mixed_scenes():
+    """Materialize the mixed suite: list of (CorrespondenceSet, Hs, Fs)."""
+    out = []
+    for name, n, planes, motions, outl, noise, seed in MIXED_SUITE:
+        cs, Hs, Fs = synthetic_mixed_scene(
+            n_points=n, n_planes=planes, n_motions=motions,
+            outlier_rate=outl, noise_px=noise, seed=seed,
+        )
+        cs = cs._replace(name=name)
+        out.append((cs, Hs, Fs))
+    return out
+
+
+def mixed_suite_scene(name: str) -> CorrespondenceSet:
+    """Materialize one MIXED_SUITE row, named as in benchmarks/suite.py."""
+    for row_name, n, planes, motions, outl, noise, seed in MIXED_SUITE:
+        if row_name == name:
+            cs, _, _ = synthetic_mixed_scene(
+                n_points=n, n_planes=planes, n_motions=motions,
+                outlier_rate=outl, noise_px=noise, seed=seed,
             )
             return cs._replace(name=name)
     raise KeyError(name)

@@ -232,7 +232,7 @@ def test_gates_match_reference(n_pts, expect):
     dict(refit_moments=False),
     dict(knn_window=False, mrf_fused_front=True),
     dict(knn_window=False, refit_moments=False),
-    dict(knn_window=False, agree_block=0),  # gather-path labeling
+    dict(knn_window=False, agree_block=0),  # gather-path labeling: runs
     dict(model="fundamental", mrf_fused_front=True),
 ], ids=["fundamental", "fused_front_windowed", "direct_refit_windowed",
         "fused_front", "direct_refit", "gather_labeling",
@@ -241,8 +241,24 @@ def test_out_of_slice_raises(kw):
     """The configs outside the port raise NotImplementedError. The
     mrf_fused_front cases are in it now: on the CPU (and for the
     fundamental model anywhere) fused_front_gate keeps the unfused
-    route, so the fit with the flag equals the fit without it."""
+    route, so the fit with the flag equals the fit without it. So is the
+    gather-path labeling (agree_block=0: no band), which fits on the
+    CPU to labels in range (tests/test_torch_gather.py holds it to the
+    JAX fit)."""
     cfg = mt.MultiHConfig(max_points=512, **kw)
+    if cfg.agree_block == 0:
+        cs, _ = tdata.synthetic_scene(400, 2, 0.1, 0.5, seed=3)
+        res = mt.fit(*mt.pad_points(cs.x1, cs.x2, None, 512),
+                     torch.Generator().manual_seed(0),
+                     dataclasses.replace(cfg, n_hypotheses=256),
+                     device="cpu")
+        lab = res.labels.numpy()
+        assert lab.dtype == np.int32 and lab.shape == (512,)
+        assert lab.min() >= 0 and lab.max() <= cfg.max_labels
+        assert (lab[400:] == cfg.max_labels).all()
+        assert bool(torch.isfinite(res.homographies).all())
+        assert int(res.active.sum()) == 2
+        return
     if not cfg.mrf_fused_front:
         z = torch.zeros((512, 2))
         with pytest.raises(NotImplementedError):

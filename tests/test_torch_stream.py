@@ -6,10 +6,10 @@ fit results built from numpy, the synthetic stream's frames, and one
 seeded fit on replayed draws (the JAX fit's labels exactly). The rest
 are the JAX package's own cases run on the port alone (tests/
 test_streaming_features.py, tests/test_pipeline.py::TestAdaptiveTau),
-on the CPU, with agree_block=128 where the JAX tests fit 256 points:
-the port takes the banded labeling only (N a multiple >= 2 of
-agree_block), and the default agree_block of 256 would need the
-gather path at N=256.
+on the CPU, with agree_block=128 where the JAX tests fit 256 points, so
+the fits take the banded labeling (N a multiple >= 2 of agree_block);
+at the default agree_block of 256 they would take the gather path,
+which tests/test_torch_gather.py holds to the JAX package.
 """
 
 import dataclasses
