@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port of the Multi-H fit on one GPU: the
 homography fit (default and fused-front routes), the fundamental
-(multi-motion) fit, the adaptive-threshold fit, the frame stream and the
-mixed plane + motion fit.
+(multi-motion) fit, the adaptive-threshold fit, the frame stream, the
+mixed plane + motion fit, the batch surface, the affine one-point pool,
+the direct refit and the CLI.
 
 Run from the repository root on a host with a CUDA card and the CUDA
 toolkit:
@@ -79,7 +80,19 @@ Phases, each raising on failure:
      (no K4, K5 or list build), and one fit_mixed_adaptive on a noise-1
      px scene there (tau_h, tau_f printed); the warm latency (median of
      5) and the device busy time per fit at N=1024, with each stage's
-     host and device ms (mixed_fit_h, mixed_fit_f, mixed_polish).
+     host and device ms (mixed_fit_h, mixed_fit_f, mixed_polish);
+ 10. the batch surface, the affine pool, the direct refit and the CLI:
+     parallel/sharding.run_benchmark_batch on the 24 homography golden
+     scenes padded to max_points 1024 at the default config with the
+     golden taus (each pair >= 97% in agreement with its golden labels
+     and equal to its single fit on the card with the same generator),
+     the batch's wall time against the sum of its pairs' warm single
+     fits (3 runs each, in turns) and its device busy time; the affine
+     one-point fit (fit(affines=...), 300 points, 2 planes, error < 3%,
+     warm ms with and without the pool, the pool on the card against the
+     CPU's on one F); the direct-refit fit (refit_moments=False) on
+     BASELINE config 2 (exact recovery; no K3); `python -m
+     multih_tpu_torch.cli synth --json` as a subprocess on the card.
 Then one JSON line of per-kernel results, the card line, and the last
 line {"ok": true, "device": {...}}. Without a CUDA device, or outside
 the repository, it exits nonzero and prints no result.
@@ -431,6 +444,58 @@ def _captured_normal_matrices(run, c: int, last: bool = False):
     return seen[-1 if last else 0].contiguous()
 
 
+def _captured_counts(run, s: int):
+    """(Hs, x1, x2, valid, kind, thr) of the first K1 call of S=s
+    hypotheses that run() makes on the card, taken as handed over."""
+    from multih_tpu_torch.ops.kernels import residual_kernel as rk
+
+    seen = []
+    count = rk.inlier_counts_padded
+
+    def capture(Hs, x1, x2, valid, thr, kind="symmetric", **kw):
+        if Hs.shape[0] == s and not seen:
+            seen.append((Hs.clone(), x1.clone(), x2.clone(), valid.clone(),
+                         kind, thr.clone()))
+        return count(Hs, x1, x2, valid, thr, kind=kind, **kw)
+
+    # the wrapper counts its launches under its module-level name
+    capture.launches, capture.kind_launches = 0, {}
+    rk.inlier_counts_padded = capture
+    try:
+        run()
+    finally:
+        rk.inlier_counts_padded = count
+    check(len(seen) > 0, f"the fit made no count call of S={s}")
+    return seen[0]
+
+
+def _affine_fit(dev):
+    """The affine one-point fit (tests/test_pipeline.py::TestAffinePath's
+    scene: 300 points, 2 planes, ground-truth affines) at the default
+    config: (run() -> FitResult, ground-truth labels, config)."""
+    import torch
+
+    import multih_tpu_torch as mt
+    from multih_tpu_torch import MultiHConfig
+    from multih_tpu_torch.utils import data, features
+
+    cs, Hs = data.synthetic_scene(300, 2, 0.1, 0.3, seed=21)
+    aff = features.affines_from_homographies(Hs, cs.gt_labels - 1, cs.x1,
+                                             outlier_label=-1)
+    cfg = MultiHConfig(max_points=512)
+    x1, x2, valid, gt = mt.pad_points(cs.x1, cs.x2, cs.gt_labels, 512)
+    A = np.tile(np.eye(2, dtype=np.float32), (512, 1, 1))
+    A[:cs.n_points] = aff
+    args = _to(dev, x1, x2, valid, A)
+    gen = torch.Generator(device=dev)
+
+    def run(affines=True):
+        return mt.fit(*args[:3], gen.manual_seed(0), cfg,
+                      affines=args[3] if affines else None)
+    run.args, run.gt, run.cfg = args, gt, cfg
+    return run
+
+
 def _f_refit_normal_matrices(dev):
     """The first C=256 batch of one motion fit on fm4_a (the LO refine
     of the 256 top-counted hypotheses)."""
@@ -544,7 +609,7 @@ def phase_kernels(dev):
         r["shapes"].append(row)
         return row
 
-    def count_rows(name, Hs, x1, x2, valid, kind):
+    def count_rows(name, Hs, x1, x2, valid, kind, thr):
         """K1 in both reciprocal modes against the plain version: max
         |dcount| <= 2 and mean < 0.5, then timed, with its CUDA launches
         a call; the bound counts the reciprocals at the MUFU rate too,
@@ -592,7 +657,8 @@ def phase_kernels(dev):
                        (2051, 10240, "symmetric"), (16, 10240, "symmetric")):
         idx = torch.from_numpy(rng.integers(0, 10000, (s, 4))).to(dev)
         Hs = geometry.homography_4pt_batch_qr(x1[idx], x2[idx]).contiguous()
-        count_rows("inlier_counts", Hs, x1[:n], x2[:n], valid[:n], kind)
+        count_rows("inlier_counts", Hs, x1[:n], x2[:n], valid[:n], kind,
+                   thr)
 
     # K1's epipolar kinds at the motion fit's verify shape (2048
     # hypotheses + 3 claims x 512 points), F's solved from 8-point
@@ -602,7 +668,7 @@ def phase_kernels(dev):
     for kind in ("f_sampson", "f_symmetric", "f_transfer"):
         idx = torch.from_numpy(rng.integers(0, n_valid, (2051, 8))).to(dev)
         Fs = fmodel.fundamental_8pt_batch_qr(x1[idx], x2[idx]).contiguous()
-        count_rows("inlier_counts_f", Fs, x1, x2, valid, kind)
+        count_rows("inlier_counts_f", Fs, x1, x2, valid, kind, thr)
 
     # K1 at the mixed fit's stage verify shape (2048 hypotheses + 3
     # claims x 1024 points of mx21_a) in the two kinds its stages count:
@@ -613,9 +679,20 @@ def phase_kernels(dev):
                                         (2051, 8))).to(dev)
     Hs = geometry.homography_4pt_batch_qr(x1[idx[:, :4]],
                                           x2[idx[:, :4]]).contiguous()
-    count_rows("inlier_counts", Hs, x1, x2, valid, "symmetric")
+    count_rows("inlier_counts", Hs, x1, x2, valid, "symmetric", thr)
     Fs = fmodel.fundamental_8pt_batch_qr(x1[idx], x2[idx]).contiguous()
-    count_rows("inlier_counts_f", Fs, x1, x2, valid, "f_sampson")
+    count_rows("inlier_counts_f", Fs, x1, x2, valid, "f_sampson", thr)
+
+    # K1 on the affine path's own verify pool: the 2048 sampled + 3
+    # claim hypotheses and the 512 one-point H's (one a point, padded
+    # points included: they are masked only after the count), with the
+    # fit's points and threshold, as the affine fit hands them over
+    pool = _captured_counts(_affine_fit(dev), 2051 + 512)
+    hs = pool[0]
+    print(f"  affine verify pool: {hs.shape[0]} hypotheses, "
+          f"{int((~torch.isfinite(hs.reshape(-1, 9)).all(1)).sum())} of "
+          f"them non-finite")
+    count_rows("inlier_counts", *pool)
 
     # K2: the minimal solves of a progressive round, default and stress,
     # from the sampler's (32, S) rows (ok exact, H's within 5e-4 of the
@@ -718,7 +795,8 @@ def mrf_kernels(rng, dev, record):
     B=256, 6 mean-field sweeps, 2 ICM starts x 2 iterations), the stress
     shape (L=17, N=10240, B=128, 4 sweeps, 2 starts x 1 iteration) and
     the mixed fit's stage shape (L=9, N=1024, B=256, 6 sweeps, 2 starts x
-    2 iterations). K4 and K5 read the list the fit builds beside the band
+    2 iterations) and the default config at N=1024 (L=17, B=256, as the
+    batch and the direct-refit fits of phase 10 run it). K4 and K5 read the list the fit builds beside the band
     (its build is timed on its own); each call's CUDA launches are
     counted by torch.profiler. Bounds count the list's non-zeros: each
     pair (8 bytes) read once."""
@@ -727,11 +805,15 @@ def mrf_kernels(rng, dev, record):
     from multih_tpu_torch.ops.kernels import mrf_kernel as mk
 
     sw = 0.1
-    for l, n_points, n, block, sweeps, icm_it in (
-            (17, 500, 512, 256, 6, 2), (17, 10000, 10240, 128, 4, 1),
-            (9, 1000, 1024, 256, 6, 2)):
+    # the N=1024 default shape came last and draws from a generator of
+    # its own: the kernels checked after this one keep their inputs
+    for l, n_points, n, block, sweeps, icm_it, g in (
+            (17, 500, 512, 256, 6, 2, rng),
+            (17, 10000, 10240, 128, 4, 1, rng),
+            (9, 1000, 1024, 256, 6, 2, rng),
+            (17, 1000, 1024, 256, 6, 2, np.random.default_rng(1))):
         _, _, valid, _, adj = _windowed_problem(dev, n_points, n, block)
-        dct = torch.from_numpy(rng.uniform(0, 2.0, (l, n)).astype(
+        dct = torch.from_numpy(g.uniform(0, 2.0, (l, n)).astype(
             np.float32)).to(dev) * valid[None, :]
         q0 = torch.softmax(-dct / 2.0, dim=0).contiguous()
         base = (dct + sw * adj.deg.T).contiguous()
@@ -787,7 +869,7 @@ def mrf_kernels(rng, dev, record):
 
         starts = torch.stack([
             torch.argmin(dct, dim=0),
-            torch.from_numpy(rng.integers(0, l, n)).to(dev),
+            torch.from_numpy(g.integers(0, l, n)).to(dev),
         ]).to(torch.int32).contiguous()
         got = mk.icm_fused(starts, base, band, icm_it, sw, nbr=nbr)
         ref = mk.icm_fused_reference(starts, base, band, icm_it, sw)
@@ -1596,6 +1678,205 @@ def phase_mixed(dev):
     return out, path, gather
 
 
+def phase_surfaces(dev):
+    """The batch surface, the affine one-point pool, the direct refit and
+    the CLI: run_benchmark_batch on the 24 homography golden scenes padded
+    to max_points 1024 at the default config with the golden taus (each
+    pair >= 97% in agreement with its golden labels and equal to its
+    single fit on the card with the same generator), the batch's wall
+    time against the sum of the pairs' warm single fits and its device
+    busy time a pair over every 4th pair (an estimate of the idle share); the affine fit (tests/test_pipeline.py::TestAffinePath's
+    scene at the default config: 2 planes, error < 3%) and its one-point
+    pool against the CPU's; the direct-refit fit (refit_moments=False)
+    on BASELINE config 2 (exact recovery); `multih_tpu_torch.cli synth
+    --json` as a subprocess. Each fit path is one entry of the launch
+    counts."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import multih_tpu_torch as mt
+    from multih_tpu_torch import MultiHConfig
+    from multih_tpu_torch.ops import epipolar
+    from multih_tpu_torch.parallel import sharding
+    from multih_tpu_torch.utils import data, evaluation
+
+    print("== 10. the batch surface, the affine pool, the direct refit and "
+          "the CLI")
+    t_start = time.perf_counter()
+    out, launches = {}, {}
+    kernels_h = ("inlier_counts", "dlt_4pt", "eig9_smallest",
+                 "mean_field_fused", "icm_fused", "band_list")
+
+    # the batch: 24 golden scenes at N=1024, one upload, golden taus
+    cfg = MultiHConfig(max_points=1024)
+    css = [data.suite_scene(row[0]) for row in data.SUITE]
+    goldens = [np.load(os.path.join(ROOT, "tests", "goldens",
+                                    f"{cs.name}.npz")) for cs in css]
+    taus = [float(g["inlier_threshold"]) for g in goldens]
+    prepared = sharding.prepare_benchmark_batch(css, cfg, taus=taus,
+                                                device=dev)
+    (x1, x2, valid, t), b = prepared
+
+    def batch():
+        return sharding.run_benchmark_batch(css, cfg, seed=0,
+                                            prepared=prepared)
+
+    res, launches["batch"] = count_launches("batch (24 pairs)", kernels_h,
+                                            batch)
+    check(res.labels.shape == (24, 1024), f"batch labels {res.labels.shape}")
+    rows = []
+    for i, (cs, g) in enumerate(zip(css, goldens)):
+        lab = res.labels[i][:cs.n_points]
+        agree = 100.0 - evaluation.misclassification_error(
+            lab, g["labels"], cfg.max_labels,
+            gt_outlier=int(g["outlier_label"]))
+        err = evaluation.misclassification_error(lab, cs.gt_labels,
+                                                 cfg.max_labels)
+        single = mt.fit(x1[i], x2[i], valid[i],
+                        torch.Generator(device=dev).manual_seed(i), cfg,
+                        tau=t[i])
+        h_diff = float(np.abs(single.homographies.cpu().numpy()
+                              - res.homographies[i]).max())
+        same = (np.array_equal(single.labels.cpu().numpy(), res.labels[i])
+                and np.array_equal(single.active.cpu().numpy(),
+                                   res.active[i]) and h_diff == 0.0)
+        rows.append(dict(name=cs.name, planes=int(res.active[i].sum()),
+                         golden_planes=int(g["n_planes"]), agreement=agree,
+                         misclassification=err, equals_single=same,
+                         h_max_diff_single=h_diff))
+        print(f"batch pair {i:2d} {cs.name:12s} tau {taus[i]:.1f}: planes "
+              f"{rows[-1]['planes']} (golden {rows[-1]['golden_planes']}), "
+              f"agreement with the golden labels {agree:.2f}%, "
+              f"misclassification {err:.3f}%, equal to its single fit "
+              f"{same} (H max diff {h_diff:.3g})")
+        check(agree >= 97.0, f"batch {cs.name}: agreement {agree:.2f}%")
+        check(same, f"batch {cs.name}: not its single fit")
+    out["pairs"] = rows
+    print(f"batch: mean agreement "
+          f"{statistics.mean(r['agreement'] for r in rows):.3f}%, all 24 "
+          f"equal to their single fits")
+
+    # wall time: the batch against the sum of the pairs' warm single fits
+    # (each ending in a synchronize), in turns
+    gens = [torch.Generator(device=dev) for _ in range(b)]
+
+    def singles():
+        return sum(host_ms(lambda: mt.fit(x1[i], x2[i], valid[i],
+                                          gens[i].manual_seed(i), cfg,
+                                          tau=t[i]), reps=1)[0]
+                   for i in range(b))
+
+    t_batch, t_singles = [], []
+    for _ in range(3):
+        t_batch += host_ms(batch, reps=1)
+        t_singles.append(singles())
+    # device busy time a pair, torch.profiler over a batch of every 4th
+    # pair (6 spread across the suite: easy2_a, med3_b, hard5_a,
+    # outlier50_a, noisy_a, overlap4_a; the profile of all 24 takes
+    # minutes to read). The idle share is an
+    # estimate: that sample's busy time a pair x 24 over the median wall
+    # time of the unprofiled 24-pair runs
+    sample = list(range(0, b, 4))
+    part = sharding.prepare_benchmark_batch(
+        [css[i] for i in sample], cfg, taus=[taus[i] for i in sample],
+        device=dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sharding.run_benchmark_batch([css[i] for i in sample], cfg,
+                                     prepared=part)
+        torch.cuda.synchronize()
+    busy = busy_us(prof.key_averages()) / 1e3 / len(sample)
+    wall = statistics.median(t_batch)
+    out["wall"] = dict(batch_ms=t_batch, sum_single_ms=t_singles,
+                       ratio=wall / statistics.median(t_singles),
+                       busy_ms_per_pair_sampled=busy,
+                       busy_sample=[css[i].name for i in sample],
+                       idle_share_estimated=1.0 - busy * b / wall)
+    print(f"batch of {b} pairs at N=1024: wall {wall:.1f} ms (runs "
+          f"{', '.join(f'{v:.1f}' for v in t_batch)}) against the sum of "
+          f"its warm single fits {statistics.median(t_singles):.1f} ms "
+          f"(runs {', '.join(f'{v:.1f}' for v in t_singles)}): ratio "
+          f"{out['wall']['ratio']:.3f}; {wall / b:.2f} ms a pair; device "
+          f"busy {busy:.2f} ms a pair over a profile of "
+          f"{', '.join(out['wall']['busy_sample'])}, idle share estimated "
+          f"from it {out['wall']['idle_share_estimated']:.3f} "
+          f"[{card_line()}]")
+    print(f"phase 10 batch part: {time.perf_counter() - t_start:.1f} s")
+
+    # the affine one-point pool at the default config
+    affine_fit = _affine_fit(dev)
+    aargs, acfg = affine_fit.args, affine_fit.cfg
+    ares, launches["affine"] = count_launches("affine", kernels_h, affine_fit)
+    aerr = evaluation.misclassification_error(ares.labels.cpu().numpy(),
+                                              affine_fit.gt, acfg.max_labels)
+    a_ms = host_ms(affine_fit, reps=5)
+    plain_ms = host_ms(lambda: affine_fit(affines=False), reps=5)
+    F = epipolar.estimate_fundamental(_cpu_draws(0), *aargs[:3])
+    pool_gpu = epipolar.homography_one_point_batch(F, *aargs[:2], aargs[3])
+    pool_cpu = epipolar.homography_one_point_batch(
+        F.cpu(), *[a.cpu() for a in aargs[:2]], aargs[3].cpu())
+    live = (aargs[2] > 0).cpu().numpy()
+    pool_diff = float((pool_gpu.cpu() - pool_cpu).abs().numpy()[live].max())
+    out["affine"] = dict(planes=int(ares.active.sum()), misclassification=aerr,
+                         warm_ms=a_ms, warm_ms_without_affines=plain_ms,
+                         pool_card_vs_cpu=pool_diff,
+                         n_hypotheses_ok=float(ares.n_hypotheses_ok))
+    print(f"affine fit, 300 points: planes {out['affine']['planes']}, "
+          f"misclassification {aerr:.3f}%, pool {float(ares.n_hypotheses_ok)}"
+          f" hypotheses; warm ms {statistics.median(a_ms):.1f} (without "
+          f"affines {statistics.median(plain_ms):.1f}); one-point pool on "
+          f"the card vs the CPU on one F: max diff {pool_diff:.3g}")
+    check(out["affine"]["planes"] == 2 and aerr < 3.0,
+          f"affine fit: {out['affine']}")
+    check(bool(torch.isfinite(pool_gpu).all()), "non-finite one-point H")
+
+    # the direct refit: BASELINE config 2, exact recovery
+    dcfg = MultiHConfig(max_points=1024, refit_moments=False)
+    gen = torch.Generator(device=dev)
+    (planes, err), launches["direct_refit"] = count_launches(
+        "direct-refit", ("inlier_counts", "dlt_4pt", "mean_field_fused",
+                         "icm_fused", "band_list"),
+        lambda: _baseline2(dev, dcfg, gen))
+    # warm latency of the direct and the moment refit on BASELINE config
+    # 2, one fit of each in turns
+    times = {"direct": [], "moments": []}
+    for _ in range(5):
+        for label, c in (("direct", dcfg), ("moments", cfg)):
+            times[label] += host_ms(lambda: _baseline2(dev, c, gen), reps=1)
+    out["direct_refit"] = dict(planes=planes, misclassification=err,
+                               warm_ms=times["direct"],
+                               warm_ms_moments=times["moments"])
+    print(f"direct refit, BASELINE config 2: planes {planes}, "
+          f"misclassification {err:.4f}%, warm median "
+          f"{statistics.median(times['direct']):.1f} ms against "
+          f"{statistics.median(times['moments']):.1f} ms for the moment "
+          f"refit (5 each, in turns; K3 launches "
+          f"{launches['direct_refit']['eig9_smallest']}: its refits solve "
+          f"with eigh)")
+    check(planes == 2 and err == 0.0, "direct refit: BASELINE config 2 not "
+          "recovered exactly")
+
+    # the CLI, a process of its own on the card
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "multih_tpu_torch.cli", "synth", "--json"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"cli synth failed: {proc.stderr[-2000:]}")
+    cli = json.loads(proc.stdout.strip().splitlines()[-1])
+    out["cli"] = dict(seconds=cli_s, **{k: cli[k] for k in (
+        "n_planes_found", "misclassification_pct", "time_total_s",
+        "time_warm_s")})
+    print(f"cli synth --json: {cli_s:.1f} s in all, planes "
+          f"{cli['n_planes_found']}, misclassification "
+          f"{cli['misclassification_pct']:.3f}%, first fit "
+          f"{cli['time_total_s']} s, warm fit {cli['time_warm_s']} s")
+    print(f"phase 10: {time.perf_counter() - t_start:.1f} s")
+    check(cli["n_planes_found"] == 2 and cli["misclassification_pct"] < 5.0,
+          f"cli synth: {cli}")
+    return out, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -1622,6 +1903,8 @@ def main(argv=None) -> int:
     adaptive, launches["adaptive"] = phase_adaptive(dev)
     stream, launches["stream_run"] = phase_stream(dev)
     mixed, launches["mixed"], launches["mixed_gather"] = phase_mixed(dev)
+    surfaces, surface_launches = phase_surfaces(dev)
+    launches.update(surface_launches)
     if args.profile:
         profile_fit()
         profile_stress()
@@ -1646,7 +1929,7 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": rows, "fit_latency_n512": latency,
                       "stress": stress, "motion": motion,
                       "adaptive": adaptive, "stream": stream,
-                      "mixed": mixed}))
+                      "mixed": mixed, "surfaces": surfaces}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

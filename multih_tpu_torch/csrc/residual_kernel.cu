@@ -199,16 +199,24 @@ count_kernel(const Args p) {
       h[k] = live ? p.hs[i * p.h_si + (k / 3) * p.h_sr + (k % 3) * p.h_sc]
                   : 0.f;
     }
-    // adjugate (scale-free inverse) for the back-transfer
-    a[0] = h[4] * h[8] - h[5] * h[7];
-    a[1] = h[2] * h[7] - h[1] * h[8];
-    a[2] = h[1] * h[5] - h[2] * h[4];
-    a[3] = h[5] * h[6] - h[3] * h[8];
-    a[4] = h[0] * h[8] - h[2] * h[6];
-    a[5] = h[2] * h[3] - h[0] * h[5];
-    a[6] = h[3] * h[7] - h[4] * h[6];
-    a[7] = h[1] * h[6] - h[0] * h[7];
-    a[8] = h[0] * h[4] - h[1] * h[3];
+    // adjugate (scale-free inverse) for the back-transfer, each product
+    // and difference rounded on its own as geometry.adjugate_3x3 rounds
+    // them (no FMA contraction): on a near-rank-1 H the minors cancel to
+    // ~1e-6 of the products, and a contracted minor moved the
+    // back-projected point by pixels (a sampled H of the affine fit's
+    // pool counted 0 against the plain version's and float64's 3)
+    const auto minor = [&](int i, int j, int k, int l) {
+      return __fsub_rn(__fmul_rn(h[i], h[j]), __fmul_rn(h[k], h[l]));
+    };
+    a[0] = minor(4, 8, 5, 7);
+    a[1] = minor(2, 7, 1, 8);
+    a[2] = minor(1, 5, 2, 4);
+    a[3] = minor(5, 6, 3, 8);
+    a[4] = minor(0, 8, 2, 6);
+    a[5] = minor(2, 3, 0, 5);
+    a[6] = minor(3, 7, 4, 6);
+    a[7] = minor(1, 6, 0, 7);
+    a[8] = minor(0, 4, 1, 3);
 
     int cnt = 0;
     for (int t0 = 0; t0 < m; t0 += kTile) {

@@ -22,7 +22,9 @@ one fused call, `fused_front_gate`) and the window-sampling gathers
 (`_kernels_enabled`); otherwise their plain PyTorch versions run, as the
 JAX package runs its jnp paths off the TPU. Around the fit: seed
 homographies (`make_fit_seeded`, the streaming warm start of
-utils/streaming.py) and the two-pass adaptive threshold
+utils/streaming.py), the paper's affine one-point hypotheses
+(`fit(affines=...)`, ops/epipolar.py), the direct (non-moment) refit
+(``cfg.refit_moments=False``) and the two-pass adaptive threshold
 (`estimate_tau`, `fit_adaptive`).
 
 Where the port is likely to diverge from the reference, the code says
@@ -31,8 +33,8 @@ stable descending sort (ops.topk.top_k_stable), every argsort is
 stable, `.at[].add` scatters are index_add_, and lax.scan / fori_loop
 bodies are Python loops that never wait on the device.
 
-Out of the port so far, `fit` raises NotImplementedError: affine
-hypotheses, a mesh and the direct (non-moment) refit.
+Out of the port so far, `fit` raises NotImplementedError for a device
+mesh.
 """
 
 from __future__ import annotations
@@ -46,7 +48,7 @@ from torch.profiler import record_function
 
 from multih_tpu_torch.config import MultiHConfig
 from multih_tpu_torch.models import labeling, selection
-from multih_tpu_torch.ops import fmodel, geometry, sampling
+from multih_tpu_torch.ops import epipolar, fmodel, geometry, sampling
 from multih_tpu_torch.ops.kernels import dlt_kernel, residual_kernel
 from multih_tpu_torch.ops.topk import top_k_stable
 
@@ -178,6 +180,18 @@ def _refit_batch(w, basis, cfg: MultiHConfig):
              else geometry.homography_refit_batch)
     return refit(w, basis, cfg.eig_method, cfg.eig_iterations,
                  eig_kernel=_kernels_enabled(cfg, w.device))
+
+
+def _refit_direct(x1, x2, w, cfg: MultiHConfig):
+    """(C, N) weights -> (C, 3, 3): the direct weighted refit of the
+    cfg.refit_moments=False path (pipeline.py:148), the normalized
+    8-point F or DLT H of every row in one batched solve where the
+    reference vmaps one candidate's. Its eigensolve is `eigh` (or
+    cfg.eig_method) on every device, as in the reference."""
+    if cfg.model == "fundamental":
+        return epipolar.fundamental_8pt(x1, x2, w, cfg.eig_method)
+    return geometry.homography_from_points(x1, x2, w, cfg.eig_method,
+                                           cfg.eig_iterations)
 
 
 # ---------------------------------------------------------------------------
@@ -344,7 +358,8 @@ def refit_planes(Hs, labels, residuals, x1, x2, valid, cfg: MultiHConfig,
                  tau=None, basis=None):
     """Re-estimate every plane from its assigned points with Tukey-biweight
     weights gated by the current residual, all planes in one batched
-    refit; planes with fewer than 4 weighted members keep their H."""
+    refit (the moment refit, or with cfg.refit_moments=False the direct
+    one); planes with fewer than 4 weighted members keep their H."""
     k = cfg.max_labels
     thr = _thr(cfg, tau, x1)
     member = F.one_hot(labels.long(), k + 1)[:, :k].to(x1.dtype) \
@@ -354,11 +369,14 @@ def refit_planes(Hs, labels, residuals, x1, x2, valid, cfg: MultiHConfig,
     tukey = (1.0 - rr) ** 2 * (residuals.T < thr)
     w = member * tukey
     eff_support = (w > 0).to(x1.dtype).sum(0)
-    if basis is None:
-        basis = _prepare_refit_basis(x1, x2, cfg)
-    Hs_mom = _refit_batch(w.T, basis, cfg)
+    if not cfg.refit_moments:
+        Hs_fit = _refit_direct(x1, x2, w.T, cfg)
+    else:
+        if basis is None:
+            basis = _prepare_refit_basis(x1, x2, cfg)
+        Hs_fit = _refit_batch(w.T, basis, cfg)
     Hs_new = torch.where((eff_support >= float(cfg.minimal_points))
-                         [:, None, None], Hs_mom, Hs)
+                         [:, None, None], Hs_fit, Hs)
     return Hs_new, support
 
 
@@ -393,13 +411,14 @@ def lo_refine_candidates(Hs, x1, x2, valid, cfg: MultiHConfig, rounds: int,
     """LO-RANSAC growth of candidates: `rounds` batched Tukey refits at
     geometrically shrinking thresholds (4tau, 2tau, tau), each kept only
     if the inlier count at tau does not drop. The lax.scan over rounds
-    (pipeline.py:840) is a Python loop."""
+    (pipeline.py:840) is a Python loop; with cfg.refit_moments=False each
+    round is one batched direct refit of all M rows."""
     thr = _thr(cfg, tau, x1)
 
     def count(r):
         return ((r < thr) * valid[None, :]).sum(1)
 
-    basis = _prepare_refit_basis(x1, x2, cfg)
+    basis = _prepare_refit_basis(x1, x2, cfg) if cfg.refit_moments else None
     m_min = float(cfg.minimal_points)
     for i in range(rounds):
         thr_r = thr * cfg.lo_shrink_eff ** (rounds - 1 - i)
@@ -407,8 +426,9 @@ def lo_refine_candidates(Hs, x1, x2, valid, cfg: MultiHConfig, rounds: int,
         rr = torch.clamp(r / thr_r, 0.0, 1.0)
         w = ((1.0 - rr) ** 2 * (r < thr_r)) * valid[None, :]
         enough = (w > 0).to(x1.dtype).sum(1) >= m_min
-        Hs_new = torch.where(enough[:, None, None],
-                             _refit_batch(w, basis, cfg), Hs)
+        Hs_fit = (_refit_batch(w, basis, cfg) if cfg.refit_moments
+                  else _refit_direct(x1, x2, w, cfg))
+        Hs_new = torch.where(enough[:, None, None], Hs_fit, Hs)
         r_new = model_residual_matrix(Hs_new, x1, x2, cfg.residual, cfg)
         better = (count(r_new) >= count(r))[:, None, None]
         Hs = torch.where(better, Hs_new, Hs)
@@ -809,17 +829,15 @@ def _f_refine_phases(Hs, active, q, draws, x1, x2, valid, nbr_idx, nbr_w,
 
 
 def _check_slice(cfg: MultiHConfig, affines, mesh):
-    """NotImplementedError for everything outside the ported slice."""
-    unsupported = []
-    if not cfg.refit_moments:
-        unsupported.append("refit_moments=False")
-    if affines is not None:
-        unsupported.append("affine one-point hypotheses")
+    """NotImplementedError for a device mesh (ROADMAP section 1, item 6);
+    the reference's ValueError for affine hypotheses on another model
+    than homography (pipeline.py:1176-1180)."""
     if mesh is not None:
-        unsupported.append("a device mesh")
-    if unsupported:
-        raise NotImplementedError(
-            "not ported yet: " + ", ".join(unsupported)
+        raise NotImplementedError("not ported yet: a device mesh")
+    if affines is not None and cfg.model != "homography":
+        raise ValueError(
+            "affine one-point hypotheses are a homography-model path "
+            "(Multi-H paper §3.1); drop `affines` for model='fundamental'"
         )
 
 
@@ -856,8 +874,12 @@ def fit(x1, x2, valid, key, cfg: MultiHConfig, affines=None, tau=None,
     verification (the streaming warm start), competing with it on equal
     terms; seed_ok: optional (M,) {0,1} validity of each seed, non-finite
     seeds masked off regardless (pipeline.py:1193-1200). Both go to the
-    points' device. affines / mesh exist for signature parity with the
-    reference and are not ported."""
+    points' device. affines: optional (N, 2, 2) local affine frames
+    (dp2/dp1 at each correspondence; homography model only): F is
+    estimated from the points and one homography a point derived from (F,
+    p1, p2, A), the paper's one-point pool (§3.1), joining the pool ahead
+    of the seeds. mesh exists for signature parity with the reference
+    and is not ported."""
     x1, x2, valid = _inputs(x1, x2, valid, device)
     n_pts = x1.shape[0]
     _check_slice(cfg, affines, mesh)
@@ -872,10 +894,14 @@ def fit(x1, x2, valid, key, cfg: MultiHConfig, affines=None, tau=None,
     k = cfg.max_labels
     thr = _thr(cfg, tau, x1)
 
+    if affines is not None:
+        affines = torch.as_tensor(affines, dtype=x1.dtype, device=dev)
     # Morton order; labels are scattered back at the end
     if cfg.spatial_sort:
         perm = morton_order(x1, valid)
         x1, x2, valid = x1[perm], x2[perm], valid[perm]
+        if affines is not None:
+            affines = affines[perm]
 
     # pipeline.py:1121-1169: the windowed graph when the banded gate
     # holds and cfg.knn_window, for both graphs; its band is far-free.
@@ -906,6 +932,21 @@ def fit(x1, x2, valid, key, cfg: MultiHConfig, affines=None, tau=None,
     else:
         nbr_sample = nbr_idx
 
+    # extras join the sampled pool in the reference's order (pipeline.py:
+    # 1171-1224): the affine one-point pool, then the seeds, so top_k's
+    # tie order sees the same indices
+    extra_Hs, extra_ok = [], []
+    if affines is not None:
+        with record_function("affine_pool"):
+            F_est = epipolar.estimate_fundamental(
+                draws, x1, x2, valid, n_samples=min(512, cfg.n_hypotheses),
+                threshold=max(1.0, cfg.inlier_threshold / 3.0),
+            )
+            H_aff = epipolar.homography_one_point_batch(F_est, x1, x2,
+                                                        affines)
+            finite = torch.isfinite(H_aff.reshape(-1, 9)).all(1)
+        extra_Hs.append(H_aff)
+        extra_ok.append(valid * finite.to(x1.dtype))
     with record_function("hypothesize"):
         Hs_all, ok = generate_hypotheses(
             draws, x1, x2, valid, nbr_sample, cfg, tau,
@@ -913,16 +954,16 @@ def fit(x1, x2, valid, key, cfg: MultiHConfig, affines=None, tau=None,
                           if windowed and cfg.window_sampling else 0),
         )
     if seed_Hs is not None:
-        # pipeline.py:1222-1224: after the sampled pool, so top_k's tie
-        # order sees the same indices
         seed_Hs = torch.as_tensor(seed_Hs, dtype=x1.dtype,
                                   device=dev).reshape(-1, 3, 3)
         s_finite = torch.isfinite(seed_Hs.reshape(seed_Hs.shape[0], -1)
                                   ).all(1).to(x1.dtype)
-        seed_ok = s_finite if seed_ok is None else torch.as_tensor(
-            seed_ok, dtype=x1.dtype, device=dev) * s_finite
-        Hs_all = torch.cat([Hs_all, seed_Hs])
-        ok = torch.cat([ok, seed_ok])
+        extra_Hs.append(seed_Hs)
+        extra_ok.append(s_finite if seed_ok is None else torch.as_tensor(
+            seed_ok, dtype=x1.dtype, device=dev) * s_finite)
+    if extra_Hs:
+        Hs_all = torch.cat([Hs_all] + extra_Hs)
+        ok = torch.cat([ok] + extra_ok)
     vs = max(1, cfg.verify_subsample)
     with record_function("verify"):
         # rank_residual only when a full-resolution rescore follows

@@ -248,6 +248,23 @@ def homography_4pt(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
 homography_4pt_batch_qr = homography_4pt
 
 
+def homography_from_points(x1: torch.Tensor, x2: torch.Tensor,
+                           weights: torch.Tensor | None = None,
+                           eig_method: str = "inverse_iteration",
+                           eig_iterations: int = 8) -> torch.Tensor:
+    """Weighted normalized DLT: H with x2 ~ H x1, ||H||_F = 1, h33 >= 0
+    (geometry.py:307). x1, x2: (..., N, 2); weights: optional (..., N).
+    Shared (N, 2) points with (C, N) weights give C refits in one batch
+    (the direct refit of `pipeline._refit_direct`). The 9x9 eigensolve
+    is `smallest_eigvec_9x9` at `eig_method`, never the kernel: the
+    reference runs no Pallas kernel here either."""
+    x1n, T1 = hartley_normalize(x1, weights)
+    x2n, T2 = hartley_normalize(x2, weights)
+    ata = dlt_normal_matrix(x1n, x2n, weights)
+    h = smallest_eigvec_9x9(ata, eig_iterations, eig_method)
+    return _denormalize_h(h.reshape(*h.shape[:-1], 3, 3), T1, T2)
+
+
 # ---------------------------------------------------------------------------
 # moment-based batched weighted refit (multih_tpu.ops.geometry, "C12 at
 # scale"): every candidate's normal matrix is a linear combination of

@@ -2,7 +2,8 @@
 scipy only).
 
 Byte-for-byte copies of ``multih_tpu.utils.data``'s file readers and
-writer, its plane, motion and mixed scene generators and of
+writer, its plane, motion and mixed scene generators, its
+AdelaideRMF file list (`adelaide_pairs`) and of
 ``benchmarks/suite.py``'s scene tables: those modules cannot be imported
 without JAX (``multih_tpu/__init__.py`` imports it), and the machine
 with the card has no JAX. The parity tests assert both generators give
@@ -435,3 +436,20 @@ def mixed_suite_scene(name: str) -> CorrespondenceSet:
             )
             return cs._replace(name=name)
     raise KeyError(name)
+
+
+def adelaide_pairs(root: str) -> list[str]:
+    """The 19 homography pairs of the AdelaideRMF benchmark, if present
+    under `root` as .mat files (BASELINE.json:9). Returns found paths."""
+    names = [
+        "barrsmith", "bonhall", "bonython", "elderhalla", "elderhallb",
+        "hartley", "johnsona", "johnsonb", "ladysymon", "library",
+        "napiera", "napierb", "neem", "nese", "oldclassicswing",
+        "physics", "sene", "unihouse", "unionhouse",
+    ]
+    out = []
+    for n in names:
+        p = os.path.join(root, n + ".mat")
+        if os.path.exists(p):
+            out.append(p)
+    return out

@@ -1,0 +1,180 @@
+"""The port's fit with the paper's affine one-point hypotheses and the
+direct (non-moment) refit against the JAX fit.
+
+One JAX compile of `pipeline.fit` with `affines=` and
+`refit_moments=False` together, on a 2-plane scene with ground-truth
+affine frames; the port's fit replays its threefry draws (the sampled
+pool's and the F estimate's), so both pools hold the same hypotheses to
+float32 rounding. The F and H direct refits are also held against the
+reference's `_refit_direct` row by row, without a whole-fit compile.
+"""
+
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import multih_tpu
+from multih_tpu.models import pipeline as jpipe
+from multih_tpu.ops import epipolar as jepi
+from multih_tpu.utils import data as jdata
+from multih_tpu.utils import features as jfeat
+
+import multih_tpu_torch as mt
+from multih_tpu_torch.models import pipeline as tpipe
+from multih_tpu_torch.ops import epipolar as tepi
+from multih_tpu_torch.utils import evaluation
+from test_torch_kernels import t
+from test_torch_pipeline import JaxReplayDraws
+
+torch.set_num_threads(1)
+
+CFG = dict(max_points=256, n_hypotheses=512, n_candidates=64, max_labels=8,
+           refit_moments=False)
+
+
+@pytest.fixture(scope="module")
+def scene():
+    cs, Hs = jdata.synthetic_scene(200, 2, 0.1, 0.3, seed=21)
+    aff = jfeat.affines_from_homographies(Hs, cs.gt_labels - 1, cs.x1,
+                                          outlier_label=-1)
+    x1, x2, valid, gt = multih_tpu.pad_points(cs.x1, cs.x2, cs.gt_labels,
+                                              256)
+    A = np.tile(np.eye(2, dtype=np.float32), (256, 1, 1))
+    A[:cs.n_points] = aff
+    return x1, x2, valid, gt, A
+
+
+@pytest.fixture(scope="module")
+def fits(scene):
+    """(JAX result, port result) of the affine + direct-refit fit."""
+    x1, x2, valid, _, A = scene
+    jcfg = multih_tpu.MultiHConfig(**CFG)
+    tcfg = mt.MultiHConfig.from_dict(dataclasses.asdict(jcfg))
+    key = jax.random.key(0)
+    jf = jax.jit(functools.partial(jpipe.fit, cfg=jcfg))
+    jr = jax.device_get(jf(x1, x2, valid, key, affines=jnp.asarray(A)))
+    tr = mt.fit(x1, x2, valid, JaxReplayDraws(key, jcfg.progressive_rounds),
+                tcfg, affines=A, device="cpu")
+    return jr, tr
+
+
+def test_active_exact(fits):
+    jr, tr = fits
+    assert tr.active.numpy().tolist() == np.asarray(jr.active).tolist()
+    assert int(tr.active.sum()) == 2
+
+
+def test_labels(fits, scene):
+    jr, tr = fits
+    agree = 100.0 - evaluation.misclassification_error(
+        tr.labels.numpy(), np.asarray(jr.labels), 8, gt_outlier=8)
+    assert agree >= 99.0, agree
+    assert evaluation.misclassification_error(tr.labels.numpy(), scene[3],
+                                              8) < 3.0
+
+
+def test_homographies(fits):
+    """Matched planes within 2e-3 (test_torch_pipeline's tolerance: the
+    float32 refits of either package drift apart by that much)."""
+    jr, tr = fits
+    mapping = evaluation.match_labels(tr.labels.numpy(),
+                                      np.asarray(jr.labels), 8, 8)
+    pairs = {p: q for p, q in mapping.items() if p != 8 and q != 8}
+    assert len(pairs) == 2
+    for p, q in pairs.items():
+        assert np.abs(tr.homographies[p].numpy()
+                      - np.asarray(jr.homographies)[q]).max() < 2e-3
+
+
+def test_pool_and_counters(fits):
+    """The pool's size: 512 sampled + claims + one H a valid point; the
+    energy to the reference's rounding."""
+    jr, tr = fits
+    assert float(tr.n_hypotheses_ok) == float(jr.n_hypotheses_ok)
+    np.testing.assert_allclose(float(tr.energy), float(jr.energy),
+                               rtol=1e-3)
+
+
+def test_one_point_pool_float32_floor(scene):
+    """The fit's affine pool stage on its own: F from the replayed draws
+    on the Morton-sorted points, then one H a point. F as close to the
+    port's float64 estimate on the same draws as the JAX estimate is
+    (measured: the port 2e-5, JAX 8.7e-4; F of two unrelated planes is
+    poorly determined), with the same inlier count to a boundary tie or
+    two; the pool within 1e-3 of the JAX pool and each within float32's
+    floor (measured 8e-4) of the port's float64 solve."""
+    x1, x2, valid, _, A = scene
+    perm = np.asarray(jpipe.morton_order(jnp.asarray(x1),
+                                         jnp.asarray(valid)))
+    x1, x2, valid, A = x1[perm], x2[perm], valid[perm], A[perm]
+    key = jax.random.key(0)
+    k_f = jax.random.split(key, 3)[2]
+    thr = max(1.0, 3.0 / 3.0)
+    F_j = np.asarray(jax.jit(lambda k, a, b, v: jepi.estimate_fundamental(
+        k, a, b, v, n_samples=512, threshold=thr))(k_f, x1, x2, valid))
+    F_t, F_64 = (tepi.estimate_fundamental(
+        JaxReplayDraws(key, 4), t(x1).to(dt), t(x2).to(dt), t(valid).to(dt),
+        n_samples=512, threshold=thr).numpy()
+        for dt in (torch.float32, torch.float64))
+    assert (np.abs(F_t - F_64).max()
+            <= 1.5 * np.abs(F_j - F_64).max() + 1e-5)
+
+    def inliers(F):
+        e = tepi.sampson_error_f(t(F.astype(np.float32)), t(x1),
+                                 t(x2)).numpy()
+        return int(((e < thr) * valid).sum())
+    assert abs(inliers(F_t) - inliers(F_j)) <= 2
+    H_j = np.asarray(jepi.homography_one_point_batch(
+        jnp.asarray(F_j), jnp.asarray(x1), jnp.asarray(x2), jnp.asarray(A)))
+    H_t = tepi.homography_one_point_batch(t(F_j), t(x1), t(x2), t(A)).numpy()
+    H_64 = tepi.homography_one_point_batch(
+        t(F_j).double(), t(x1).double(), t(x2).double(),
+        t(A).double()).numpy()
+    live = valid > 0
+    assert np.abs(H_t - H_j)[live].max() < 1e-3
+    for h in (H_t, H_j):
+        assert np.abs(h - H_64)[live].max() < 1.5e-3
+
+
+@pytest.mark.parametrize("model", ["homography", "fundamental"])
+def test_refit_direct_matches_reference(scene, model):
+    """The direct refit of weight rows in one batched solve against the
+    reference's single-candidate `_refit_direct` per row (its vmap body),
+    as refit_planes and the LO rounds pass them: a model's members with
+    Tukey-like weights, with unit weights, a random weighting of them and
+    a row of 20 members. F rows come from a two-motion scene (points of
+    one plane leave F undetermined). Each row is as close to the port's
+    float64 refit as the reference's row is, to 2x (measured: the F of
+    the first row is 1.1e-3 from float64 in JAX, 1.6e-3 in the port;
+    every other row within 7e-5)."""
+    if model == "fundamental":
+        cs, _ = jdata.synthetic_motion_scene(240, 2, 0.1, 0.5, seed=5)
+        x1, x2, _, gt = multih_tpu.pad_points(cs.x1, cs.x2, cs.gt_labels,
+                                              256)
+    else:
+        x1, x2, _, gt, _ = scene
+    rng = np.random.default_rng(3)
+    w = np.stack([(gt == 1) * rng.uniform(0.2, 1.0, 256),
+                  (gt == 2) * 1.0,
+                  (gt == 2) * rng.uniform(0, 1, 256),
+                  (gt == 1) * (np.cumsum(gt == 1) <= 20)]).astype(np.float32)
+    kw = dict(model=model, refit_moments=False)
+    if model == "fundamental":
+        kw["residual"] = "sampson"
+    jcfg = multih_tpu.MultiHConfig(**kw)
+    tcfg = mt.MultiHConfig.from_dict(dataclasses.asdict(jcfg))
+    want = np.stack([np.asarray(jpipe._refit_direct(
+        jnp.asarray(x1), jnp.asarray(x2), jnp.asarray(wi), jcfg))
+        for wi in w])
+    got = tpipe._refit_direct(t(x1), t(x2), t(w), tcfg).numpy()
+    g64 = tpipe._refit_direct(t(x1).double(), t(x2).double(),
+                              t(w).double(), tcfg).numpy()
+    assert got.shape == (4, 3, 3) and np.isfinite(got).all()
+    floor = np.abs(want - g64).max(axis=(1, 2))
+    assert (np.abs(got - g64).max(axis=(1, 2)) <= 2.0 * floor + 1e-5).all()
+    assert np.abs(got - want).max() < 5e-3

@@ -121,7 +121,13 @@ class TestPlumbing:
                 "multih_tpu_torch.ops.kernels.eig_kernel, "
                 "multih_tpu_torch.ops.kernels.mrf_kernel, "
                 "multih_tpu_torch.ops.kernels.gather_kernel, "
-                "multih_tpu_torch.ops.sampling; "
+                "multih_tpu_torch.ops.sampling, "
+                "multih_tpu_torch.ops.epipolar, "
+                "multih_tpu_torch.models.mixed, "
+                "multih_tpu_torch.utils.features, "
+                "multih_tpu_torch.utils.streaming, "
+                "multih_tpu_torch.parallel.sharding, "
+                "multih_tpu_torch.cli; "
                 "print(sorted(m for m in sys.modules "
                 "if m == 'jax' or m.startswith(('jax.', 'multih_tpu.'))))")
         out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

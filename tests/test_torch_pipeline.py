@@ -23,6 +23,7 @@ from multih_tpu_torch.models import pipeline as tpipe
 from multih_tpu_torch.ops import geometry as tgeo
 from multih_tpu_torch.utils import data as tdata
 from multih_tpu_torch.utils import evaluation
+from multih_tpu_torch.utils import features as tfeat
 from test_torch_ops import KeyDraws
 
 SLICE = dict(max_points=256, agree_block=128, n_hypotheses=512,
@@ -34,13 +35,19 @@ SEEDS = (5, 7)
 class JaxReplayDraws(KeyDraws):
     """Draw source for the port's fit that replays `multih_tpu.fit`'s
     draws for `key`: `stream` is the progressive round, whose JAX key
-    splits into the uniform half's key and the localized half's."""
+    splits into the uniform half's key and the localized half's, or
+    ("epipolar", j), half j of the split of the affine pool's F key k_f
+    (pipeline.py:1174, epipolar.py:106)."""
 
     def __init__(self, key, rounds):
-        _, k_gen, _ = jax.random.split(key, 3)
+        _, k_gen, k_f = jax.random.split(key, 3)
         self.round_keys = jax.random.split(k_gen, rounds)
+        self.f_keys = jax.random.split(k_f)
 
     def keys(self, stream):
+        if isinstance(stream, tuple) and stream[0] == "epipolar":
+            k = self.f_keys[stream[1]]
+            return k, k
         k_u, k_l = jax.random.split(self.round_keys[stream])
         return k_u, k_l
 
@@ -226,7 +233,7 @@ def test_gates_match_reference(n_pts, expect):
 
 
 @pytest.mark.parametrize("kw", [
-    # the fundamental model runs; its direct (non-moment) refit does not
+    # the fundamental model with its direct (non-moment) refit
     dict(model="fundamental", refit_moments=False),
     dict(mrf_fused_front=True),            # at the default (windowed) graph
     dict(refit_moments=False),
@@ -238,19 +245,23 @@ def test_gates_match_reference(n_pts, expect):
         "fused_front", "direct_refit", "gather_labeling",
         "fundamental_fused_front"])
 def test_out_of_slice_raises(kw):
-    """The configs outside the port raise NotImplementedError. The
-    mrf_fused_front cases are in it now: on the CPU (and for the
-    fundamental model anywhere) fused_front_gate keeps the unfused
-    route, so the fit with the flag equals the fit without it. So is the
-    gather-path labeling (agree_block=0: no band), which fits on the
-    CPU to labels in range (tests/test_torch_gather.py holds it to the
-    JAX fit)."""
-    cfg = mt.MultiHConfig(max_points=512, **kw)
-    if cfg.agree_block == 0:
+    """The configs that were outside the port's first slices, each now
+    in it. The direct refit (refit_moments=False: the batched normalized
+    DLT or 8-point F, tests/test_torch_affine.py holds it to the
+    reference) and the gather-path labeling (agree_block=0: no band,
+    tests/test_torch_gather.py) fit on the CPU to labels in range and
+    the scene's 2 planes or motions. On the CPU (and for the fundamental
+    model anywhere) fused_front_gate keeps the unfused route, so the fit
+    with mrf_fused_front equals the fit without it."""
+    cfg = dataclasses.replace(mt.MultiHConfig(max_points=512, **kw),
+                              n_hypotheses=256)
+    if cfg.model == "fundamental":
+        cs, _ = tdata.synthetic_motion_scene(400, 2, 0.1, 0.5, seed=3)
+    else:
         cs, _ = tdata.synthetic_scene(400, 2, 0.1, 0.5, seed=3)
-        res = mt.fit(*mt.pad_points(cs.x1, cs.x2, None, 512),
-                     torch.Generator().manual_seed(0),
-                     dataclasses.replace(cfg, n_hypotheses=256),
+    x1, x2, valid, gt = mt.pad_points(cs.x1, cs.x2, cs.gt_labels, 512)
+    if not cfg.mrf_fused_front:
+        res = mt.fit(x1, x2, valid, torch.Generator().manual_seed(0), cfg,
                      device="cpu")
         lab = res.labels.numpy()
         assert lab.dtype == np.int32 and lab.shape == (512,)
@@ -258,17 +269,12 @@ def test_out_of_slice_raises(kw):
         assert (lab[400:] == cfg.max_labels).all()
         assert bool(torch.isfinite(res.homographies).all())
         assert int(res.active.sum()) == 2
+        assert evaluation.misclassification_error(lab, gt,
+                                                  cfg.max_labels) < 3.0
         return
-    if not cfg.mrf_fused_front:
-        z = torch.zeros((512, 2))
-        with pytest.raises(NotImplementedError):
-            mt.fit(z, z, torch.ones(512), torch.Generator(), cfg)
-        return
-    cfg = dataclasses.replace(cfg, n_hypotheses=256)
-    cs, _ = tdata.synthetic_scene(400, 2, 0.1, 0.5, seed=3)
-    pts = mt.pad_points(cs.x1, cs.x2, None, 512)
     fused, plain = (
-        mt.fit(*pts, torch.Generator().manual_seed(0), c, device="cpu")
+        mt.fit(x1, x2, valid, torch.Generator().manual_seed(0), c,
+               device="cpu")
         for c in (cfg, dataclasses.replace(cfg, mrf_fused_front=False)))
     assert torch.equal(fused.labels, plain.labels)
     assert torch.equal(fused.homographies, plain.homographies)
@@ -277,13 +283,33 @@ def test_out_of_slice_raises(kw):
 
 @pytest.mark.parametrize("model", ["homography", "fundamental"])
 def test_out_of_slice_arguments_raise(model):
-    """Affine hypotheses and a mesh raise; seed homographies are in the
-    port (tests/test_torch_stream.py)."""
+    """A mesh raises NotImplementedError (not ported yet). Affine
+    hypotheses run for homographies (tests/test_torch_affine.py holds
+    them to the reference) and raise the reference's ValueError for the
+    fundamental model; seed homographies are in the port
+    (tests/test_torch_stream.py)."""
     cfg = mt.MultiHConfig(max_points=512, knn_window=False, model=model)
     z = torch.zeros((512, 2))
-    for kw in (dict(affines=torch.zeros((512, 2, 2))), dict(mesh=object())):
-        with pytest.raises(NotImplementedError):
-            mt.fit(z, z, torch.ones(512), torch.Generator(), cfg, **kw)
+    with pytest.raises(NotImplementedError):
+        mt.fit(z, z, torch.ones(512), torch.Generator(), cfg, mesh=object())
+    if model == "fundamental":
+        with pytest.raises(ValueError, match="affine"):
+            mt.fit(z, z, torch.ones(512), torch.Generator(), cfg,
+                   affines=torch.zeros((512, 2, 2)))
+        return
+    cs, Hs = tdata.synthetic_scene(300, 2, 0.1, 0.3, seed=21)
+    aff = tfeat.affines_from_homographies(Hs, cs.gt_labels - 1, cs.x1, -1)
+    x1, x2, valid, gt = mt.pad_points(cs.x1, cs.x2, cs.gt_labels, 512)
+    A = np.tile(np.eye(2, dtype=np.float32), (512, 1, 1))
+    A[:300] = aff
+    res = mt.fit(x1, x2, valid, torch.Generator().manual_seed(0),
+                 dataclasses.replace(cfg, n_hypotheses=256), affines=A,
+                 device="cpu")
+    assert int(res.active.sum()) == 2
+    # the pool holds one extra hypothesis a valid point
+    assert float(res.n_hypotheses_ok) > 300
+    assert evaluation.misclassification_error(res.labels.numpy(), gt,
+                                              cfg.max_labels) < 3.0
 
 
 def test_fundamental_model_runs():
