@@ -92,7 +92,23 @@ Phases, each raising on failure:
      warm ms with and without the pool, the pool on the card against the
      CPU's on one F); the direct-refit fit (refit_moments=False) on
      BASELINE config 2 (exact recovery; no K3); `python -m
-     multih_tpu_torch.cli synth --json` as a subprocess on the card.
+     multih_tpu_torch.cli synth --json` as a subprocess on the card;
+ 11. the mesh axes (parallel/mesh.py, parallel/sharding.py): two gloo
+     ranks share the one card (NCCL refuses two ranks on one device;
+     gloo copies the gathered CUDA tensors through the host, counted in
+     bytes). On a (1, 2) mesh: hyp_sharded_fit of phase 5's stress scene
+     at the stress settings (each rank runs K7, K2 and K1 on its half of
+     the 102400-hypothesis pool; K3-K5 replicated) and of the motion
+     config on fm4_a, each equal to the single card fit with the same
+     CUDA generator seed (labels, active and n_hypotheses_ok exact, H's
+     within rtol 2e-4 / atol 2e-5, 8/8 planes), each rank's launches of
+     K1, K2 and K7, its hypothesize + verify device ms from
+     utils/tracing.py, and sharded_verification of the stress pool equal
+     to the unsharded stable top-M; on a (2, 1) mesh, run_benchmark_batch
+     of phase 10's 24 scenes equal to phase 10's batch; the sharded and
+     single warm walls and the bytes staged through the host; then
+     sharded_verification on a one-rank NCCL mesh (a real NCCL
+     all_gather on the card).
 Then one JSON line of per-kernel results, the card line, and the last
 line {"ok": true, "device": {...}}. Without a CUDA device, or outside
 the repository, it exits nonzero and prints no result.
@@ -1723,6 +1739,7 @@ def phase_surfaces(dev):
 
     res, launches["batch"] = count_launches("batch (24 pairs)", kernels_h,
                                             batch)
+    batch_res = res
     check(res.labels.shape == (24, 1024), f"batch labels {res.labels.shape}")
     rows = []
     for i, (cs, g) in enumerate(zip(css, goldens)):
@@ -1874,6 +1891,315 @@ def phase_surfaces(dev):
     print(f"phase 10: {time.perf_counter() - t_start:.1f} s")
     check(cli["n_planes_found"] == 2 and cli["misclassification_pct"] < 5.0,
           f"cli synth: {cli}")
+    return out, launches, batch_res
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the mesh axes
+# ---------------------------------------------------------------------------
+
+MESH_KERNELS = ("inlier_counts", "dlt_4pt", "window_gather")
+
+
+def _stress_points(device):
+    """Phase 5's stress scene (10k points, 8 planes, 70% outliers) padded
+    to 10240, on `device`."""
+    import multih_tpu_torch as mt
+    from multih_tpu_torch.utils import data
+
+    cs, _ = data.synthetic_scene(10000, 8, 0.7, 0.5, seed=42)
+    return _to(device, *mt.pad_points(cs.x1, cs.x2, None, 10240))
+
+
+def _hv_inputs(cfg, x1, x2, valid):
+    """The Morton-sorted points and sampling graph that fit() hands its
+    hypothesize + verify stages on the windowed path (stress config:
+    the windowed graph of positions and 2x motion)."""
+    import torch
+
+    from multih_tpu_torch.models import labeling, pipeline
+
+    perm = pipeline.morton_order(x1, valid)
+    x1, x2, valid = x1[perm], x2[perm], valid[perm]
+    feat = torch.cat([x1, cfg.sampling_motion_weight * (x2 - x1)], dim=1)
+    nbr, _ = labeling.knn_graph_windowed(feat, valid, cfg.knn_k,
+                                         cfg.agree_block)
+    return x1, x2, valid, nbr
+
+
+def _traced_device_ms(fn, trace_dir: str, worker: str) -> dict:
+    """Device ms of one warm call of fn, read by utils/tracing.py from
+    the torch.profiler trace that tensorboard_trace_handler writes: all
+    its kernels, and the NCCL kernels among them (which spin on the card
+    until every peer has arrived). A session that came back with no
+    device events is taken again, up to 5 times."""
+    import torch
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+
+    from multih_tpu_torch.utils import tracing
+
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(5):
+        d = os.path.join(trace_dir, f"{worker}-{attempt}")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     on_trace_ready=tensorboard_trace_handler(
+                         d, worker_name=worker)):
+            fn()
+            torch.cuda.synchronize()
+        times = tracing.module_device_times_ms(d, min_ms=0.0)
+        if times:
+            nccl = tracing.module_device_times_ms(d, 0.0, "nccl")
+            return dict(all_ms=sum(times), kernels=len(times),
+                        nccl_ms=sum(nccl), nccl_kernels=len(nccl))
+    check(False, f"{worker}: the trace held no device kernel")
+
+
+def _golden_batch():
+    """The 24 golden scenes and their taus (phase 10's batch)."""
+    from multih_tpu_torch.utils import data
+
+    css = [data.suite_scene(row[0]) for row in data.SUITE]
+    taus = [float(np.load(os.path.join(ROOT, "tests", "goldens",
+                                       f"{cs.name}.npz"))["inlier_threshold"])
+            for cs in css]
+    return css, taus
+
+
+def _mesh_rank(rank, device, trace_dir):
+    """One of phase 11's two gloo ranks on the one card: (a) the stress
+    fit with its pool split over a (1, 2) mesh, (b) the motion fit on
+    fm4_a the same way, (c) sharded_verification of the stress pool, (d)
+    the 24-pair batch on a (2, 1) mesh. Returns what the parent checks,
+    as numpy."""
+    import torch
+
+    import multih_tpu_torch as mt
+    from multih_tpu_torch.models import pipeline
+    from multih_tpu_torch.ops.sampling import TorchDraws
+    from multih_tpu_torch.ops.topk import top_k_stable
+    from multih_tpu_torch.parallel import sharding
+
+    out, launches = {}, {}
+    hyp = sharding.make_mesh(pair_axis=1, device=device)
+    pair = sharding.make_mesh(device=device)
+    gen = torch.Generator(device=device)
+
+    def fit_out(res):
+        return {k: getattr(res, k).cpu().numpy()
+                for k in ("labels", "active", "n_hypotheses_ok",
+                          "homographies")}
+
+    # (a) the stress fit, hyp-sharded
+    cfg = stress_cfg()
+    args = _stress_points(device)
+    f = sharding.hyp_sharded_fit(cfg, hyp)
+    hyp.host_staged = 0
+    res, launches["mesh_stress"] = count_launches(
+        f"mesh stress rank {rank}", MESH_KERNELS,
+        lambda: f(*args, gen.manual_seed(0)), quiet=True)
+    out["stress"] = fit_out(res)
+    out["stress_staged_bytes"] = hyp.host_staged
+    out["stress_warm_ms"] = host_ms(lambda: f(*args, gen.manual_seed(0)),
+                                    reps=3)
+    xs = _hv_inputs(cfg, *args)
+
+    def hv():
+        return pipeline._hypothesize_verify_sharded(
+            TorchDraws(gen.manual_seed(0)), *xs, cfg, None, hyp,
+            window_block=cfg.agree_block)
+
+    out["hv_cand"] = hv()[1].cpu().numpy()
+    out["hv"] = _traced_device_ms(hv, trace_dir, f"rank{rank}")
+
+    # (b) the motion fit on fm4_a, hyp-sharded
+    mcfg = motion_cfg(512)
+    margs = _motion_points("fm4_a", 512, device)
+    fm = sharding.hyp_sharded_fit(mcfg, hyp)
+    res, launches["mesh_motion"] = count_launches(
+        f"mesh motion rank {rank}", ("inlier_counts_f",),
+        lambda: fm(*margs, gen.manual_seed(0)), quiet=True)
+    out["motion"] = fit_out(res)
+
+    # (c) sharded verification of the stress pool
+    Hs, _ = pipeline.generate_hypotheses(
+        TorchDraws(gen.manual_seed(0)), *xs, cfg,
+        window_block=cfg.agree_block)
+    verify = sharding.sharded_verification(cfg, hyp, replication_check=True)
+    c, i, ok = verify(Hs, *xs[:3])
+    counts = pipeline.count_inliers(Hs, *xs[:3], cfg)
+    rc, ri = top_k_stable(counts, cfg.n_candidates)
+    out["verify"] = dict(
+        pool=Hs.shape[0], equal=bool(torch.equal(c, rc)
+                                     and torch.equal(i, ri)),
+        replicated=float(ok),
+        sharded_ms=host_ms(lambda: verify(Hs, *xs[:3]), reps=3),
+        single_ms=host_ms(lambda: top_k_stable(pipeline.count_inliers(
+            Hs, *xs[:3], cfg), cfg.n_candidates), reps=3))
+
+    # (d) the 24 golden scenes on a (2, 1) mesh: 12 pairs a rank
+    bcfg = mt.MultiHConfig(max_points=1024)
+    css, taus = _golden_batch()
+    prepared = sharding.prepare_benchmark_batch(css, bcfg, taus=taus,
+                                                mesh=pair)
+    pair.host_staged = 0
+    bres, launches["mesh_batch"] = count_launches(
+        f"mesh batch rank {rank}", ("inlier_counts", "dlt_4pt"),
+        lambda: sharding.run_benchmark_batch(css, bcfg, seed=0,
+                                             prepared=prepared, mesh=pair),
+        quiet=True)
+    out["batch"] = bres._asdict()
+    out["batch_staged_bytes"] = pair.host_staged
+    out["batch_ms"] = host_ms(lambda: sharding.run_benchmark_batch(
+        css, bcfg, seed=0, prepared=prepared, mesh=pair), reps=2)
+    out["launches"] = launches
+    return out
+
+
+def _nccl_rank(rank, device):
+    """(e): sharded_verification of the stress pool on a one-rank NCCL
+    mesh, so that NCCL's all_gather runs on the card."""
+    import torch
+    import torch.distributed as dist
+
+    from multih_tpu_torch.models import pipeline
+    from multih_tpu_torch.ops.sampling import TorchDraws
+    from multih_tpu_torch.ops.topk import top_k_stable
+    from multih_tpu_torch.parallel import sharding
+
+    m = sharding.make_mesh(device=device)
+    cfg = stress_cfg()
+    xs = _hv_inputs(cfg, *_stress_points(device))
+    Hs, _ = pipeline.generate_hypotheses(
+        TorchDraws(torch.Generator(device=device).manual_seed(0)), *xs, cfg,
+        window_block=cfg.agree_block)
+    c, i, ok = sharding.sharded_verification(cfg, m, True)(Hs, *xs[:3])
+    rc, ri = top_k_stable(pipeline.count_inliers(Hs, *xs[:3], cfg),
+                          cfg.n_candidates)
+    return dict(backend=dist.get_backend(), shape=m.shape,
+                equal=bool(torch.equal(c, rc) and torch.equal(i, ri)),
+                replicated=float(ok), staged=m.host_staged)
+
+
+def phase_mesh(dev, batch):
+    """Phase 11: the 'pair' and 'hyp' mesh axes, two gloo ranks sharing
+    the one card (NCCL refuses two ranks on one device; gloo gathers CUDA
+    tensors through the host, counted), then one NCCL rank. Each rank's
+    results against this process's single-device fits on the card."""
+    import tempfile
+
+    import torch
+
+    import multih_tpu_torch as mt
+    from multih_tpu_torch.models import pipeline
+    from multih_tpu_torch.ops.sampling import TorchDraws
+    from multih_tpu_torch.parallel import mesh
+
+    print("== 11. the mesh: a (1, 2) and a (2, 1) mesh of two gloo ranks "
+          "on the one card, and a one-rank NCCL mesh")
+    t_start = time.perf_counter()
+    out = {}
+    gen = torch.Generator(device=dev)
+    cfg = stress_cfg()
+    args = _stress_points(dev)
+    ref = mt.fit(*args, gen.manual_seed(0), cfg)
+    single_warm = host_ms(lambda: mt.fit(*args, gen.manual_seed(0), cfg),
+                          reps=3)
+    xs = _hv_inputs(cfg, *args)
+
+    def hv():
+        return pipeline._hypothesize_verify(
+            TorchDraws(gen.manual_seed(0)), *xs, cfg, None, [], [],
+            cfg.agree_block)
+
+    ref_cand = hv()[0].cpu().numpy()
+    mcfg = motion_cfg(512)
+    mref = mt.fit(*_motion_points("fm4_a", 512, dev), gen.manual_seed(0),
+                  mcfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        single_hv = _traced_device_ms(hv, tmp, "single")
+        t0 = time.perf_counter()
+        ranks = mesh.spawn(_mesh_rank, 2, "gloo", lambda r: "cuda:0",
+                           timeout_s=400.0, args=(tmp,))
+        t_gloo = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nccl = mesh.spawn(_nccl_rank, 1, "nccl", lambda r: "cuda:0",
+                      timeout_s=180.0)[0]
+    t_nccl = time.perf_counter() - t0
+    launches = {}
+    for r, got in enumerate(ranks):
+        for label, want, model in (("stress", ref, cfg),
+                                   ("motion", mref, mcfg)):
+            g = got[label]
+            h_diff = float(np.abs(g["homographies"]
+                                  - want.homographies.cpu().numpy()).max())
+            same = all(np.array_equal(g[k], getattr(want, k).cpu().numpy())
+                       for k in ("labels", "active", "n_hypotheses_ok"))
+            print(f"rank {r} {label} fit on the (1, 2) mesh: planes "
+                  f"{int(g['active'].sum())}, labels / active / "
+                  f"n_hypotheses_ok equal to the single card fit {same}, "
+                  f"H max diff {h_diff:.3g}")
+            check(same, f"rank {r} {label}: not the single fit")
+            np.testing.assert_allclose(g["homographies"],
+                                       want.homographies.cpu().numpy(),
+                                       rtol=2e-4, atol=2e-5)
+        check(int(got["stress"]["active"].sum()) == 8,
+              f"rank {r}: {int(got['stress']['active'].sum())} planes of 8")
+        cand_diff = float(np.abs(got["hv_cand"] - ref_cand).max())
+        check(cand_diff <= 2e-5 + 2e-4 * float(np.abs(ref_cand).max()),
+              f"rank {r}: candidates {cand_diff:.3g} from the single pick")
+        v = got["verify"]
+        print(f"rank {r} sharded_verification of the {v['pool']}-hypothesis "
+              f"stress pool: equal to the unsharded stable top-"
+              f"{cfg.n_candidates} {v['equal']}, replicated "
+              f"{v['replicated']}; warm ms sharded "
+              f"{', '.join(f'{x:.2f}' for x in v['sharded_ms'])}, single "
+              f"{', '.join(f'{x:.2f}' for x in v['single_ms'])}")
+        check(v["equal"] and v["replicated"] == 1.0,
+              f"rank {r}: sharded verification {v}")
+        for name, a in batch._asdict().items():
+            check(np.array_equal(got["batch"][name], a),
+                  f"rank {r}: (2, 1) batch {name} not phase 10's batch")
+        for path, c in got["launches"].items():
+            launches[f"{path}_r{r}"] = c
+        ml = got["launches"]["mesh_stress"]
+        print(f"rank {r} launches, sharded stress fit: K1 "
+              f"{ml['inlier_counts']}, K2 {ml['dlt_4pt']}, K7 "
+              f"{ml['window_gather']} (all: {ml}); motion K1 (f_) "
+              f"{got['launches']['mesh_motion']['inlier_counts_f']}; batch "
+              f"(12 pairs) K1 {got['launches']['mesh_batch']['inlier_counts']}")
+        print(f"rank {r} hypothesize + verify device ms (utils/tracing.py): "
+              f"{got['hv']['all_ms']:.4f} over {got['hv']['kernels']} "
+              f"kernels; "
+              f"host-staged bytes: stress fit {got['stress_staged_bytes']}, "
+              f"batch {got['batch_staged_bytes']}")
+    check(all(np.array_equal(ranks[0]["batch"][k], ranks[1]["batch"][k])
+              for k in ranks[0]["batch"]), "the ranks' batches differ")
+    print(f"single-process hypothesize + verify device ms "
+          f"(utils/tracing.py): {single_hv['all_ms']:.4f} over "
+          f"{single_hv['kernels']} kernels [{card_line()}]")
+    print(f"stress warm wall ms, (1, 2) mesh on one card, rank 0: "
+          f"{', '.join(f'{x:.1f}' for x in ranks[0]['stress_warm_ms'])}; "
+          f"single process: {', '.join(f'{x:.1f}' for x in single_warm)}")
+    print(f"24-pair batch wall ms on the (2, 1) mesh, rank 0: "
+          f"{', '.join(f'{x:.1f}' for x in ranks[0]['batch_ms'])}; all 24 "
+          f"pairs equal to phase 10's batch on both ranks")
+    print(f"NCCL one-rank mesh {nccl['shape']} ({nccl['backend']}): "
+          f"sharded_verification equal {nccl['equal']}, replicated "
+          f"{nccl['replicated']}, host-staged bytes {nccl['staged']}")
+    check(nccl["equal"] and nccl["replicated"] == 1.0
+          and nccl["staged"] == 0, f"NCCL mesh: {nccl}")
+    print(f"phase 11: {time.perf_counter() - t_start:.1f} s (gloo ranks "
+          f"{t_gloo:.1f} s, NCCL rank {t_nccl:.1f} s)")
+    out = dict(
+        single=dict(stress_warm_ms=single_warm, hv=single_hv),
+        ranks=[dict(stress_warm_ms=g["stress_warm_ms"], hv=g["hv"],
+                    stress_staged_bytes=g["stress_staged_bytes"],
+                    batch_staged_bytes=g["batch_staged_bytes"],
+                    batch_ms=g["batch_ms"], verify=g["verify"],
+                    launches=g["launches"]) for g in ranks],
+        nccl=nccl, seconds=dict(gloo=t_gloo, nccl=t_nccl))
     return out, launches
 
 
@@ -1903,8 +2229,10 @@ def main(argv=None) -> int:
     adaptive, launches["adaptive"] = phase_adaptive(dev)
     stream, launches["stream_run"] = phase_stream(dev)
     mixed, launches["mixed"], launches["mixed_gather"] = phase_mixed(dev)
-    surfaces, surface_launches = phase_surfaces(dev)
+    surfaces, surface_launches, batch_res = phase_surfaces(dev)
     launches.update(surface_launches)
+    mesh_out, mesh_launches = phase_mesh(dev, batch_res)
+    launches.update(mesh_launches)
     if args.profile:
         profile_fit()
         profile_stress()
@@ -1929,7 +2257,8 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": rows, "fit_latency_n512": latency,
                       "stress": stress, "motion": motion,
                       "adaptive": adaptive, "stream": stream,
-                      "mixed": mixed, "surfaces": surfaces}))
+                      "mixed": mixed, "surfaces": surfaces,
+                      "mesh": mesh_out}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,6 +12,7 @@ Example:
     multih-torch fit data/johnsona.mat --threshold 3.0 --lambda 0.3
     multih-torch synth --planes 3 --points 600 --noise 0.5 --json
     multih-torch bench-adelaide path/to/adelaide_dir
+    torchrun --nproc-per-node 2 -m multih_tpu_torch.cli bench-adelaide dir
     multih-torch stream synth --frames 30
 """
 
@@ -360,11 +361,34 @@ def cmd_synth(args):
     _fit_one(cs, args)
 
 
+def _world_mesh(dev: torch.device):
+    """make_mesh() over every rank when the process is one of several:
+    started under torchrun (WORLD_SIZE set; the process group is joined
+    here, NCCL on the card, gloo on the CPU) or inside a joined group;
+    else None. On the card each rank takes cuda:<LOCAL_RANK % cards>."""
+    import os
+
+    import torch.distributed as dist
+
+    from multih_tpu_torch.parallel import sharding
+
+    if not dist.is_initialized():
+        if "WORLD_SIZE" not in os.environ:
+            return None
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+    mesh = sharding.make_mesh(device="cpu" if dev.type == "cpu" else None)
+    if mesh.device.type == "cuda":
+        torch.cuda.set_device(mesh.device)
+    return mesh
+
+
 def cmd_bench_adelaide(args):
     """The AdelaideRMF homography pairs as one batch
     (parallel/sharding.run_benchmark_batch): every pair padded to one
     bucket and uploaded once, one global tau or --adaptive-tau for
-    per-pair self-calibration; a cold and a warm pass."""
+    per-pair self-calibration; a cold and a warm pass. Under torchrun the
+    pairs split over the ranks (make_mesh(): every rank on the 'pair'
+    axis), every rank fits its share, and only rank 0 prints."""
     from multih_tpu_torch.parallel import sharding
     from multih_tpu_torch.utils import data, evaluation
 
@@ -375,18 +399,24 @@ def cmd_bench_adelaide(args):
         sys.exit(1)
     _reject_mixed(args, "bench-adelaide (single-class batched dispatch)")
     dev = _device(args)
+    mesh = _world_mesh(dev)
+    if mesh is not None:
+        dev = mesh.device
     css = [data.load_adelaide_mat(p) for p in paths]
     args.n_points_hint = max(cs.n_points for cs in css)
     cfg = _build_config(args)
-    prepared = sharding.prepare_benchmark_batch(css, cfg, device=dev)
+    prepared = sharding.prepare_benchmark_batch(css, cfg, device=dev,
+                                                mesh=mesh)
 
     def run(seed):
         return sharding.run_benchmark_batch(
             css, cfg, seed=seed, adaptive=args.adaptive_tau,
-            prepared=prepared)
+            prepared=prepared, mesh=mesh)
 
     res, t_total = _timed(dev, lambda: run(args.seed))  # kernels built
     res, t_warm = _timed(dev, lambda: run(args.seed + 1))
+    if mesh is not None and mesh.rank != 0:
+        return
 
     errs = []
     for i, cs in enumerate(css):
@@ -410,7 +440,7 @@ def cmd_bench_adelaide(args):
         ),
         "batch_wall_s_cold": round(t_total, 3),
         "batch_wall_s_warm": round(t_warm, 3),
-        "devices": 1,
+        "devices": 1 if mesh is None else mesh.ranks.size,
     }
     print(json.dumps({"summary": summary}))
 

@@ -33,8 +33,11 @@ stable descending sort (ops.topk.top_k_stable), every argsort is
 stable, `.at[].add` scatters are index_add_, and lax.scan / fori_loop
 bodies are Python loops that never wait on the device.
 
-Out of the port so far, `fit` raises NotImplementedError for a device
-mesh.
+With a mesh (parallel/mesh.py) whose 'hyp' axis is > 1, hypothesis
+generation and the verification sweep split over the axis's ranks
+(`_hypothesize_verify_sharded`) and the rest of the fit runs replicated;
+the result equals the single-device fit's. A mesh with a 'pt' (point)
+axis raises NotImplementedError: that axis is not ported yet.
 """
 
 from __future__ import annotations
@@ -286,47 +289,84 @@ def count_inliers(Hs, x1, x2, valid, cfg: MultiHConfig, tau=None,
     )
 
 
+def _claim_order(c_all, s_all, n: int):
+    """The first n positions of the gathered (count, slot) candidates in
+    (count descending, slot ascending) order: the reference's
+    ``lexsort((slots, -counts))`` (pipeline.py:403, :664), which is
+    top_k's tie order on the unsharded pool. Two stable sorts, slot
+    first, give it without a combined key."""
+    by_slot = torch.argsort(s_all, stable=True)
+    by_count = torch.argsort(-c_all[by_slot], stable=True)
+    return by_slot[by_count][:n]
+
+
 def generate_hypotheses(draws, x1, x2, valid, nbr_idx, cfg: MultiHConfig,
-                        tau=None, window_block: int = 0):
+                        tau=None, window_block: int = 0, shard=None):
     """Minimal-sample hypotheses in cfg.progressive_rounds guided rounds:
     after each round its top-R candidates are LO-grown together, greedily
     accepted when mostly novel, and their inliers claimed, so the next
     round samples among unclaimed points. With `window_block` > 0 a
     round whose sample count divides into the N // window_block Morton
     windows draws window-stratified samples
-    (sampling.windowed_quadruples). Returns (Hs, ok)."""
+    (sampling.windowed_quadruples). Returns (Hs, ok).
+
+    shard: a parallel.mesh.Mesh whose 'hyp' axis splits the pool
+    (pipeline.py:281). Every rank makes every draw, full-size, in the
+    same order; only its slice [d * s_loc, (d + 1) * s_loc) of each
+    round's slots is solved and counted (the window path only where the
+    round's windows divide among the ranks). The ranks exchange their
+    local top-R (count, slot, H) triples, take the global top-R in
+    (count desc, slot asc) order, the unsharded pool's top_k order, and
+    LO-grow it replicated; only rank 0 surfaces the claimed planes.
+    Returns (Hs_local, ok_local, global_slots): the same slot holds the
+    same hypothesis as in the unsharded pool."""
     rounds = max(1, cfg.progressive_rounds)
     n_claim = max(1, cfg.claims_per_round)
     s_round = cfg.n_hypotheses // rounds
     s_rem = cfg.n_hypotheses - s_round * (rounds - 1)
     thr = _thr(cfg, tau, x1)
+    n_shards, d = ((shard.shape["hyp"], shard.axis_index("hyp"))
+                   if shard is not None else (1, 0))
 
     claimed = torch.zeros_like(valid)
-    pools, oks = [], []
+    pools, oks, slots = [], [], []
+    base = 0  # global slot of the round's first hypothesis
     for r in range(rounds):
         avail = valid * (1.0 - claimed)
         # too few unclaimed points: fall back to all valid, branch-free
         enough = (avail.sum() >= 16.0).to(x1.dtype)
         avail = avail * enough + valid * (1.0 - enough)
         n_s = s_rem if r == rounds - 1 else s_round
-        if window_block > 0 and n_s % (x1.shape[0] // window_block) == 0:
+        s_loc = n_s // n_shards
+        if n_s % n_shards:
+            raise ValueError(f"{n_s} hypotheses a round over {n_shards} "
+                             f"shards")
+        nb_win = x1.shape[0] // window_block if window_block > 0 else 0
+        if (window_block > 0 and n_s % nb_win == 0
+                and nb_win % n_shards == 0):
+            # window-major columns: a shard's windows are its slots
             gt = sampling.windowed_quadruples(
                 draws, r, x1, x2, avail, nbr_idx, n_s, window_block,
                 use_kernel=_kernels_enabled(cfg, x1.device),
+                window_range=(None if shard is None else
+                              (d * (nb_win // n_shards), nb_win // n_shards)),
             )
             Hs_r, ok_r = _solve_from_gt(gt, cfg)
         else:
             nbr_ok = avail[nbr_idx]
-            if cfg.model == "fundamental":
-                idx = _round_sample_indices(draws, r, avail, nbr_idx, nbr_ok,
-                                            n_s, m=cfg.f_sample_points)
-                Hs_r, ok_r = _solve_minimal_f(x1, x2, avail, idx, cfg)
-            else:
-                idx = _round_sample_indices(draws, r, avail, nbr_idx, nbr_ok,
-                                            n_s)
-                Hs_r, ok_r = _solve_minimal(x1, x2, avail, idx, cfg)
+            m_pts = (cfg.f_sample_points if cfg.model == "fundamental"
+                     else cfg.minimal_points)
+            idx = _round_sample_indices(draws, r, avail, nbr_idx, nbr_ok,
+                                        n_s, m=m_pts)
+            idx = idx[d * s_loc:(d + 1) * s_loc]
+            solve = (_solve_minimal_f if cfg.model == "fundamental"
+                     else _solve_minimal)
+            Hs_r, ok_r = solve(x1, x2, avail, idx, cfg)
         pools.append(Hs_r)
         oks.append(ok_r)
+        if shard is not None:
+            slots.append(base + d * s_loc
+                         + torch.arange(s_loc, device=x1.device))
         if r == rounds - 1:
             break
         ss = max(1, cfg.claim_subsample)
@@ -335,9 +375,15 @@ def generate_hypotheses(draws, x1, x2, valid, nbr_idx, cfg: MultiHConfig,
             kind=cfg.rank_residual or None,
         ) * ok_r
         # pipeline.py:393: top_k tie order
-        _, i_top = top_k_stable(counts_av, min(n_claim, n_s))
+        c_top, i_top = top_k_stable(counts_av, min(n_claim, s_loc))
+        H_top = Hs_r[i_top]
+        if shard is not None:
+            c_all = shard.all_gather(c_top, "hyp").reshape(-1)
+            s_all = shard.all_gather(i_top + d * s_loc, "hyp").reshape(-1)
+            H_all = shard.all_gather(H_top, "hyp").reshape(-1, 3, 3)
+            H_top = H_all[_claim_order(c_all, s_all, n_claim)]
         H_grown = lo_refine_candidates(
-            Hs_r[i_top], x1, x2, valid, cfg, cfg.lo_rounds, tau
+            H_top, x1, x2, valid, cfg, cfg.lo_rounds, tau
         )
         r_grown = model_residual_matrix(H_grown, x1, x2, cfg.residual, cfg)
         inl = (r_grown < thr).to(x1.dtype) * valid[None, :]  # (R, N)
@@ -349,9 +395,89 @@ def generate_hypotheses(draws, x1, x2, valid, nbr_idx, cfg: MultiHConfig,
                    & (n_novel >= 0.5 * inl[j].sum())).to(x1.dtype)
             claimed = torch.clamp(claimed + inl[j] * acc, 0.0, 1.0)
             accepted.append(acc)
+        acc_v = torch.stack(accepted)
         pools.append(H_grown)
-        oks.append(torch.stack(accepted))
+        if shard is not None:
+            # every rank knows the claimed planes; only rank 0 surfaces
+            # them to the verification sweep
+            oks.append(acc_v if d == 0 else torch.zeros_like(acc_v))
+            slots.append(base + n_s + torch.arange(H_grown.shape[0],
+                                                   device=x1.device))
+        else:
+            oks.append(acc_v)
+        base += n_s + H_grown.shape[0]
+    if shard is not None:
+        return torch.cat(pools), torch.cat(oks), torch.cat(slots)
     return torch.cat(pools), torch.cat(oks)
+
+
+def _hypothesize_verify_sharded(draws, x1, x2, valid, nbr_sample,
+                                cfg: MultiHConfig, tau, mesh,
+                                extra_Hs=None, extra_ok=None,
+                                window_block: int = 0,
+                                replication_check: bool = False):
+    """Hypothesis generation and the verification sweep + top-M, split
+    over the mesh's 'hyp' axis (pipeline.py:576): each rank solves and
+    counts its slice of every round (`generate_hypotheses(shard=mesh)`)
+    and its slice of the extras, padded to a multiple of the axis with
+    identity H's whose ok is 0, on slots after the pool's. Its local
+    top-m (count, slot, H) triples are gathered and merged in the
+    unsharded top_k's order; with cfg.verify_subsample > 1 the merged
+    pre-selection is rescored at full resolution, replicated. Returns
+    (top_counts (M,), Hs_cand (M, 3, 3), n_hyp_ok), the same on every
+    rank of the axis (plus the replication guard's {0, 1} with
+    `replication_check`)."""
+    n_shards, d = mesh.shape["hyp"], mesh.axis_index("hyp")
+    m = cfg.n_candidates
+    rounds = max(1, cfg.progressive_rounds)
+    s_total = cfg.n_hypotheses + (rounds - 1) * max(1, cfg.claims_per_round)
+    dev = x1.device
+    with record_function("hypothesize"):
+        Hs_loc, ok_loc, slot_loc = generate_hypotheses(
+            draws, x1, x2, valid, nbr_sample, cfg, tau,
+            window_block=window_block, shard=mesh,
+        )
+        if extra_Hs is not None:
+            pad = (-extra_Hs.shape[0]) % n_shards
+            extra_Hs = torch.cat([extra_Hs, torch.eye(
+                3, dtype=x1.dtype, device=dev).expand(pad, 3, 3)])
+            extra_ok = torch.cat([extra_ok, torch.zeros(
+                pad, dtype=x1.dtype, device=dev)])
+            e_loc = extra_Hs.shape[0] // n_shards
+            Hs_loc = torch.cat([Hs_loc, extra_Hs[d * e_loc:(d + 1) * e_loc]])
+            ok_loc = torch.cat([ok_loc, extra_ok[d * e_loc:(d + 1) * e_loc]])
+            slot_loc = torch.cat([slot_loc, s_total + d * e_loc
+                                  + torch.arange(e_loc, device=dev)])
+    vs = max(1, cfg.verify_subsample)
+    # pipeline.py:646: the rescore's pre-selection is capped by the pool
+    # without the extras, as the reference caps it
+    m_sel = min(cfg.verify_rescore * m, s_total) if vs > 1 else m
+    with record_function("verify"):
+        # rank_residual only when a full-resolution rescore follows
+        counts = count_inliers(
+            Hs_loc, x1[::vs], x2[::vs], valid[::vs], cfg, tau,
+            kind=(cfg.rank_residual or None) if vs > 1 else None,
+        ) * ok_loc
+        c_loc, i_loc = top_k_stable(counts, min(m_sel, counts.shape[0]))
+        c_all = mesh.all_gather(c_loc, "hyp").reshape(-1)
+        s_all = mesh.all_gather(slot_loc[i_loc], "hyp").reshape(-1)
+        h_all = mesh.all_gather(Hs_loc[i_loc], "hyp").reshape(-1, 3, 3)
+        n_ok = mesh.psum(ok_loc.sum(), "hyp")
+        if vs > 1:
+            o_all = mesh.all_gather(ok_loc[i_loc], "hyp").reshape(-1)
+            order = _claim_order(c_all, s_all, m_sel)
+            h_pre = h_all[order]
+            with record_function("verify_rescore"):
+                counts_full = count_inliers(h_pre, x1, x2, valid, cfg,
+                                            tau) * o_all[order]
+            c_fin, sel = top_k_stable(counts_full, m)
+            out = (c_fin, h_pre[sel], n_ok)
+        else:
+            order = _claim_order(c_all, s_all, m)
+            out = (c_all[order], h_all[order], n_ok)
+    if replication_check:
+        return out + (mesh.replicated_ok(out, "hyp"),)
+    return out
 
 
 def refit_planes(Hs, labels, residuals, x1, x2, valid, cfg: MultiHConfig,
@@ -828,12 +954,54 @@ def _f_refine_phases(Hs, active, q, draws, x1, x2, valid, nbr_idx, nbr_w,
     return Hs, q
 
 
+def _hypothesize_verify(draws, x1, x2, valid, nbr_sample,
+                        cfg: MultiHConfig, tau, extra_Hs, extra_ok,
+                        window_block: int):
+    """Single-device hypothesis generation, the extras appended, and the
+    verification sweep + top-M (pipeline.py:1214-1257): with
+    cfg.verify_subsample > 1 the ranking sweep runs on a Morton-strided
+    subsample and only the top M_pre are rescored at full resolution.
+    Returns (Hs_cand (M, 3, 3), n_hyp_ok)."""
+    with record_function("hypothesize"):
+        Hs_all, ok = generate_hypotheses(
+            draws, x1, x2, valid, nbr_sample, cfg, tau,
+            window_block=window_block,
+        )
+    if extra_Hs:
+        Hs_all = torch.cat([Hs_all] + extra_Hs)
+        ok = torch.cat([ok] + extra_ok)
+    vs = max(1, cfg.verify_subsample)
+    with record_function("verify"):
+        # rank_residual only when a full-resolution rescore follows
+        counts = count_inliers(
+            Hs_all, x1[::vs], x2[::vs], valid[::vs], cfg, tau,
+            kind=(cfg.rank_residual or None) if vs > 1 else None,
+        ) * ok
+        if vs > 1:
+            m_pre = min(cfg.verify_rescore * cfg.n_candidates,
+                        counts.shape[0])
+            # pipeline.py:1244/:1248: top_k tie order
+            _, pre_idx = top_k_stable(counts, m_pre)
+            counts_full = count_inliers(
+                Hs_all[pre_idx], x1, x2, valid, cfg, tau
+            ) * ok[pre_idx]
+            _, sel = top_k_stable(counts_full, cfg.n_candidates)
+            top_idx = pre_idx[sel]
+        else:
+            # pipeline.py:1253
+            _, top_idx = top_k_stable(counts, cfg.n_candidates)
+    return Hs_all[top_idx], ok.sum()
+
+
 def _check_slice(cfg: MultiHConfig, affines, mesh):
-    """NotImplementedError for a device mesh (ROADMAP section 1, item 6);
-    the reference's ValueError for affine hypotheses on another model
-    than homography (pipeline.py:1176-1180)."""
-    if mesh is not None:
-        raise NotImplementedError("not ported yet: a device mesh")
+    """NotImplementedError for a mesh with a 'pt' axis (not ported
+    yet); the reference's ValueError for affine hypotheses on another
+    model than homography (pipeline.py:1176-1180)."""
+    if mesh is not None and "pt" in mesh.shape:
+        raise NotImplementedError(
+            "not ported yet: the 'pt' (point) mesh axis, make_pt_mesh and "
+            "pt_sharded_fit, which need a halo exchange inside every "
+            "mean-field and ICM sweep")
     if affines is not None and cfg.model != "homography":
         raise ValueError(
             "affine one-point hypotheses are a homography-model path "
@@ -841,11 +1009,14 @@ def _check_slice(cfg: MultiHConfig, affines, mesh):
         )
 
 
-def _inputs(x1, x2, valid, device):
+def _inputs(x1, x2, valid, device, mesh=None):
     """float32 tensors of the inputs. Tensors keep their device; arrays
-    and lists go to `device`, by default the card. Asking for the card
-    without one raises: the fit never falls back to the CPU quietly."""
-    dev = torch.device("cuda" if device is None else device)
+    and lists go to `device`, by default the mesh's device, else the
+    card. Asking for the card without one raises: the fit never falls
+    back to the CPU quietly."""
+    if device is None:
+        device = "cuda" if mesh is None else mesh.device
+    dev = torch.device(device)
 
     def one(a):
         if isinstance(a, torch.Tensor):
@@ -878,11 +1049,15 @@ def fit(x1, x2, valid, key, cfg: MultiHConfig, affines=None, tau=None,
     (dp2/dp1 at each correspondence; homography model only): F is
     estimated from the points and one homography a point derived from (F,
     p1, p2, A), the paper's one-point pool (§3.1), joining the pool ahead
-    of the seeds. mesh exists for signature parity with the reference
-    and is not ported."""
-    x1, x2, valid = _inputs(x1, x2, valid, device)
-    n_pts = x1.shape[0]
+    of the seeds. mesh: a parallel.mesh.Mesh; where its 'hyp' axis is
+    > 1, hypothesis generation and verification split over that axis
+    (pipeline.py:1202-1212) and every rank of the axis returns the
+    single-device fit's result. Every rank passes the same inputs and a
+    key in the same state (a generator of the same seed), and array
+    inputs go to the mesh's device."""
     _check_slice(cfg, affines, mesh)
+    x1, x2, valid = _inputs(x1, x2, valid, device, mesh)
+    n_pts = x1.shape[0]
     if isinstance(key, torch.Generator):
         if key.device.type != x1.device.type:
             raise ValueError(f"generator on {key.device}, points on "
@@ -947,12 +1122,6 @@ def fit(x1, x2, valid, key, cfg: MultiHConfig, affines=None, tau=None,
             finite = torch.isfinite(H_aff.reshape(-1, 9)).all(1)
         extra_Hs.append(H_aff)
         extra_ok.append(valid * finite.to(x1.dtype))
-    with record_function("hypothesize"):
-        Hs_all, ok = generate_hypotheses(
-            draws, x1, x2, valid, nbr_sample, cfg, tau,
-            window_block=(cfg.agree_block
-                          if windowed and cfg.window_sampling else 0),
-        )
     if seed_Hs is not None:
         seed_Hs = torch.as_tensor(seed_Hs, dtype=x1.dtype,
                                   device=dev).reshape(-1, 3, 3)
@@ -961,31 +1130,19 @@ def fit(x1, x2, valid, key, cfg: MultiHConfig, affines=None, tau=None,
         extra_Hs.append(seed_Hs)
         extra_ok.append(s_finite if seed_ok is None else torch.as_tensor(
             seed_ok, dtype=x1.dtype, device=dev) * s_finite)
-    if extra_Hs:
-        Hs_all = torch.cat([Hs_all] + extra_Hs)
-        ok = torch.cat([ok] + extra_ok)
-    vs = max(1, cfg.verify_subsample)
-    with record_function("verify"):
-        # rank_residual only when a full-resolution rescore follows
-        counts = count_inliers(
-            Hs_all, x1[::vs], x2[::vs], valid[::vs], cfg, tau,
-            kind=(cfg.rank_residual or None) if vs > 1 else None,
-        ) * ok
-        if vs > 1:
-            m_pre = min(cfg.verify_rescore * cfg.n_candidates,
-                        counts.shape[0])
-            # pipeline.py:1244/:1248: top_k tie order
-            _, pre_idx = top_k_stable(counts, m_pre)
-            counts_full = count_inliers(
-                Hs_all[pre_idx], x1, x2, valid, cfg, tau
-            ) * ok[pre_idx]
-            _, sel = top_k_stable(counts_full, cfg.n_candidates)
-            top_idx = pre_idx[sel]
-        else:
-            # pipeline.py:1253
-            _, top_idx = top_k_stable(counts, cfg.n_candidates)
-    Hs_cand = Hs_all[top_idx]
-    n_hyp_ok = ok.sum()
+    window_block = (cfg.agree_block if windowed and cfg.window_sampling
+                    else 0)
+    if mesh is not None and mesh.shape.get("hyp", 1) > 1:
+        _, Hs_cand, n_hyp_ok = _hypothesize_verify_sharded(
+            draws, x1, x2, valid, nbr_sample, cfg, tau, mesh,
+            torch.cat(extra_Hs) if extra_Hs else None,
+            torch.cat(extra_ok) if extra_Hs else None,
+            window_block=window_block,
+        )
+    else:
+        Hs_cand, n_hyp_ok = _hypothesize_verify(
+            draws, x1, x2, valid, nbr_sample, cfg, tau, extra_Hs, extra_ok,
+            window_block)
 
     with record_function("lo_refine"):
         Hs_top = lo_refine_candidates(Hs_cand, x1, x2, valid, cfg,
@@ -1121,8 +1278,9 @@ def fit_adaptive(x1, x2, valid, key, cfg: MultiHConfig,
     its members, then the fit at that tau. key: a ``torch.Generator`` or
     draw source drawn by both passes in turn, or a (probe, fit) pair of
     them (the reference splits its key in two). tau stays on the device
-    between the passes. Returns (FitResult, tau)."""
-    x1, x2, valid = _inputs(x1, x2, valid, device)
+    between the passes. mesh: as `fit`'s, for both passes. Returns
+    (FitResult, tau)."""
+    x1, x2, valid = _inputs(x1, x2, valid, device, mesh)
     k_probe, k_fit = key if isinstance(key, tuple) else (key, key)
     res0 = fit(x1, x2, valid, k_probe, cfg, tau=probe_tau, mesh=mesh)
     tau = estimate_tau(res0, x1, x2, valid, cfg)

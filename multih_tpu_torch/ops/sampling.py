@@ -210,10 +210,13 @@ def windowed_quadruples(draws, stream, x1, x2, avail, nbr_idx,
     CUDA window_gather kernel, else with its plain version.
 
     Requires N % block == 0, n_samples % (N // block) == 0 and a
-    window-constrained nbr_idx (labeling.knn_graph_windowed). The sharded
-    form (`window_range`) is not ported."""
-    if window_range is not None:
-        raise NotImplementedError("windowed_quadruples(window_range=...)")
+    window-constrained nbr_idx (labeling.knn_graph_windowed).
+
+    `window_range=(w0, nw)` returns only windows [w0, w0 + nw)'s columns,
+    the slot range [w0 * S/nb, (w0 + nw) * S/nb) (sampling.py:251): every
+    draw is made full-size, as in the unsharded call, and only the
+    gathers run on the slice, so the shards' columns concatenate to the
+    unsharded call's bit for bit."""
     n, k = nbr_idx.shape
     nb = n // block
     if n % block or n_samples % nb:
@@ -242,28 +245,36 @@ def windowed_quadruples(draws, stream, x1, x2, avail, nbr_idx,
                                    torch.maximum(hi, lo + 1), sg_l)
     g = draws.gumbel(("win_n", stream), (nb, sg_l, k), dev)
 
+    # a dim-0 slice of the contiguous source keeps every window 16-byte
+    # aligned, as the kernel needs (its window is a multiple of 16 bytes)
+    w0, nw = (0, nb) if window_range is None else window_range
+    if not (0 <= w0 and 0 < nw and w0 + nw <= nb):
+        raise ValueError(f"window_range {window_range} of {nb} windows")
+    win_all, ranks_u, ranks_s, g = (a[w0:w0 + nw] for a in
+                                    (win_all, ranks_u, ranks_s, g))
+
     gather = (gather_kernel.window_gather if use_kernel
               else gather_kernel.window_gather_reference)
     sel_rank = torch.cat([ranks_u, ranks_s], dim=1).to(torch.int32)
-    out_r = gather(win_all, sel_rank.contiguous(), "rank")  # (nb, C, T)
+    out_r = gather(win_all, sel_rank.contiguous(), "rank")  # (nw, C, T)
     u_part = out_r[:, :8, :sg_u * MINIMAL_SAMPLE]
     s_part = out_r[:, :, sg_u * MINIMAL_SAMPLE:]
 
-    seed_loc = s_part[:, POS_CH, :]  # (nb, Sg_l) window-local position
-    nbr_rows = s_part[:, NBR_CH:NBR_CH + k, :].transpose(1, 2)  # (nb,Sg_l,k)
+    seed_loc = s_part[:, POS_CH, :]  # (nw, Sg_l) window-local position
+    nbr_rows = s_part[:, NBR_CH:NBR_CH + k, :].transpose(1, 2)  # (nw,Sg_l,k)
     # sampling.py:284: jax.lax.top_k tie order
     _, slots = top_k_stable(g, 3)
-    picked = torch.gather(nbr_rows, 2, slots)  # (nb, Sg_l, 3) global
-    v_off = ((torch.arange(nb, dtype=torch.float32, device=dev) - 1.0)
-             * block)[:, None, None]
+    picked = torch.gather(nbr_rows, 2, slots)  # (nw, Sg_l, 3) global
+    v_off = ((torch.arange(w0, w0 + nw, dtype=torch.float32, device=dev)
+              - 1.0) * block)[:, None, None]
     quad_loc = torch.cat([seed_loc[:, :, None], picked - v_off], dim=2)
-    quad_loc = quad_loc.reshape(nb, sg_l * MINIMAL_SAMPLE).to(torch.int32)
+    quad_loc = quad_loc.reshape(nw, sg_l * MINIMAL_SAMPLE).to(torch.int32)
     out_i = gather(win_all[:, :, :8].contiguous(), quad_loc.contiguous(),
                    "index")
 
-    def to_rows(part, s_count):  # (nb, 8, s*4) -> (32, nb, s)
-        return part.reshape(nb, 8, s_count, MINIMAL_SAMPLE).permute(
-            3, 1, 0, 2).reshape(32, nb, s_count)
+    def to_rows(part, s_count):  # (nw, 8, s*4) -> (32, nw, s)
+        return part.reshape(nw, 8, s_count, MINIMAL_SAMPLE).permute(
+            3, 1, 0, 2).reshape(32, nw, s_count)
 
     return torch.cat([to_rows(u_part, sg_u), to_rows(out_i, sg_l)],
-                     dim=2).reshape(32, nb * sg)
+                     dim=2).reshape(32, nw * sg)

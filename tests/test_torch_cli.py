@@ -10,7 +10,9 @@ import pytest
 import torch
 from scipy.io import savemat
 
+import torch_mesh_ranks
 from multih_tpu_torch import cli
+from multih_tpu_torch.parallel import mesh as tmesh
 from multih_tpu_torch.utils import data as tdata
 
 torch.set_num_threads(1)
@@ -94,6 +96,28 @@ def test_bench_adelaide(capsys, tmp_path):
     assert summary["pairs"] == 2 and summary["devices"] == 1
     assert summary["mean_misclassification_pct"] < 5
     assert summary["batch_wall_s_warm"] > 0
+
+
+def test_bench_adelaide_on_two_ranks(capsys, tmp_path):
+    """bench-adelaide in a process group of 2 gloo CPU ranks (as under
+    torchrun): the pairs split over the ranks, only rank 0 prints, its
+    rows are the single-process run's and "devices" is the world size."""
+    for name, seed, n in (("johnsona", 1, 150), ("neem", 2, 110),
+                          ("oldclassicswing", 3, 90)):
+        cs, _ = tdata.synthetic_scene(n, 2, 0.1, 0.5, seed=seed)
+        write_adelaide(tmp_path / f"{name}.mat", cs)
+    argv = ["bench-adelaide", str(tmp_path), *SMALL]
+    printed = tmesh.spawn(torch_mesh_ranks.cli_rank, 2, "gloo",
+                          lambda r: "cpu", 90.0, args=(argv,))
+    assert printed[1] == ""
+    lines = [json.loads(s) for s in printed[0].splitlines()]
+    cli.main(argv)
+    alone = [json.loads(s) for s in capsys.readouterr().out.splitlines()]
+    assert lines[:-1] == alone[:-1] and len(lines) == 4
+    summary = lines[-1]["summary"]
+    assert summary["devices"] == 2 and alone[-1]["summary"]["devices"] == 1
+    assert summary["mean_misclassification_pct"] == \
+        alone[-1]["summary"]["mean_misclassification_pct"]
 
 
 def test_bench_adelaide_empty_dir(tmp_path):

@@ -1,0 +1,267 @@
+"""The port's mesh axes on the CPU: parallel/mesh.py's Mesh and
+collectives, parallel/sharding.py's hyp-sharded fit, sharded
+verification and pair-split batches, against the port's own single-device
+results, and two pieces against the JAX package.
+
+One module fixture spawns 4 gloo ranks on the CPU once
+(tests/torch_mesh_ranks.py::mesh_rank, under a deadline after which the
+ranks are killed and the fixture fails). Each rank writes its results as
+numpy under tmp_path; each check below is a test of its own. The (1, 4),
+(1, 2), (2, 2) and (4, 1) meshes are built over the 4 ranks; the (2, 2)
+mesh's two rows fit different cases at once.
+
+In this process: `windowed_quadruples(window_range=)` against JAX's on
+replayed draws, and `sharded_verification` against
+``jax.lax.top_k(pipeline.count_inliers(...))`` on one CPU device. No JAX
+fit is compiled.
+"""
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import multih_tpu
+from multih_tpu.models import pipeline as jpipe
+from multih_tpu.ops import sampling as jsamp
+
+import multih_tpu_torch as mt
+from multih_tpu_torch.models import pipeline as tpipe
+from multih_tpu_torch.ops import sampling as tsamp
+from multih_tpu_torch.ops.topk import top_k_stable
+from multih_tpu_torch.parallel import mesh as tmesh
+from multih_tpu_torch.parallel import sharding as tshard
+import torch_mesh_ranks as R
+from test_torch_kernels import t
+from test_torch_windowed import (KeyWindowDraws, _knn_windowed,
+                                 morton_scene)
+
+torch.set_num_threads(1)
+
+WORLD = 4
+SPAWN_DEADLINE_S = 90.0
+
+
+@pytest.fixture(scope="module")
+def ranks_dir(tmp_path_factory):
+    out = tmp_path_factory.mktemp("mesh_ranks")
+    done = tmesh.spawn(R.mesh_rank, WORLD, "gloo", lambda r: "cpu",
+                       SPAWN_DEADLINE_S, args=(str(out),))
+    assert done == list(range(WORLD))
+    return out
+
+
+def load(out, name, rank):
+    with np.load(os.path.join(out, f"{name}_r{rank}.npz")) as f:
+        return dict(f)
+
+
+# ---------------------------------------------------------------------------
+# the meshes
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name,devices,shape", [
+    ("1x4", range(4), (1, 4)), ("1x2", range(2), (1, 2)),
+    ("2x2", range(4), (2, 2)), ("4x1", range(4), (4, 1))])
+def test_mesh_layout(ranks_dir, name, devices, shape):
+    """Row-major ranks (sharding.py:42), coordinates, and all_gather /
+    psum along each axis in axis order; a rank left out of the mesh has
+    no coordinates."""
+    grid = np.array(list(devices)).reshape(shape)
+    for rank in range(WORLD):
+        got = load(ranks_dir, f"mesh_{name}", rank)
+        assert tuple(got["shape"]) == shape
+        if rank not in grid:
+            assert tuple(got["coords"]) == (-1, -1)
+            assert "gather_hyp" not in got
+            continue
+        p, h = (int(c) for c in np.argwhere(grid == rank)[0])
+        assert tuple(got["coords"]) == (p, h)
+        np.testing.assert_array_equal(got["gather_hyp"], grid[p])
+        np.testing.assert_array_equal(got["gather_pair"], grid[:, h])
+        np.testing.assert_array_equal(got["psum_hyp"], [grid[p].sum()])
+        np.testing.assert_array_equal(got["psum_pair"], [grid[:, h].sum()])
+
+
+def test_world_one_mesh_needs_no_process_group():
+    m = tshard.make_mesh(device="cpu")
+    assert m.shape == {"pair": 1, "hyp": 1} and m.coords == (0, 0)
+    x = torch.arange(6.0).reshape(2, 3)
+    assert torch.equal(m.all_gather(x, "hyp"), x[None])
+    assert torch.equal(m.psum(x, "pair"), x)
+    assert float(m.replicated_ok([x], "hyp")) == 1.0
+
+
+def test_spawn_reports_a_failed_rank():
+    with pytest.raises(RuntimeError, match="rank 1 failed"):
+        tmesh.spawn(R.failing_rank, 2, "gloo", lambda r: "cpu", 60.0)
+
+
+def test_cuda_mesh_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tshard.make_mesh()
+
+
+# ---------------------------------------------------------------------------
+# the hyp-sharded fit against the unsharded fit
+# ---------------------------------------------------------------------------
+
+HYP_RUNS = [("hyp4", case, range(4)) for case in R.HYP4_CASES] + [
+    ("hyp2", cases[row], range(2 * row, 2 * row + 2))
+    for cases in R.HYP2_ROWS for row in (0, 1)]
+
+
+@pytest.mark.parametrize("mesh_name,case,ranks", HYP_RUNS,
+                         ids=[f"{m}-{c}" for m, c, _ in HYP_RUNS])
+def test_hyp_sharded_fit_equals_fit(ranks_dir, mesh_name, case, ranks):
+    """hyp_sharded_fit (fit(mesh=) with seed homographies or affine
+    frames) on every rank of the 'hyp' group against the port's unsharded
+    fit with the same generator seed: labels, active and n_hypotheses_ok
+    exact, homographies within rtol 2e-4 / atol 2e-5
+    (tests/test_sharding.py:191), and the fit solves its 2-model scene."""
+    (x1, x2, valid), key, kw = R.fit_inputs(case)
+    ref = mt.fit(x1, x2, valid, torch.Generator().manual_seed(key),
+                 R.fit_config(case), device="cpu", **kw)
+    assert int(ref.active.sum()) == 2
+    for rank in ranks:
+        got = load(ranks_dir, f"{mesh_name}_{case}", rank)
+        for name in ("labels", "active", "n_hypotheses_ok"):
+            np.testing.assert_array_equal(got[name],
+                                          getattr(ref, name).numpy(),
+                                          err_msg=f"rank {rank} {name}")
+        np.testing.assert_allclose(got["homographies"],
+                                   ref.homographies.numpy(), rtol=2e-4,
+                                   atol=2e-5)
+
+
+def test_hypothesize_verify_replication_guard(ranks_dir):
+    """The fit's sharded hypothesize + verify with its runtime
+    replication guard (pipeline.py:562) on the (1, 4) mesh: every rank's
+    outputs bit-equal, the guard 1."""
+    outs = [load(ranks_dir, "guard_1x4", r) for r in range(WORLD)]
+    for got in outs:
+        assert float(got["ok"]) == 1.0
+        assert got["counts"].shape == (R.TINY["n_candidates"],)
+        for k in ("counts", "hs", "n_ok"):
+            np.testing.assert_array_equal(got[k], outs[0][k])
+
+
+# ---------------------------------------------------------------------------
+# sharded verification
+# ---------------------------------------------------------------------------
+
+def _pool():
+    Hs, x1, x2, valid = R.verification_pool()
+    return Hs, x1, x2, valid, tpipe.count_inliers(
+        t(Hs), t(x1), t(x2), t(valid), mt.MultiHConfig(**R.TINY))
+
+
+@pytest.mark.parametrize("name,members", [("1x4", range(4)),
+                                          ("1x2", range(2))])
+def test_sharded_verification(ranks_dir, name, members):
+    """Every member returns the stable top-M of the unsharded counts
+    (ties: the lower index first), and its replication guard is 1; the
+    ranks outside the (1, 2) mesh refuse it."""
+    *_, counts = _pool()
+    ref_c, ref_i = top_k_stable(counts, R.TINY["n_candidates"])
+    assert len(np.unique(ref_c.numpy())) < R.TINY["n_candidates"]  # ties
+    for rank in range(WORLD):
+        got = load(ranks_dir, f"verify_{name}", rank)
+        if rank not in members:
+            assert bool(got["refused"])
+            continue
+        np.testing.assert_array_equal(got["counts"], ref_c.numpy())
+        np.testing.assert_array_equal(got["idx"], ref_i.numpy())
+        assert float(got["ok"]) == 1.0
+
+
+def test_sharded_verification_matches_jax(ranks_dir):
+    """The (1, 4) mesh's result against the JAX package's
+    jax.lax.top_k(pipeline.count_inliers(...)) on one CPU device."""
+    Hs, x1, x2, valid, _ = _pool()
+    jcfg = multih_tpu.MultiHConfig(**R.TINY)
+    c, i = jax.lax.top_k(jpipe.count_inliers(
+        jnp.asarray(Hs), jnp.asarray(x1), jnp.asarray(x2),
+        jnp.asarray(valid), jcfg), jcfg.n_candidates)
+    got = load(ranks_dir, "verify_1x4", 0)
+    np.testing.assert_array_equal(got["counts"], np.asarray(c))
+    np.testing.assert_array_equal(got["idx"], np.asarray(i))
+
+
+# ---------------------------------------------------------------------------
+# the pair axis: batches split over rank rows
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def no_mesh_batch():
+    res = tshard.run_benchmark_batch(R.batch_pairs(),
+                                     mt.MultiHConfig(**R.TINY), seed=3,
+                                     taus=R.BATCH_TAUS, device="cpu")
+    assert res.labels.shape == (5, R.TINY["max_points"])
+    return res
+
+
+@pytest.mark.parametrize("name", ["4x1", "2x2", "adaptive_2x2"])
+def test_batch_on_mesh_equals_no_mesh(ranks_dir, no_mesh_batch, name):
+    """run_benchmark_batch of 5 pairs (padded to 8 or 6) on the mesh:
+    every rank returns every pair, bit-equal to the batch without a
+    mesh (on (2, 2) each pair's pool is also split over 'hyp'); and 2
+    pairs with `adaptive` (fit_adaptive's two passes on the mesh)."""
+    want = no_mesh_batch
+    if name == "adaptive_2x2":
+        want = tshard.run_benchmark_batch(
+            R.batch_pairs()[:2], mt.MultiHConfig(**R.TINY), seed=3,
+            adaptive=True, device="cpu")
+    for rank in range(WORLD):
+        got = load(ranks_dir, f"batch_{name}", rank)
+        for field, a in want._asdict().items():
+            assert got[field].dtype == a.dtype, field
+            np.testing.assert_array_equal(got[field], a,
+                                          err_msg=f"rank {rank} {field}")
+
+
+def test_sharded_fit_mixed_equals_batch(ranks_dir):
+    """sharded_fit_mixed of 2 pairs on the (2, 2) mesh against
+    batched_fit_mixed without a mesh, every leaf bit for bit."""
+    cfg_h, cfg_f = R.mixed_configs()
+    ref = R._numpy(tshard.batched_fit_mixed(cfg_h, cfg_f, device="cpu")(
+        *R.mixed_batch(), [torch.Generator().manual_seed(i) for i in (0, 1)]))
+    assert int(ref["active"][0].sum()) >= 2
+    for rank in range(WORLD):
+        got = load(ranks_dir, "mixed_2x2", rank)
+        assert got.keys() == ref.keys()
+        for k, a in ref.items():
+            np.testing.assert_array_equal(got[k], a, err_msg=f"{rank} {k}")
+
+
+# ---------------------------------------------------------------------------
+# window_range against the JAX sampler
+# ---------------------------------------------------------------------------
+
+_jax_windowed = jax.jit(jsamp.windowed_quadruples, static_argnums=(5, 6),
+                        static_argnames=("window_range",))
+
+
+@pytest.mark.parametrize("n_shards", [2, 4])
+def test_windowed_quadruples_window_range_matches_jax(rng, n_shards):
+    """Each shard's window range against JAX's windowed_quadruples with
+    the same window_range, on its own draws replayed, bit for bit."""
+    block, nb, s = 64, 4, 4 * 96
+    x1, x2, valid = morton_scene(rng, nb * block, invalid=25)
+    ji, _ = _knn_windowed(jnp.asarray(x1), jnp.asarray(valid), 6, block)
+    key = jax.random.key(8)
+    nw = nb // n_shards
+    for d in range(n_shards):
+        ref = np.asarray(_jax_windowed(
+            key, jnp.asarray(x1), jnp.asarray(x2), jnp.asarray(valid), ji,
+            s, block, window_range=(d * nw, nw)))
+        got = tsamp.windowed_quadruples(
+            KeyWindowDraws(key), 0, t(x1), t(x2), t(valid),
+            t(np.asarray(ji)), s, block, window_range=(d * nw, nw)).numpy()
+        assert got.shape == (32, s // n_shards)
+        np.testing.assert_array_equal(got, ref)

@@ -21,6 +21,7 @@ from multih_tpu.models import pipeline as jpipe
 import multih_tpu_torch as mt
 from multih_tpu_torch.models import pipeline as tpipe
 from multih_tpu_torch.ops import geometry as tgeo
+from multih_tpu_torch.parallel.mesh import Mesh
 from multih_tpu_torch.utils import data as tdata
 from multih_tpu_torch.utils import evaluation
 from multih_tpu_torch.utils import features as tfeat
@@ -283,15 +284,17 @@ def test_out_of_slice_raises(kw):
 
 @pytest.mark.parametrize("model", ["homography", "fundamental"])
 def test_out_of_slice_arguments_raise(model):
-    """A mesh raises NotImplementedError (not ported yet). Affine
-    hypotheses run for homographies (tests/test_torch_affine.py holds
-    them to the reference) and raise the reference's ValueError for the
-    fundamental model; seed homographies are in the port
+    """A mesh with a 'pt' (point) axis raises NotImplementedError (not
+    ported yet; the 'pair' and 'hyp' axes are, tests/test_torch_mesh.py).
+    Affine hypotheses run for homographies (tests/test_torch_affine.py
+    holds them to the reference) and raise the reference's ValueError for
+    the fundamental model; seed homographies are in the port
     (tests/test_torch_stream.py)."""
     cfg = mt.MultiHConfig(max_points=512, knn_window=False, model=model)
     z = torch.zeros((512, 2))
-    with pytest.raises(NotImplementedError):
-        mt.fit(z, z, torch.ones(512), torch.Generator(), cfg, mesh=object())
+    pt_mesh = Mesh([0], ("pt",), device="cpu")
+    with pytest.raises(NotImplementedError, match="'pt'"):
+        mt.fit(z, z, torch.ones(512), torch.Generator(), cfg, mesh=pt_mesh)
     if model == "fundamental":
         with pytest.raises(ValueError, match="affine"):
             mt.fit(z, z, torch.ones(512), torch.Generator(), cfg,

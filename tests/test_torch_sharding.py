@@ -20,6 +20,7 @@ from multih_tpu.parallel import sharding as jshard
 
 import multih_tpu_torch as mt
 from multih_tpu_torch.parallel import sharding as tshard
+from multih_tpu_torch.parallel.mesh import Mesh
 from multih_tpu_torch.utils import data as tdata
 from multih_tpu_torch.utils import evaluation
 from test_torch_pipeline import JaxReplayDraws
@@ -162,15 +163,46 @@ def test_mixed_adaptive_with_taus_raises(mixed_cfgs):
                                 "prepare_benchmark_batch",
                                 "run_benchmark_batch"])
 def test_mesh_raises(tcfg, mixed_cfgs, pairs, fn):
-    """The mesh axes are not ported: a mesh raises NotImplementedError."""
+    """With a mesh of one rank (no process group) each surface equals the
+    call without a mesh, bit for bit, its arrays on the mesh's device;
+    the multi-rank meshes are tests/test_torch_mesh.py's. A mesh with a
+    'pt' (point) axis raises NotImplementedError in the fit: that axis is
+    not ported yet."""
+    m1 = tshard.make_mesh(device="cpu")
+    x1, x2, valid = (np.stack(a) for a in zip(*(
+        mt.pad_points(cs.x1, cs.x2, None, tcfg.max_points) for cs in pairs)))
+
+    def gens():
+        return [torch.Generator().manual_seed(i) for i in range(len(pairs))]
+
     call = {
-        "batched_fit": lambda: tshard.batched_fit(tcfg, mesh=object()),
-        "batched_fit_mixed": lambda: tshard.batched_fit_mixed(
-            *mixed_cfgs, mesh=object()),
-        "prepare_benchmark_batch": lambda: tshard.prepare_benchmark_batch(
-            pairs, tcfg, device="cpu", mesh=object()),
-        "run_benchmark_batch": lambda: tshard.run_benchmark_batch(
-            pairs, tcfg, device="cpu", mesh=object()),
+        "batched_fit": lambda **kw: tshard.batched_fit(tcfg, **kw)(
+            x1, x2, valid, gens(), TAUS),
+        "batched_fit_mixed": lambda **kw: tshard.batched_fit_mixed(
+            *mixed_cfgs, **kw)(*mixed_inputs(mixed_cfgs), gens()),
+        "prepare_benchmark_batch": lambda **kw: tshard.prepare_benchmark_batch(
+            pairs, tcfg, taus=TAUS, **kw)[0],
+        "run_benchmark_batch": lambda **kw: tshard.run_benchmark_batch(
+            pairs, tcfg, taus=TAUS, **kw),
     }[fn]
-    with pytest.raises(NotImplementedError):
-        call()
+    a, b = call(mesh=m1), call(device="cpu")
+    for x, y in zip(flat(a), flat(b)):
+        assert torch.equal(torch.as_tensor(x), torch.as_tensor(y))
+    if fn == "batched_fit":
+        pt_mesh = Mesh([0], ("pt",), device="cpu")
+        with pytest.raises(NotImplementedError, match="'pt'"):
+            tshard.batched_fit(tcfg, mesh=pt_mesh)(x1, x2, valid, gens(),
+                                                   TAUS)
+
+
+def mixed_inputs(mixed_cfgs):
+    cs = tdata.synthetic_mixed_scene(300, 1, 1, 0.1, 0.5, seed=9)[0]
+    pts = mt.pad_points(cs.x1, cs.x2, None, mixed_cfgs[0].max_points)
+    return tuple(np.stack([a, a]) for a in pts)
+
+
+def flat(res):
+    """The leaves of a (nested) tuple of arrays or tensors."""
+    if isinstance(res, tuple):
+        return [leaf for x in res for leaf in flat(x)]
+    return [res]

@@ -283,12 +283,30 @@ def test_windowed_quadruples_exact(rng, claimed):
 
 
 def test_windowed_quadruples_rejects_window_range(rng):
-    x1, x2, valid = morton_scene(rng, 128)
-    ti, _ = tlab.knn_graph_windowed(t(x1), t(valid), 6, 64)
-    with pytest.raises(NotImplementedError):
-        tsamp.windowed_quadruples(
-            tsamp.TorchDraws(torch.Generator()), 0, t(x1), t(x2), t(valid),
-            ti, 64, 64, window_range=(0, 1))
+    """`window_range` is ported: at 2 and 4 shards, the shards' window
+    ranges, each drawn from a generator of the same seed, concatenate to
+    the unsharded call's columns bit for bit (every draw is full-size on
+    every shard; only the gathers are sliced). A range past the windows
+    is refused."""
+    block, nb, s = 64, 4, 4 * 96
+    x1, x2, valid = morton_scene(rng, nb * block, invalid=25)
+    avail = valid.copy()
+    avail[:block] = 0.0  # an exhausted window
+    ti, _ = tlab.knn_graph_windowed(t(x1), t(valid), 6, block)
+
+    def call(window_range=None):
+        return tsamp.windowed_quadruples(
+            tsamp.TorchDraws(torch.Generator().manual_seed(4)), 0, t(x1),
+            t(x2), t(avail), ti, s, block, window_range=window_range)
+
+    whole = call()
+    for n_shards in (2, 4):
+        nw = nb // n_shards
+        shards = [call((d * nw, nw)) for d in range(n_shards)]
+        assert all(a.shape == (32, s // n_shards) for a in shards)
+        assert torch.equal(torch.cat(shards, dim=1), whole)
+    with pytest.raises(ValueError, match="window_range"):
+        call((3, 2))
 
 
 def test_torch_draws_window_methods():

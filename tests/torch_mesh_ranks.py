@@ -1,0 +1,226 @@
+"""Rank programs for the port's mesh tests (test_torch_mesh.py,
+test_torch_cli.py), started by multih_tpu_torch.parallel.mesh.spawn.
+
+A module of its own, importing no JAX, so that every spawned rank starts
+from a light import; its functions are looked up by name in each rank.
+Each case is a pure function of a seed, so the parent process rebuilds
+its inputs and its single-device reference without talking to the ranks.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import io
+import os
+
+import numpy as np
+import torch
+
+import multih_tpu_torch as mt
+from multih_tpu_torch.models import labeling, pipeline
+from multih_tpu_torch.ops.sampling import TorchDraws
+from multih_tpu_torch.parallel import sharding
+from multih_tpu_torch.utils import data as tdata
+from multih_tpu_torch.utils import features
+
+TINY = dict(max_points=128, n_hypotheses=512, n_candidates=64, max_labels=8)
+
+# hyp-sharded fit cases: name -> (config, scene kind, scene seed, key
+# seed, extra hypotheses: None, "seeds" (3 seed H's, one not finite: the
+# extras are padded to the 'hyp' size) or "affines" (the one-point pool,
+# a hypothesis a point, after estimate_fundamental's draws))
+FIT_CASES = {
+    "tiny_vs1": (TINY, "planes", 2, 11, None),
+    "tiny_vs4": (dict(TINY, verify_subsample=4), "planes", 2, 11, None),
+    "fundamental": (dict(TINY, model="fundamental", residual="sampson"),
+                    "motions", 3, 11, None),
+    "window": (dict(max_points=256, agree_block=64, window_sampling=True,
+                    n_hypotheses=512, n_candidates=64, max_labels=8),
+               "planes", 4, 5, None),
+    "seeded": (dict(TINY, verify_subsample=4), "planes", 6, 11, "seeds"),
+    "affine": (TINY, "planes", 7, 11, "affines"),
+}
+# (mesh, case) runs: the (1, 4) mesh fits each case on all four ranks;
+# the (2, 2) mesh's two rows are separate 'hyp' groups of two, each
+# fitting its own case at the same time
+HYP4_CASES = ("tiny_vs1", "tiny_vs4", "window", "seeded")
+HYP2_ROWS = (("tiny_vs1", "fundamental"), ("tiny_vs4", "window"),
+             ("seeded", "affine"))
+
+MIXED_H = dict(max_points=320, agree_block=128, n_hypotheses=512,
+               max_labels=4)
+BATCH_TAUS = [3.0, 4.5, 3.0, 3.5, 4.0]
+
+
+def fit_config(case):
+    return mt.MultiHConfig(**FIT_CASES[case][0])
+
+
+def fit_inputs(case):
+    """(x1, x2, valid) numpy, the key seed and the fit's keyword
+    arguments (seed_Hs or affines) of a hyp-fit case."""
+    cfg, kind, seed, key, extras = FIT_CASES[case]
+    n = cfg["max_points"]
+    if kind == "motions":
+        cs, _ = tdata.synthetic_motion_scene(100, 2, 0.1, 0.0, seed=seed)
+    else:
+        cs, Hs = tdata.synthetic_scene(n - 32, 2, 0.1, 0.5, seed=seed)
+    kw = {}
+    if extras == "seeds":
+        bad = np.full((1, 3, 3), np.nan, np.float32)
+        kw["seed_Hs"] = np.concatenate([np.asarray(Hs, np.float32), bad])
+    elif extras == "affines":
+        aff = features.affines_from_homographies(Hs, cs.gt_labels - 1,
+                                                 cs.x1, -1)
+        kw["affines"] = np.concatenate(
+            [aff, np.tile(np.eye(2, dtype=np.float32), (32, 1, 1))])
+    return mt.pad_points(cs.x1, cs.x2, None, n), key, kw
+
+
+def verification_pool():
+    """(Hs (520, 3, 3), x1, x2, valid) numpy: the 2-plane scene's true
+    homographies under 260 noise levels each, so counts spread over the
+    range and tie often."""
+    cs, Hs = tdata.synthetic_scene(96, 2, 0.1, 0.5, seed=0)
+    rng = np.random.default_rng(0)
+    sig = np.repeat(np.geomspace(1e-5, 3e-2, 260), 2)[:, None, None]
+    base = np.stack([np.asarray(Hs[i % 2], np.float64) for i in range(520)])
+    pool = base / base[:, 2:3, 2:3] + rng.normal(size=(520, 3, 3)) * sig
+    return (pool.astype(np.float32),
+            *mt.pad_points(cs.x1, cs.x2, None, 128))
+
+
+def batch_pairs():
+    return [tdata.synthetic_scene(80 + 8 * s, 2, 0.1, 0.5, seed=20 + s)[0]
+            for s in range(5)]
+
+
+def mixed_configs():
+    cfg_h = mt.MultiHConfig(**MIXED_H)
+    return cfg_h, dataclasses.replace(cfg_h, model="fundamental",
+                                      residual="sampson")
+
+
+def mixed_batch():
+    """(x1 (2, N, 2), x2, valid (2, N)) numpy of two mixed scenes."""
+    padded = [mt.pad_points(cs.x1, cs.x2, None, MIXED_H["max_points"])
+              for cs in (tdata.synthetic_mixed_scene(300, 1, 1, 0.1, 0.5,
+                                                     seed=s)[0]
+                         for s in (9, 10))]
+    return tuple(np.stack([p[j] for p in padded]) for j in range(3))
+
+
+def _numpy(res):
+    """A (nested) NamedTuple of tensors -> {dotted name: array}."""
+    out = {}
+    for name, v in res._asdict().items():
+        if isinstance(v, tuple):
+            out.update({f"{name}.{k}": a for k, a in _numpy(v).items()})
+        else:
+            out[name] = v.cpu().numpy()
+    return out
+
+
+def _save(out_dir, name, rank, arrays):
+    np.savez(os.path.join(out_dir, f"{name}_r{rank}.npz"), **arrays)
+
+
+def _layout(mesh_, rank):
+    """What a rank sees of a mesh: shape, coordinates, and a gather and a
+    sum of its rank number along each axis it is on."""
+    out = {"shape": np.array(list(mesh_.shape.values())),
+           "coords": np.array(mesh_.coords or (-1, -1))}
+    if mesh_.coords is not None:
+        t = torch.tensor([rank], dtype=torch.int64)
+        for ax in mesh_.axis_names:
+            out[f"gather_{ax}"] = mesh_.all_gather(t, ax).numpy()[:, 0]
+            out[f"psum_{ax}"] = mesh_.psum(t, ax).numpy()
+    return out
+
+
+def mesh_rank(rank, device, out_dir):
+    """Every mesh check of test_torch_mesh.py on a world of 4 CPU ranks;
+    each result goes to out_dir/<case>_r<rank>.npz."""
+    meshes = {
+        "1x4": sharding.make_mesh(pair_axis=1, device=device),
+        "1x2": sharding.make_mesh(devices=[0, 1], pair_axis=1,
+                                  device=device),
+        "2x2": sharding.make_mesh(pair_axis=2, device=device),
+        "4x1": sharding.make_mesh(device=device),
+    }
+    for name, m in meshes.items():
+        _save(out_dir, f"mesh_{name}", rank, _layout(m, rank))
+
+    def hyp_fit(mesh_, case):
+        (x1, x2, valid), key, kw = fit_inputs(case)
+        gen = torch.Generator().manual_seed(key)
+        if kw:
+            res = mt.fit(x1, x2, valid, gen, fit_config(case), mesh=mesh_,
+                         **kw)
+        else:
+            res = sharding.hyp_sharded_fit(fit_config(case), mesh_)(
+                x1, x2, valid, gen)
+        return _numpy(res)
+
+    for case in HYP4_CASES:
+        _save(out_dir, f"hyp4_{case}", rank, hyp_fit(meshes["1x4"], case))
+    row = meshes["2x2"].axis_index("pair")
+    for cases in HYP2_ROWS:
+        _save(out_dir, f"hyp2_{cases[row]}", rank,
+              hyp_fit(meshes["2x2"], cases[row]))
+
+    Hs, x1, x2, valid = verification_pool()
+    cfg = mt.MultiHConfig(**TINY)
+    pts = [torch.from_numpy(a) for a in (x1, x2, valid)]
+    nbr, _ = labeling.knn_graph(pts[0], pts[2], cfg.knn_k)
+    c, h, n_ok, ok = pipeline._hypothesize_verify_sharded(
+        TorchDraws(torch.Generator().manual_seed(7)), *pts, nbr, cfg, None,
+        meshes["1x4"], replication_check=True)
+    _save(out_dir, "guard_1x4", rank,
+          {"counts": c.numpy(), "hs": h.numpy(), "n_ok": n_ok.numpy(),
+           "ok": ok.numpy()})
+    for name in ("1x4", "1x2"):
+        m = meshes[name]
+        if m.coords is None:
+            try:
+                m.axis_index("hyp")
+            except ValueError:
+                _save(out_dir, f"verify_{name}", rank, {"refused": True})
+            continue
+        c, i, ok = sharding.sharded_verification(cfg, m, True)(
+            Hs, x1, x2, valid)
+        _save(out_dir, f"verify_{name}", rank,
+              {"counts": c.numpy(), "idx": i.numpy(), "ok": ok.numpy()})
+
+    pairs = batch_pairs()
+    for name in ("4x1", "2x2"):
+        res = sharding.run_benchmark_batch(pairs, cfg, seed=3,
+                                           taus=BATCH_TAUS,
+                                           mesh=meshes[name])
+        _save(out_dir, f"batch_{name}", rank, res._asdict())
+    res = sharding.run_benchmark_batch(pairs[:2], cfg, seed=3, adaptive=True,
+                                       mesh=meshes["2x2"])
+    _save(out_dir, "batch_adaptive_2x2", rank, res._asdict())
+
+    cfg_h, cfg_f = mixed_configs()
+    res = sharding.sharded_fit_mixed(cfg_h, cfg_f, meshes["2x2"])(
+        *mixed_batch(), [torch.Generator().manual_seed(i) for i in (0, 1)])
+    _save(out_dir, "mixed_2x2", rank, _numpy(res))
+    return rank
+
+
+def failing_rank(rank, device):
+    if rank == 1:
+        raise ValueError("this rank fails")
+    return rank
+
+
+def cli_rank(rank, device, argv):
+    """`multih_tpu_torch.cli.main(argv)` in a rank: what it printed."""
+    from multih_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    return buf.getvalue()

@@ -1,0 +1,202 @@
+#!/usr/bin/env python3
+"""The mesh axes across cards: one NCCL rank a card.
+
+Run from the repository root on a host with 4 cards:
+
+    python3 tools/torch_mesh_cards.py            # 4 ranks, NCCL
+
+or, as a rehearsal on the CPU at a small size:
+
+    python3 tools/torch_mesh_cards.py --device cpu --small
+
+Each rank fits, in turns (single, sharded, sharded, single):
+  - the stress cell (chip_smoke.py phase 5's scene at stress_cfg()) on
+    its own card alone, and hyp-sharded over a (1, world) mesh; checks
+    the sharded result equals the single card fit; reports the warm
+    walls, the hypothesize + verify device ms (utils/tracing.py: all
+    kernels, and the NCCL kernels among them) and the bytes staged
+    through the host;
+  - the 24 golden scenes at N=1024 (phase 10's batch) without a mesh on
+    rank 0's card, and split over a (world, 1) mesh; checks every pair
+    equal; reports both walls.
+Prints one JSON line per rank, then the card line from nvidia-smi.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import statistics
+import sys
+import tempfile
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _sync(device):
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _wall_ms(fn, device) -> float:
+    _sync(device)
+    t0 = time.perf_counter()
+    fn()
+    _sync(device)
+    return (time.perf_counter() - t0) * 1e3
+
+
+def rank_main(rank, device, small, trace_dir):
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import chip_smoke as cs
+    import multih_tpu_torch as mt
+    from multih_tpu_torch.parallel import sharding
+
+    world = dist.get_world_size()
+    hyp = sharding.make_mesh(pair_axis=1, device=device)
+    pair = sharding.make_mesh(device=device)
+    cfg = cs.stress_cfg()
+    if small:
+        cfg = dataclasses.replace(cfg, max_points=1024, n_hypotheses=4096,
+                                  n_candidates=64)
+        from multih_tpu_torch.utils import data
+
+        scene = data.synthetic_scene(1000, 3, 0.3, 0.5, seed=42)[0]
+        args = cs._to(device, *mt.pad_points(scene.x1, scene.x2, None, 1024))
+    else:
+        args = cs._stress_points(device)
+    gen = torch.Generator(device=device)
+
+    def single():
+        return mt.fit(*args, gen.manual_seed(0), cfg)
+
+    sharded_fit = sharding.hyp_sharded_fit(cfg, hyp)
+
+    def sharded():
+        return sharded_fit(*args, gen.manual_seed(0))
+
+    ref, got = single(), sharded()
+    for k in ("labels", "active", "n_hypotheses_ok", "homographies"):
+        if not torch.equal(getattr(ref, k), getattr(got, k)):
+            raise AssertionError(f"rank {rank}: sharded {k} differs")
+    out = dict(rank=rank, world=world, device=str(device),
+               planes=int(got.active.sum()))
+    walls = {"single": [], "sharded": []}
+    for turn in ("single", "sharded", "sharded", "single") * 3:
+        dist.barrier()
+        walls[turn].append(_wall_ms(single if turn == "single" else sharded,
+                                    device))
+    out["stress_wall_ms"] = walls
+    hyp.host_staged = 0
+    sharded()
+    out["stress_staged_bytes"] = hyp.host_staged
+    if device.type == "cuda":
+        xs = cs._hv_inputs(cfg, *args)
+        from multih_tpu_torch.models import pipeline
+        from multih_tpu_torch.ops.sampling import TorchDraws
+
+        def hv_single():
+            return pipeline._hypothesize_verify(
+                TorchDraws(gen.manual_seed(0)), *xs, cfg, None, [], [],
+                cfg.agree_block)
+
+        def hv_sharded():
+            return pipeline._hypothesize_verify_sharded(
+                TorchDraws(gen.manual_seed(0)), *xs, cfg, None, hyp,
+                window_block=cfg.agree_block)
+
+        dist.barrier()
+        out["hv_single"] = cs._traced_device_ms(hv_single, trace_dir,
+                                                f"single{rank}")
+        dist.barrier()
+        out["hv_sharded"] = cs._traced_device_ms(hv_sharded, trace_dir,
+                                                 f"sharded{rank}")
+
+    bcfg = mt.MultiHConfig(max_points=1024)
+    css, taus = cs._golden_batch()
+    if small:
+        css, taus, bcfg = css[:8], taus[:8], dataclasses.replace(
+            bcfg, n_hypotheses=512)
+    prepared = sharding.prepare_benchmark_batch(css, bcfg, taus=taus,
+                                                mesh=pair)
+    alone = sharding.prepare_benchmark_batch(css, bcfg, taus=taus,
+                                             device=device)
+
+    def batch_single():
+        return sharding.run_benchmark_batch(css, bcfg, prepared=alone)
+
+    def batch_sharded():
+        return sharding.run_benchmark_batch(css, bcfg, prepared=prepared,
+                                            mesh=pair)
+
+    res = batch_sharded()
+    bwalls = {"single": [], "sharded": []}
+    for turn in ("single", "sharded", "sharded", "single"):
+        dist.barrier()
+        if turn == "sharded":
+            bwalls[turn].append(_wall_ms(batch_sharded, device))
+        elif rank == 0:
+            ref = batch_single()
+            bwalls[turn].append(_wall_ms(batch_single, device))
+            for k, a in ref._asdict().items():
+                if not np.array_equal(a, getattr(res, k)):
+                    raise AssertionError(f"batch {k} differs")
+    out["batch_wall_ms"] = bwalls
+    out["batch_pairs"] = len(css)
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--small", action="store_true",
+                    help="a small stress config and 8 batch pairs")
+    ap.add_argument("--world", type=int, default=4)
+    args = ap.parse_args()
+    sys.path.insert(0, ROOT)
+    import torch
+
+    from multih_tpu_torch.parallel import mesh
+
+    if args.device == "cuda":
+        if torch.cuda.device_count() < args.world:
+            print(f"{torch.cuda.device_count()} cards for {args.world} "
+                  f"ranks", file=sys.stderr)
+            return 1
+        from multih_tpu_torch.ops.kernels import _build
+
+        _build.load()  # one build before the ranks load it
+        backend, dev_of = "nccl", None
+    else:
+        backend, dev_of = "gloo", (lambda r: "cpu")
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = mesh.spawn(rank_main, args.world, backend, dev_of,
+                          timeout_s=900.0, args=(args.small, tmp))
+    for o in outs:
+        print(json.dumps(o))
+    r0 = outs[0]
+    for name in ("stress_wall_ms", "batch_wall_ms"):
+        w = r0[name]
+        print(f"{name}: single median {statistics.median(w['single']):.1f}, "
+              f"sharded median {statistics.median(w['sharded']):.1f} "
+              f"(runs {w})")
+    if args.device == "cuda":
+        import subprocess
+
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True,
+            text=True).stdout.strip())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
