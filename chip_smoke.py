@@ -14,8 +14,8 @@ toolkit:
                                      # mixed fits
 
 Phases, each raising on failure:
-  1. environment: torch / CUDA / nvcc / triton, the card's name and power
-     limit, TF32 off;
+  1. environment: torch / CUDA / nvcc / triton / cv2, the card's name
+     and power limit, TF32 off;
   2. build: nvcc compiles multih_tpu_torch/csrc/*.cu, one process per
      source (build seconds and the ptxas register / spill report);
   3. kernel parity: every kernel against its plain PyTorch version on the
@@ -108,7 +108,20 @@ Phases, each raising on failure:
      of phase 10's 24 scenes equal to phase 10's batch; the sharded and
      single warm walls and the bytes staged through the host; then
      sharded_verification on a one-rank NCCL mesh (a real NCCL
-     all_gather on the card).
+     all_gather on the card);
+ 12. the 'pt' (point) axis: two gloo ranks share the card on a (pt=2)
+     mesh, each owning half of the Morton blocks (its k-NN rows, band,
+     residuals, data costs, q and labels), generation replicated, a
+     halo exchanged before every K4 sweep and K5 half-sweep (a launch
+     each), counts and float64 energies summed over the axis, the
+     refits' weights gathered. On
+     BASELINE config 2 (N=1024) and the stress cell (N=10240): labels
+     and active equal to the single card fit, the energy within rtol
+     1e-3, each rank's launches of K1, K3, K4 and K5 (K4 and K5 exactly
+     a launch a sweep), the host-staged bytes, each rank's peak
+     allocated memory beside the single fit's and the warm walls; then
+     K4 and K5 on each rank's window at the stress shape, its own blocks
+     bit-equal to the unsharded launch.
 Then one JSON line of per-kernel results, the card line, and the last
 line {"ok": true, "device": {...}}. Without a CUDA device, or outside
 the repository, it exits nonzero and prints no result.
@@ -336,6 +349,11 @@ def phase_env():
         print(f"triton {triton.__version__} imports")
     except ImportError as e:
         print(f"triton does not import: {e}")
+    try:
+        import cv2
+        print(f"cv2 {cv2.__version__} imports (fit-images can run)")
+    except ImportError as e:
+        print(f"cv2 does not import: {e}")
     print("card:", card_line())
     print(f"device count {torch.cuda.device_count()}, "
           f"name {torch.cuda.get_device_name(0)}, "
@@ -2203,6 +2221,252 @@ def phase_mesh(dev, batch):
     return out, launches
 
 
+PT_KERNELS = ("inlier_counts", "eig9_smallest", "mean_field_fused",
+              "icm_fused")
+
+
+def _pt_cells(device):
+    """Phase 12's two cells: (name, config, (x1, x2, valid) on `device`,
+    ground-truth labels): BASELINE config 2 at the default config (N =
+    1024, 4 blocks of 256) and the stress cell (phase 5's scene, N =
+    10240, 80 blocks of 128)."""
+    import multih_tpu_torch as mt
+    from multih_tpu_torch.utils import data
+
+    out = []
+    for name, n_pad, cfg, scene in (
+            ("baseline2", 1024, mt.MultiHConfig(max_points=1024),
+             data.synthetic_scene(1000, 2, 0.0, 0.0)[0]),
+            ("stress", 10240, stress_cfg(),
+             data.synthetic_scene(10000, 8, 0.7, 0.5, seed=42)[0])):
+        x1, x2, valid, gt = mt.pad_points(scene.x1, scene.x2,
+                                          scene.gt_labels, n_pad)
+        out.append((name, cfg, _to(device, x1, x2, valid), gt))
+    return out
+
+
+def _pt_expected(cfg) -> dict:
+    """K4 and K5 launches of one 'pt' fit: a launch a mean-field sweep and
+    one an ICM half-sweep (PEARL iterations and the finalize)."""
+    return {"mean_field_fused": cfg.pearl_iterations
+            * cfg.meanfield_iterations,
+            "icm_fused": (cfg.pearl_iterations + 1) * 2 * cfg.icm_iterations}
+
+
+def _pt_sweep_inputs(device):
+    """K4's and K5's inputs at the stress shape (N = 10240, B = 128,
+    L = 17, 2 starts, 4 sweeps, 1 ICM iteration), from a generator of
+    their own: the stress scene's Morton-sorted positions and valid mask,
+    q0 softmax rows, base, int32 starts, inverse temperatures."""
+    import torch
+
+    from multih_tpu_torch.models import pipeline
+
+    x1, _, valid = _stress_points(device)
+    perm = pipeline.morton_order(x1, valid)
+    rng = np.random.default_rng(1212)
+    base = rng.uniform(0.0, 4.0, (17, 10240)).astype(np.float32)
+    q0 = np.exp(-base)
+    q0 /= q0.sum(0)
+    starts = rng.integers(0, 17, (2, 10240), dtype=np.int32)
+    inv_t = (1.0 / np.geomspace(3.0, 0.5, 4)).astype(np.float32)
+    return (x1[perm], valid[perm], *_to(device, q0, base, starts, inv_t))
+
+
+def _pt_graphs(cfg, x1, x2, valid, mesh=None):
+    """The fit's two windowed k-NN graphs (positions; the sampling
+    features) on the Morton-sorted points as numpy: a 'pt' rank's own
+    rows with `mesh`, else every row."""
+    import torch
+
+    from multih_tpu_torch.models import labeling, pipeline
+
+    perm = pipeline.morton_order(x1, valid)
+    x1, x2, valid = x1[perm], x2[perm], valid[perm]
+    rows = None
+    if mesh is not None:
+        shard = labeling.PointShard(mesh, x1.shape[0], cfg.agree_block)
+        rows = (shard.lo, shard.hi)
+    feat = torch.cat([x1, cfg.sampling_motion_weight * (x2 - x1)], dim=1)
+    return [labeling.knn_graph_windowed(f, valid, cfg.knn_k,
+                                        cfg.agree_block, rows)[0].cpu().numpy()
+            for f in (x1, feat)]
+
+
+def _pt_rank(rank, device):
+    """One of phase 12's two gloo ranks on the one card: each cell's fit
+    on a (pt=2) mesh (its launches, host-staged bytes, peak memory and
+    warm walls), then K4 and K5 on the rank's window at the stress shape,
+    a launch a sweep with the halo exchanged between launches."""
+    import torch
+
+    from multih_tpu_torch.models import labeling
+    from multih_tpu_torch.ops.kernels import mrf_kernel
+    from multih_tpu_torch.parallel import sharding
+
+    m = sharding.make_pt_mesh(device=device)
+    gen = torch.Generator(device=device)
+    out = {}
+    for name, cfg, args, _ in _pt_cells(device):
+        out[f"{name}_graphs"] = _pt_graphs(cfg, *args, m)
+        f = sharding.pt_sharded_fit(cfg, m)
+        f(*args, gen.manual_seed(0))  # warm: the library loads once
+        m.host_staged = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        res, launches = count_launches(
+            f"pt {name} rank {rank}", PT_KERNELS + ("band_list",),
+            lambda: f(*args, gen.manual_seed(0)), quiet=True)
+        out[name] = dict(
+            labels=res.labels.cpu().numpy(), active=res.active.cpu().numpy(),
+            energy=float(res.energy), launches=launches,
+            staged_bytes=m.host_staged,
+            peak_bytes=torch.cuda.max_memory_allocated(device),
+            warm_ms=host_ms(lambda: f(*args, gen.manual_seed(0)), reps=3))
+
+    x1, valid, q0, base, starts, inv_t = _pt_sweep_inputs(device)
+    shard = labeling.PointShard(m, 10240, 128)
+    nbr, w = labeling.knn_graph_windowed(x1, valid, 6, 128,
+                                         (shard.lo, shard.hi))
+    adj = labeling.build_window_adjacency(nbr, w, shard)
+    own = slice(shard.lo, shard.hi)
+    mrf_kernel.mean_field_fused.launches = mrf_kernel.icm_fused.launches = 0
+    q = mrf_kernel.mean_field_windowed(
+        q0[:, own].contiguous(), base[:, own].contiguous(), adj.band, inv_t,
+        0.7, shard.window, nbr=adj.nbr)
+    lab = mrf_kernel.icm_windowed(
+        starts[:, own].contiguous(), base[:, own].contiguous(), adj.band, 1,
+        0.7, shard.window, nbr=adj.nbr)
+    torch.cuda.synchronize()
+    launches = dict(mean_field_fused=mrf_kernel.mean_field_fused.launches,
+                    icm_fused=mrf_kernel.icm_fused.launches)
+    out["sweeps"] = dict(lo=shard.lo, hi=shard.hi, q=q.cpu().numpy(),
+                         labels=lab.cpu().numpy(), launches=launches)
+    return out
+
+
+def phase_pt(dev):
+    """Phase 12: the 'pt' (point) axis, two gloo ranks sharing the one
+    card (NCCL refuses two ranks on one device), each owning half of the
+    Morton blocks. Each cell's sharded fit against this process's single
+    card fit; K4's and K5's own blocks against the unsharded launch."""
+    import torch
+
+    import multih_tpu_torch as mt
+    from multih_tpu_torch.models import labeling
+    from multih_tpu_torch.ops import geometry
+    from multih_tpu_torch.ops.kernels import mrf_kernel
+    from multih_tpu_torch.parallel import mesh
+    from multih_tpu_torch.utils import evaluation
+
+    print("== 12. the 'pt' (point) axis: a (pt=2) mesh of two gloo ranks "
+          "on the one card, BASELINE config 2 (N=1024) and the stress cell "
+          "(N=10240)")
+    t_start = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    single = {}
+    for name, cfg, args, gt in _pt_cells(dev):
+        mt.fit(*args, gen.manual_seed(0), cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ref = mt.fit(*args, gen.manual_seed(0), cfg)
+        torch.cuda.synchronize()
+        single[name] = dict(
+            ref=ref, cfg=cfg, gt=gt, args=args,
+            peak_bytes=torch.cuda.max_memory_allocated(dev),
+            warm_ms=host_ms(lambda: mt.fit(*args, gen.manual_seed(0), cfg),
+                            reps=3))
+    # why a 'pt' refit gathers its weights in their own layout: the
+    # moment GEMM's float32 sums follow the operand's layout
+    x1s, x2s, _ = _stress_points(dev)
+    feats = geometry.prepare_refit(x1s, x2s).feats
+    wt = torch.rand((10240, 16), device=dev, generator=gen.manual_seed(0))
+    d = float((wt.T @ feats - wt.T.contiguous() @ feats).abs().max())
+    print(f"moment GEMM at the stress shape (16 x 10240 weights): a "
+          f"transposed view against its contiguous copy, max |diff| {d:.3g}")
+    x1, valid, q0, base, starts, inv_t = _pt_sweep_inputs(dev)
+    nbr, w = labeling.knn_graph_windowed(x1, valid, 6, 128)
+    adj = labeling.build_banded_adjacency(nbr, w, 128, far_capacity=0)
+    q_full = mrf_kernel.mean_field_fused(q0, base, adj.band, inv_t, 0.7,
+                                         nbr=adj.nbr).cpu().numpy()
+    lab_full = mrf_kernel.icm_fused(starts, base, adj.band, 1, 0.7,
+                                    nbr=adj.nbr).cpu().numpy()
+    t0 = time.perf_counter()
+    ranks = mesh.spawn(_pt_rank, 2, "gloo", lambda r: "cuda:0",
+                       timeout_s=500.0)
+    t_gloo = time.perf_counter() - t0
+    out, launches = {"cells": {}, "moment_gemm_layout_diff": d}, {}
+    for name, s in single.items():
+        ref, cfg = s["ref"], s["cfg"]
+        want = _pt_expected(cfg)
+        graphs = _pt_graphs(cfg, *s["args"])
+        n_own = cfg.max_points // 2
+        cell = dict(single_warm_ms=s["warm_ms"],
+                    single_peak_bytes=s["peak_bytes"], ranks=[])
+        for r, got in enumerate(ranks):
+            g = got[name]
+            graph_eq = all(np.array_equal(
+                mine, full[r * n_own:(r + 1) * n_own])
+                for mine, full in zip(got[f"{name}_graphs"], graphs))
+            n_diff = int((g["labels"] != ref.labels.cpu().numpy()).sum())
+            lab_eq = n_diff == 0
+            act_eq = bool(np.array_equal(g["active"],
+                                         ref.active.cpu().numpy()))
+            gap = abs(g["energy"] - float(ref.energy)) / abs(float(ref.energy))
+            err = evaluation.misclassification_error(
+                g["labels"], s["gt"], cfg.max_labels)
+            lc = g["launches"]
+            print(f"rank {r} {name}: k-NN rows (both graphs) equal to the "
+                  f"unsharded rows {graph_eq}; labels equal to the single "
+                  f"card fit {lab_eq} ({n_diff} of {cfg.max_points} "
+                  f"differ), active equal {act_eq}, energy rel. gap "
+                  f"{gap:.3g}, planes {int(g['active'].sum())}, "
+                  f"misclassification {err:.3f}%; launches K1 "
+                  f"{lc['inlier_counts']}, K3 {lc['eig9_smallest']}, K4 "
+                  f"{lc['mean_field_fused']}, K5 {lc['icm_fused']}, list "
+                  f"{lc['band_list']}; host-staged bytes "
+                  f"{g['staged_bytes']}; peak allocated "
+                  f"{g['peak_bytes'] / 2**20:.1f} MiB (single "
+                  f"{s['peak_bytes'] / 2**20:.1f} MiB); warm wall ms "
+                  f"{', '.join(f'{x:.1f}' for x in g['warm_ms'])} (single "
+                  f"{', '.join(f'{x:.1f}' for x in s['warm_ms'])})")
+            check(graph_eq and lab_eq and act_eq,
+                  f"rank {r} {name}: {n_diff} labels differ, active "
+                  f"{act_eq}, graph {graph_eq}")
+            check(gap <= 1e-3, f"rank {r} {name}: energy gap {gap:.3g}")
+            for k, n in want.items():
+                check(lc[k] == n, f"rank {r} {name}: {lc[k]} {k} launches, "
+                      f"{n} expected (a launch a sweep)")
+            launches[f"pt_{name}_r{r}"] = lc
+            cell["ranks"].append(dict(
+                labels_equal=lab_eq, labels_differing=n_diff,
+                graph_equal=graph_eq, active_equal=act_eq, energy_gap=gap,
+                misclassification=err, launches=lc,
+                staged_bytes=g["staged_bytes"], peak_bytes=g["peak_bytes"],
+                warm_ms=g["warm_ms"]))
+        out["cells"][name] = cell
+    sweeps = []
+    for r, got in enumerate(ranks):
+        sw = got["sweeps"]
+        own = slice(sw["lo"], sw["hi"])
+        q_eq = bool(np.array_equal(sw["q"], q_full[:, own]))
+        l_eq = bool(np.array_equal(sw["labels"], lab_full[:, own]))
+        print(f"rank {r} K4 / K5 on its window (points {sw['lo']}-"
+              f"{sw['hi'] - 1} + a halo block a side, N=10240 B=128 L=17): "
+              f"own blocks bit-equal to the unsharded launch: K4 {q_eq}, "
+              f"K5 {l_eq}; launches {sw['launches']}")
+        check(q_eq and l_eq, f"rank {r}: windowed K4 / K5 not bit-equal")
+        check(sw["launches"] == {"mean_field_fused": 4, "icm_fused": 2},
+              f"rank {r}: windowed launches {sw['launches']}")
+        sweeps.append(dict(k4_bit_equal=q_eq, k5_bit_equal=l_eq,
+                           launches=sw["launches"]))
+    out["sweeps"] = sweeps
+    out["seconds"] = dict(gloo=t_gloo, phase=time.perf_counter() - t_start)
+    print(f"phase 12: {out['seconds']['phase']:.1f} s (gloo ranks "
+          f"{t_gloo:.1f} s) [{card_line()}]")
+    return out, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2233,6 +2497,8 @@ def main(argv=None) -> int:
     launches.update(surface_launches)
     mesh_out, mesh_launches = phase_mesh(dev, batch_res)
     launches.update(mesh_launches)
+    pt_out, pt_launches = phase_pt(dev)
+    launches.update(pt_launches)
     if args.profile:
         profile_fit()
         profile_stress()
@@ -2258,7 +2524,7 @@ def main(argv=None) -> int:
                       "stress": stress, "motion": motion,
                       "adaptive": adaptive, "stream": stream,
                       "mixed": mixed, "surfaces": surfaces,
-                      "mesh": mesh_out}))
+                      "mesh": mesh_out, "pt": pt_out}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

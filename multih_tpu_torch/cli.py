@@ -5,12 +5,14 @@ printed when ground truth is available.
 Counterpart of ``multih_tpu/cli.py`` with the same subcommands and
 arguments, run on a CUDA card by default (``--device``, in place of the
 JAX CLI's ``--platform``); without a card it raises unless given
-``--device cpu``. Not ported yet, and refused with a nonzero exit:
-``fit-images`` (its OpenCV front end), ``--aot`` and ``--save-viz``.
+``--device cpu``. ``fit-images`` needs OpenCV on the host (exit 2
+without it). Not ported yet, and refused with a nonzero exit: ``--aot``
+and ``--save-viz``.
 
 Example:
     multih-torch fit data/johnsona.mat --threshold 3.0 --lambda 0.3
     multih-torch synth --planes 3 --points 600 --noise 0.5 --json
+    multih-torch fit-images left.png right.png --use-affines
     multih-torch bench-adelaide path/to/adelaide_dir
     torchrun --nproc-per-node 2 -m multih_tpu_torch.cli bench-adelaide dir
     multih-torch stream synth --frames 30
@@ -334,7 +336,57 @@ def cmd_fit(args):
 
 
 def cmd_fit_images(args):
-    _not_ported("fit-images (the OpenCV SIFT front end)")
+    """Raw image pair -> SIFT matching -> fit (cli.py:394), optionally
+    feeding the matches' affine frames into the paper's one-point
+    hypothesis path (`fit(affines=...)`). Exits 2 without OpenCV."""
+    dev = _device(args)
+    try:
+        import cv2
+    except ImportError:
+        print("fit-images needs OpenCV (cv2), which does not import here",
+              file=sys.stderr)
+        sys.exit(2)
+    from multih_tpu_torch.utils import features
+
+    img1 = cv2.imread(args.image1, cv2.IMREAD_GRAYSCALE)
+    img2 = cv2.imread(args.image2, cv2.IMREAD_GRAYSCALE)
+    if img1 is None or img2 is None:
+        print("could not read input images", file=sys.stderr)
+        sys.exit(1)
+    cs, affines = features.detect_and_match(
+        img1, img2, max_features=args.max_features, ratio=args.ratio)
+    if cs.n_points < 8:
+        print(f"only {cs.n_points} matches — not enough", file=sys.stderr)
+        sys.exit(1)
+    print(f"matched {cs.n_points} correspondences", file=sys.stderr)
+    if not args.use_affines:
+        _fit_one(cs, args)
+        return
+
+    import multih_tpu_torch as mt
+
+    _reject_mixed(args, "fit-images --use-affines (homography one-point "
+                        "hypothesis path)")
+    args.n_points_hint = cs.n_points
+    cfg = _build_config(args)
+    x1, x2, valid = mt.pad_points(cs.x1, cs.x2, None, cfg.max_points)
+    aff = np.tile(np.eye(2, dtype=np.float32), (cfg.max_points, 1, 1))
+    aff[: cs.n_points] = affines
+    res = mt.fit(x1, x2, valid,
+                 torch.Generator(device=dev).manual_seed(args.seed), cfg,
+                 affines=aff, device=dev)
+    active = res.active.cpu().numpy()
+    labels = res.labels.cpu().numpy()[: cs.n_points]
+    out = {
+        "name": f"{args.image1}|{args.image2}",
+        "n_points": cs.n_points,
+        "n_planes_found": int(active.sum()),
+        "support": res.support.cpu().numpy()[active > 0].tolist(),
+    }
+    print(json.dumps(out) if args.json else
+          "\n".join(f"{k}: {v}" for k, v in out.items()))
+    if args.save_labels:
+        np.savetxt(args.save_labels, labels, fmt="%d")
 
 
 def cmd_synth(args):
@@ -489,12 +541,17 @@ def main(argv=None):
     _add_common(p_fit)
     p_fit.set_defaults(fn=cmd_fit)
 
-    # no arguments until detect_and_match is ported: whatever follows
-    # fit-images is accepted and refused with the not-ported message
     p_im = sub.add_parser(
         "fit-images",
-        help="not ported yet (the OpenCV front end; exits nonzero)",
+        help="detect+match SIFT features on an image pair, then fit",
     )
+    p_im.add_argument("image1")
+    p_im.add_argument("image2")
+    p_im.add_argument("--max-features", type=int, default=4000)
+    p_im.add_argument("--ratio", type=float, default=0.8)
+    p_im.add_argument("--use-affines", action="store_true",
+                      help="add affine+F one-point hypotheses (paper path)")
+    _add_common(p_im)
     p_im.set_defaults(fn=cmd_fit_images)
 
     p_sy = sub.add_parser("synth", help="fit a synthetic scene")
@@ -535,9 +592,7 @@ def main(argv=None):
     _add_common(p_st)
     p_st.set_defaults(fn=cmd_stream)
 
-    args, extra = ap.parse_known_args(argv)
-    if extra and args.fn is not cmd_fit_images:
-        ap.error(f"unrecognized arguments: {' '.join(extra)}")
+    args = ap.parse_args(argv)
     args.fn(args)
 
 

@@ -337,12 +337,16 @@ __device__ __forceinline__ int icm_point(const int* __restrict__ lab,
 // K5: every half-sweep of every start in one cooperative launch,
 // warps striding over the (start, moving point) pairs, the labels
 // double-buffered in device memory, this_grid().sync() between halves.
+// Half-sweep h moves the points of parity (parity0 + h) & 1: a 'pt'
+// rank runs one half-sweep a launch on its halo window, parity0
+// alternating, and exchanges the halo between launches.
 template <int LPL>
 __global__ void __launch_bounds__(kWarps * 32)
 icm_grid(const int* __restrict__ labels0, const float* __restrict__ base,
          const int* __restrict__ cols, const float* __restrict__ ws,
-         const int* __restrict__ cnt, int cap, int halves, int ns, int l,
-         int n, float sw, int* __restrict__ out, int* __restrict__ tmp) {
+         const int* __restrict__ cnt, int cap, int halves, int parity0,
+         int ns, int l, int n, float sw, int* __restrict__ out,
+         int* __restrict__ tmp) {
   cg::grid_group grid = cg::this_grid();
   const int lane = threadIdx.x & 31;
   const int tid = blockIdx.x * blockDim.x + threadIdx.x;
@@ -350,7 +354,7 @@ icm_grid(const int* __restrict__ labels0, const float* __restrict__ base,
   const int gw = tid >> 5, nw = nt >> 5;
   const size_t total = static_cast<size_t>(ns) * n;
   for (int h = 0; h < halves; ++h) {
-    const int par = h & 1;
+    const int par = (parity0 + h) & 1;
     const bool last = h == halves - 1;
     const int* src = h == 0 ? labels0 : tmp + ((h - 1) & 1) * total;
     int* dst = last ? out : tmp + (h & 1) * total;
@@ -518,11 +522,11 @@ int mean_field_front(const float* q0, const float* pts, const float* hm,
 
 template <int LPL>
 int icm(const int* labels0, const float* base, const int* cols,
-        const float* ws, const int* cnt, int cap, int iterations, int ns,
-        int l, int n, float sw, int* out, int* tmp, cudaStream_t st) {
-  int halves = 2 * iterations;
-  void* args[] = {&labels0, &base, &cols, &ws, &cnt, &cap, &halves, &ns,
-                  &l, &n, &sw, &out, &tmp};
+        const float* ws, const int* cnt, int cap, int halves, int parity0,
+        int ns, int l, int n, float sw, int* out, int* tmp,
+        cudaStream_t st) {
+  void* args[] = {&labels0, &base, &cols, &ws, &cnt, &cap, &halves,
+                  &parity0, &ns, &l, &n, &sw, &out, &tmp};
   return launch_grid<icm_grid<LPL>>(
       (ns * ((n + 1) / 2) + kWarps - 1) / kWarps, args, st);
 }
@@ -575,14 +579,15 @@ extern "C" int multih_mean_field_front(
 
 extern "C" int multih_icm(const int* labels0, const float* base,
                           const int* cols, const float* ws, const int* cnt,
-                          int cap, int iterations, int ns, int l, int n,
-                          float sw, int* out, int* tmp, void* stream) {
+                          int cap, int halves, int parity0, int ns, int l,
+                          int n, float sw, int* out, int* tmp,
+                          void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (l <= 32)
-    return icm<1>(labels0, base, cols, ws, cnt, cap, iterations, ns, l, n,
-                  sw, out, tmp, st);
+    return icm<1>(labels0, base, cols, ws, cnt, cap, halves, parity0, ns, l,
+                  n, sw, out, tmp, st);
   if (l <= 64)
-    return icm<2>(labels0, base, cols, ws, cnt, cap, iterations, ns, l, n,
-                  sw, out, tmp, st);
+    return icm<2>(labels0, base, cols, ws, cnt, cap, halves, parity0, ns, l,
+                  n, sw, out, tmp, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -9,6 +9,10 @@ mean-field / ICM kernels (ops/kernels/mrf_kernel.py) run on the card,
 and the gather path (``adj=None``): the symmetrized agreement as a
 gather plus an ``index_add_`` over the k-NN graph itself, for points in
 any order and any N (no kernel: it runs in plain PyTorch everywhere).
+On a 'pt' mesh (`PointShard`) a rank builds its own blocks' rows of the
+windowed graph and of the band (`build_window_adjacency`), and every
+sweep and energy reads its neighbours' edge blocks through a halo
+exchange.
 """
 
 from __future__ import annotations
@@ -63,7 +67,7 @@ def knn_graph(pts: torch.Tensor, valid: torch.Tensor, k: int,
 
 
 def knn_graph_windowed(feats: torch.Tensor, valid: torch.Tensor, k: int,
-                       block: int):
+                       block: int, rows: tuple[int, int] | None = None):
     """k-NN inside the 3-block Morton window: each point's k nearest (in
     `feats` space, (N, 2) positions or (N, 4) sampling features) among
     the 3*block points of its own block and the two adjacent ones.
@@ -74,28 +78,37 @@ def knn_graph_windowed(feats: torch.Tensor, valid: torch.Tensor, k: int,
     nb = 2 the window is the whole array and this is exact k-NN.
 
     Requires N % block == 0 and N >= 2*block. Returns (nbr_idx (N, k)
-    int32, nbr_w (N, k) float {0,1}) like `knn_graph`."""
+    int32, nbr_w (N, k) float {0,1}) like `knn_graph`; with `rows` =
+    (lo, hi), block-aligned, only the rows of points lo..hi-1 (a 'pt'
+    rank's own blocks), each as the whole graph has it."""
     n, d = feats.shape
     if n % block or n < 2 * block:
         raise ValueError((n, block))
+    lo, hi = (0, n) if rows is None else rows
+    if lo % block or hi % block or not 0 <= lo < hi <= n:
+        raise ValueError(f"rows {rows} not block-aligned in N={n}")
     nb = n // block
+    b0, b1 = lo // block, hi // block
     dev = feats.device
-    fb = feats.reshape(nb, block, d)
-    win = window_roll(feats, block)  # (nb, 3B, d)
-    v_win = window_roll(valid, block)  # (nb, 3B)
+    fb = feats[lo:hi].reshape(b1 - b0, block, d)
+    # each block's 3-block window, wrapped at the ends (window_roll's)
+    src = ((torch.arange(b0 - 1, b1 + 1, device=dev) % nb)[:, None] * block
+           + torch.arange(block, device=dev)[None, :]).reshape(-1)
+    win = window_roll(feats[src], block)[1:-1]  # (nb, 3B, d)
+    v_win = window_roll(valid[src], block)[1:-1]  # (nb, 3B)
     d2 = (fb * fb).sum(2)[:, :, None] + (win * win).sum(2)[:, None, :] \
         - 2.0 * torch.bmm(fb, win.transpose(1, 2))  # (nb, B, 3B)
 
     # window column c of block b is global index (b-1)*B + c; out of
     # range = a wrapped block
-    b_ids = torch.arange(nb, device=dev)[:, None, None]
+    b_ids = torch.arange(b0, b1, device=dev)[:, None, None]
     g = (b_ids - 1) * block + torch.arange(3 * block, device=dev)[None, None]
     r_ids = b_ids * block + torch.arange(block, device=dev)[None, :, None]
     bad = (g < 0) | (g >= n) | (g == r_ids)
     d2 = d2 + _BIG * bad.to(d2.dtype)
     d2 = d2 + torch.where(v_win[:, None, :] > 0, 0.0, _BIG).to(d2.dtype)
 
-    work = d2.reshape(n, 3 * block)
+    work = d2.reshape(hi - lo, 3 * block)
     col_iota = torch.arange(3 * block, device=dev)[None, :]
     cols, vals = [], []
     for _ in range(k):
@@ -105,10 +118,10 @@ def knn_graph_windowed(feats: torch.Tensor, valid: torch.Tensor, k: int,
         work = work + _BIG * (col_iota == c[:, None]).to(work.dtype)
     col = torch.stack(cols, dim=1)
     best = torch.stack(vals, dim=1)
-    blk_row = torch.arange(n, device=dev)[:, None] // block
+    blk_row = torch.arange(lo, hi, device=dev)[:, None] // block
     nbr_idx = torch.clamp((blk_row - 1) * block + col, 0, n - 1)
     edge_real = (best < _BIG * 0.5).to(feats.dtype)
-    return nbr_idx.to(torch.int32), edge_real * valid[:, None]
+    return nbr_idx.to(torch.int32), edge_real * valid[lo:hi, None]
 
 
 # ---------------------------------------------------------------------------
@@ -244,33 +257,127 @@ def _build_band_far_free(nbr_idx, nbr_w, block: int) -> BandedAdjacency:
     and counted twice in n_dropped, as the scatter path counts both of
     its directions. The forward rows are a scatter_add_ of at most k
     values in {0, 0.5} per row: exact, like the JAX one-hot sum."""
+    band_f, in_band = _forward_band(nbr_idx, nbr_w, block, 0)
+    r_blk, l_blk = band_f[:, :, 2 * block:], band_f[:, :, :block]
+    band = _symmetric_band(band_f, torch.roll(r_blk, 1, dims=0),
+                           torch.roll(l_blk, -1, dims=0))
+    return _far_free(band, 2 * (~in_band & (nbr_w > 0)).sum())
+
+
+def _forward_band(nbr_idx, nbr_w, block: int, row0: int):
+    """(band_f (nb, B, 3B), in_band (n, k)): the forward band of rows
+    row0.. row0+n-1 of a windowed graph, 0.5 w of each row's own edges at
+    its window column (global column (b-1)*B + c), and which edges lie in
+    the row's window."""
     n, k = nbr_idx.shape
-    nb = n // block
     dev = nbr_idx.device
-    blk_row = torch.arange(n, device=dev)[:, None] // block
-    col = nbr_idx.to(torch.int64) - (blk_row - 1) * block  # (N, k)
+    blk_row = (row0 + torch.arange(n, device=dev))[:, None] // block
+    col = nbr_idx.to(torch.int64) - (blk_row - 1) * block  # (n, k)
     in_band = (col >= 0) & (col < 3 * block)
     w_f = torch.where(in_band, 0.5 * nbr_w, 0.0)
     col = torch.clamp(col, 0, 3 * block - 1)
     band_f = torch.zeros((n, 3 * block), dtype=nbr_w.dtype, device=dev)
     band_f.scatter_add_(1, col, w_f)
-    band_f = band_f.reshape(nb, block, 3 * block)
-    l_blk = band_f[:, :, :block]
+    return band_f.reshape(n // block, block, 3 * block), in_band
+
+
+def _symmetric_band(band_f, r_prev, l_next):
+    """band_f + its reverse half, [R_{b-1}^T, M_b^T, L_{b+1}^T] at block
+    b, given each block's previous block's right third `r_prev` and its
+    next block's left third `l_next` (nb, B, B)."""
+    block = band_f.shape[1]
     m_blk = band_f[:, :, block:2 * block]
-    r_blk = band_f[:, :, 2 * block:]
-    band = band_f + torch.cat(
-        [torch.roll(r_blk.transpose(1, 2), 1, dims=0),
-         m_blk.transpose(1, 2),
-         torch.roll(l_blk.transpose(1, 2), -1, dims=0)], dim=2,
-    )
-    deg = band.sum(2).reshape(n)
-    n_dropped = 2 * (~in_band & (nbr_w > 0)).sum().to(torch.int32)
+    return band_f + torch.cat([r_prev.transpose(1, 2), m_blk.transpose(1, 2),
+                               l_next.transpose(1, 2)], dim=2)
+
+
+def _far_free(band, n_dropped) -> BandedAdjacency:
+    """A far-free band's adjacency: its degree, empty far arrays."""
+    dev = band.device
     empty_i = torch.zeros((0,), dtype=torch.int64, device=dev)
     return BandedAdjacency(
         band=band.contiguous(), far_out=empty_i, far_in=empty_i,
-        far_w=torch.zeros((0,), dtype=nbr_w.dtype, device=dev),
-        deg=deg[:, None], n_dropped=n_dropped,
+        far_w=torch.zeros((0,), dtype=band.dtype, device=dev),
+        deg=band.sum(2).reshape(-1)[:, None],
+        n_dropped=n_dropped.to(torch.int32),
     )
+
+
+class PointShard:
+    """A rank's share of the point axis of a 'pt' mesh (parallel/mesh.py):
+    the Morton-sorted points' contiguous run of blocks [lo, hi), N / pt
+    points, and the collectives its labeling needs. Every (., N) array
+    of the fit lives on the rank's own points; a sweep reads them through
+    `window`, the own points with the previous and the next rank's edge
+    block (mesh.halo_exchange), zeros past the ends. `adj` is the
+    window's far-free band (`build_window_adjacency`), its halo blocks'
+    rows zero."""
+
+    def __init__(self, mesh, n: int, block: int):
+        npt = mesh.shape["pt"]
+        self.mesh, self.block = mesh, block
+        self.n_own = n // npt
+        self.lo = mesh.axis_index("pt") * self.n_own
+        self.hi = self.lo + self.n_own
+        self.adj = None
+
+    def psum(self, t: torch.Tensor) -> torch.Tensor:
+        return self.mesh.psum(t, "pt")
+
+    def gather(self, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """t with n_own points along `dim` on every rank -> N points
+        there, in Morton order."""
+        return torch.cat(self.mesh.all_gather(t, "pt").unbind(0), dim=dim)
+
+    def window(self, t: torch.Tensor) -> torch.Tensor:
+        """(R, n_own) -> (R, n_own + 2B): the halo exchange."""
+        prev, nxt = self.mesh.halo_exchange(t, "pt", self.block)
+        return torch.cat([prev, t, nxt], dim=-1)
+
+    def inner(self, t_win: torch.Tensor) -> torch.Tensor:
+        """(..., n_own + 2B) -> the own points (..., n_own)."""
+        return t_win[..., self.block:self.block + self.n_own]
+
+    def agree_t(self, p_t: torch.Tensor) -> torch.Tensor:
+        """The band's agreement of the own points, (L, n_own) ->
+        (L, n_own): the window's agree_t, its own points kept."""
+        return self.inner(self.adj.agree_t(self.window(p_t)))
+
+    @property
+    def deg(self) -> torch.Tensor:
+        """The own points' symmetrized degree, (n_own, 1)."""
+        return self.adj.deg[self.block:self.block + self.n_own]
+
+
+def build_window_adjacency(nbr_idx, nbr_w, shard: PointShard,
+                           neighbour_list: bool | None = None
+                           ) -> BandedAdjacency:
+    """`_build_band_far_free` for a 'pt' rank: nbr_idx / nbr_w are the
+    windowed graph's rows of its own points (global columns). The
+    reverse half of block b's band reads the forward band of blocks b-1
+    and b+1, so the ranks exchange their edge blocks' forward rows once
+    (mesh.halo_exchange). Returns the band of the rank's window, a zero
+    block on each side of its own blocks (rows whose sweep output
+    is discarded), with the window's neighbour list when `neighbour_list`
+    (default: on CUDA). The own rows equal the whole band's: its entries
+    are sums of {0, 0.5}, exact in any order. n_dropped counts the own
+    rows only (the caller sums it over the axis)."""
+    block = shard.block
+    band_f, in_band = _forward_band(nbr_idx, nbr_w, block, shard.lo)
+    prev, nxt = shard.mesh.halo_exchange(
+        band_f.reshape(-1, 3 * block).T, "pt", block)
+    r_blk, l_blk = band_f[:, :, 2 * block:], band_f[:, :, :block]
+    band = _symmetric_band(
+        band_f, torch.cat([prev.T[None, :, 2 * block:], r_blk[:-1]]),
+        torch.cat([l_blk[1:], nxt.T[None, :, :block]]))
+    zero = torch.zeros_like(band[:1])
+    adj = _far_free(torch.cat([zero, band, zero]),
+                    2 * (~in_band & (nbr_w > 0)).sum())
+    if neighbour_list is None:
+        neighbour_list = band.is_cuda
+    if neighbour_list:
+        adj = adj._replace(nbr=mrf_kernel.band_list(adj.band))
+    return adj
 
 
 def _mrf_kernel_ok(adj: BandedAdjacency | None) -> bool:
@@ -302,16 +409,20 @@ def _onehot_t(labels, l, dtype):
 
 
 def total_energy_t(labels, dct, nbr_idx, nbr_w, spatial_weight: float,
-                   label_cost: float, active, adj=None):
+                   label_cost: float, active, adj=None, shard=None):
     """E(L) = data + lambda * Potts + beta * |used active labels|, the
     Potts term through the band's agreement operator or the gather
-    path's (labeling.py:478)."""
+    path's (labeling.py:478). With a `shard` (PointShard), labels and
+    dct are its own points' and the sums run over the 'pt' axis."""
     l = dct.shape[0]
-    agree_fn, deg = _agree_and_deg_t(nbr_idx, nbr_w, adj, dct.dtype)
+    agree_fn, deg = _agree_and_deg_t(nbr_idx, nbr_w, adj, dct.dtype, shard)
     e_mrf = _energies_batch(labels[None], dct, agree_fn, deg,
-                            spatial_weight)[0]
-    used = _onehot_t(labels, l, dct.dtype)[:l - 1].amax(1) > 0
-    return e_mrf + label_cost * (used & (active > 0)).sum()
+                            spatial_weight, shard)[0]
+    n_used = _onehot_t(labels, l, dct.dtype)[:l - 1].sum(1)
+    if shard is not None:
+        n_used = shard.psum(n_used)
+    return (e_mrf + label_cost * ((n_used > 0) & (active > 0)).sum()
+            ).to(dct.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -342,10 +453,14 @@ def _degree(nbr_idx, nbr_w, dtype):
     return (0.5 * (direct + rev))[:, None]
 
 
-def _agree_and_deg_t(nbr_idx, nbr_w, adj: BandedAdjacency | None, dtype):
+def _agree_and_deg_t(nbr_idx, nbr_w, adj: BandedAdjacency | None, dtype,
+                     shard: PointShard | None = None):
     """The agreement operator (L, N) -> (L, N) and the (1, N) degree: the
     band's when an adjacency was built, the gather path's otherwise
-    (labeling.py:543)."""
+    (labeling.py:543); a 'pt' rank's own points' through its window
+    (PointShard.agree_t) with a `shard`."""
+    if shard is not None:
+        return shard.agree_t, shard.deg.T
     if adj is not None:
         return adj.agree_t, adj.deg.T
     return (lambda p_t: _neighbor_agreement_t(p_t, nbr_idx, nbr_w),
@@ -368,18 +483,31 @@ def _mf_temps(iterations, temp_start, temp_end, dtype, device):
 
 def mean_field_t(dct, nbr_idx, nbr_w, spatial_weight: float,
                  iterations: int, temp_start: float, temp_end: float,
-                 q_init=None, adj=None, use_kernel: bool = False):
+                 q_init=None, adj=None, use_kernel: bool = False,
+                 shard: PointShard | None = None):
     """Annealed mean-field for the Potts MRF, label-major (L, N):
     q <- softmax_l(-(D + lambda (deg - agree(q))) / T) per sweep, over the
     band when `adj` is given, over the k-NN graph's gather otherwise. The
     JAX lax.scan over temperatures (labeling.py:640) is a Python loop.
-    With `use_kernel` and a far-free band, all sweeps run in the fused
-    kernel (mrf_kernel.mean_field_fused), one call."""
+    Over a far-free band all sweeps run in the fused kernel
+    (mrf_kernel.mean_field_fused, one call) with `use_kernel`, else in
+    its plain version. With a `shard`, dct and q are a 'pt' rank's own
+    points and every sweep exchanges the halo: the kernel or its plain
+    version a call a sweep (mrf_kernel.mean_field_windowed)."""
     q = torch.softmax(-dct, dim=0) if q_init is None else q_init
     temps = _mf_temps(iterations, temp_start, temp_end, dct.dtype,
                       dct.device)
-    if use_kernel and _mrf_kernel_ok(adj):
+    if shard is not None:
+        base = dct + spatial_weight * shard.deg.T
+        return mrf_kernel.mean_field_windowed(
+            q.contiguous(), base.contiguous(), shard.adj.band, 1.0 / temps,
+            spatial_weight, shard.window, nbr=shard.adj.nbr,
+            use_kernel=use_kernel)
+    if _mrf_kernel_ok(adj):
         base = dct + spatial_weight * adj.deg.T  # (L, N)
+        if not use_kernel:
+            return mrf_kernel.mean_field_fused_reference(
+                q, base, adj.band, 1.0 / temps, spatial_weight)
         return mrf_kernel.mean_field_fused(
             q.contiguous(), base.contiguous(), adj.band, 1.0 / temps,
             spatial_weight, nbr=adj.nbr,
@@ -430,36 +558,54 @@ def pearl_relax_fused(x1, x2, valid, Hs, active, thr, outlier_cost: float,
                  nbr=adj.nbr)
 
 
-def _energies_batch(labels, dct, agree_fn, deg, spatial_weight):
+def _energies_batch(labels, dct, agree_fn, deg, spatial_weight,
+                    shard: PointShard | None = None):
     """(S, N) labelings -> (S,) data + lambda * Potts energies, no
     label-cost term (labeling.py:792). Potts is 0.5 * sum_i (deg_i -
     agree(onehot)[l_i, i]) through either agreement operator: the
-    directed-edge sum of w * [l_p != l_q] / 2 (labeling.py:761)."""
+    directed-edge sum of w * [l_p != l_q] / 2 (labeling.py:761). With a
+    `shard`, each rank's partial sums are summed over the 'pt' axis.
+    The sums over N run in float64 (the sums over L are exact: one term
+    is nonzero), so that the ranks' partial sums agree with one sum and
+    pick the same start; float64 energies."""
     s, n = labels.shape
     l = dct.shape[0]
     onehot = _onehot_t(labels, l, dct.dtype)  # (S, L, N)
-    e_data = (onehot * dct[None]).sum((1, 2))
+    e_data = (onehot * dct[None]).sum(1).double().sum(1)
     agree = agree_fn(onehot.reshape(s * l, n)).reshape(s, l, n)
     own = (onehot * agree).sum(1)
-    e_potts = 0.5 * (deg - own).sum(1)
-    return e_data + spatial_weight * e_potts
+    e_potts = 0.5 * (deg - own).double().sum(1)
+    e = e_data + spatial_weight * e_potts
+    return e if shard is None else shard.psum(e)
 
 
 def _icm_batch(starts, dct, spatial_weight: float, iterations: int,
                adj: BandedAdjacency | None, use_kernel: bool = False,
-               nbr_idx=None, nbr_w=None):
+               nbr_idx=None, nbr_w=None, shard: PointShard | None = None):
     """Red-black ICM from S start labelings at once, (S, N) -> (S, N),
     over the band when `adj` is given, over the k-NN graph (nbr_idx,
     nbr_w) otherwise: each half-sweep moves the points of one index
     parity to their cheapest label (the first minimum on ties) when it
     beats the current one by more than 1e-6, then the constant-labeling
     escape adopts the best constant labeling if it has lower energy
-    (labeling.py:702-753). The fori_loop is a Python loop; with
-    `use_kernel` and a far-free band the half-sweeps run in the fused
-    kernel (mrf_kernel.icm_fused), one call."""
-    agree_fn, deg = _agree_and_deg_t(nbr_idx, nbr_w, adj, dct.dtype)
-    if use_kernel and _mrf_kernel_ok(adj):
-        base = dct + spatial_weight * deg  # (L, N)
+    (labeling.py:702-753). The fori_loop is a Python loop; over a
+    far-free band the half-sweeps run in the fused kernel
+    (mrf_kernel.icm_fused, one call) with `use_kernel`, else in its plain
+    version. With a `shard` (a 'pt' rank's own points), the kernel or its
+    plain version a call a half-sweep, the halo exchanged before each
+    (mrf_kernel.icm_windowed); the energies are summed over the axis."""
+    agree_fn, deg = _agree_and_deg_t(nbr_idx, nbr_w, adj, dct.dtype, shard)
+    base = dct + spatial_weight * deg  # (L, N)
+    if shard is not None:
+        labels = mrf_kernel.icm_windowed(
+            starts.to(torch.int32).contiguous(), base.contiguous(),
+            shard.adj.band, iterations, spatial_weight, shard.window,
+            nbr=shard.adj.nbr, use_kernel=use_kernel).to(starts.dtype)
+    elif _mrf_kernel_ok(adj) and not use_kernel:
+        labels = mrf_kernel.icm_fused_reference(
+            starts.to(torch.int32), base, adj.band, iterations,
+            spatial_weight).to(starts.dtype)
+    elif _mrf_kernel_ok(adj):
         labels = mrf_kernel.icm_fused(
             starts.to(torch.int32).contiguous(), base.contiguous(),
             adj.band, iterations, spatial_weight, nbr=adj.nbr,
@@ -467,8 +613,11 @@ def _icm_batch(starts, dct, spatial_weight: float, iterations: int,
     else:
         labels = _icm_sweeps(starts, dct, spatial_weight, iterations,
                              agree_fn, deg)
-    e_cur = _energies_batch(labels, dct, agree_fn, deg, spatial_weight)
-    e_const = dct.sum(1)
+    e_cur = _energies_batch(labels, dct, agree_fn, deg, spatial_weight,
+                            shard)
+    e_const = dct.double().sum(1)
+    if shard is not None:
+        e_const = shard.psum(e_const)
     return torch.where((e_const.min() < e_cur)[:, None],
                        torch.argmin(e_const).to(labels.dtype), labels)
 
@@ -498,13 +647,16 @@ def _icm_sweeps(starts, dct, spatial_weight: float, iterations: int,
 
 
 def best_labeling_t(starts, dct, nbr_idx, nbr_w, spatial_weight: float,
-                    icm_iterations: int, adj=None, use_kernel: bool = False):
+                    icm_iterations: int, adj=None, use_kernel: bool = False,
+                    shard: PointShard | None = None):
     """ICM from several start labelings, polished together
     (`_icm_batch`); returns the one of lowest data + Potts energy, the
-    first on ties, without a label-cost term (labeling.py:923-960)."""
+    first on ties, without a label-cost term (labeling.py:923-960). With
+    a `shard`, on a 'pt' rank's own points, the energies over the axis."""
     polished = _icm_batch(torch.stack(starts), dct, spatial_weight,
                           icm_iterations, adj, use_kernel=use_kernel,
-                          nbr_idx=nbr_idx, nbr_w=nbr_w)
-    agree_fn, deg = _agree_and_deg_t(nbr_idx, nbr_w, adj, dct.dtype)
-    energies = _energies_batch(polished, dct, agree_fn, deg, spatial_weight)
+                          nbr_idx=nbr_idx, nbr_w=nbr_w, shard=shard)
+    agree_fn, deg = _agree_and_deg_t(nbr_idx, nbr_w, adj, dct.dtype, shard)
+    energies = _energies_batch(polished, dct, agree_fn, deg, spatial_weight,
+                               shard)
     return polished.index_select(0, torch.argmin(energies).view(1))[0]

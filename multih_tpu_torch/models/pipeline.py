@@ -36,8 +36,12 @@ bodies are Python loops that never wait on the device.
 With a mesh (parallel/mesh.py) whose 'hyp' axis is > 1, hypothesis
 generation and the verification sweep split over the axis's ranks
 (`_hypothesize_verify_sharded`) and the rest of the fit runs replicated;
-the result equals the single-device fit's. A mesh with a 'pt' (point)
-axis raises NotImplementedError: that axis is not ported yet.
+the result equals the single-device fit's. With a 'pt' (point) mesh the
+points split over the ranks in Morton blocks (`check_pt_gate`,
+labeling.PointShard): every sweep exchanges a one-block halo, the
+refits gather their weights and refit as the single-device fit does,
+the other sums over the points are psums (integer counts, float64
+energies), and the result equals the single-device fit's.
 """
 
 from __future__ import annotations
@@ -175,6 +179,11 @@ def _prepare_refit_basis(x1, x2, cfg: MultiHConfig):
     return geometry.prepare_refit(x1, x2)
 
 
+def _psum(shard, t):
+    """t summed over a 'pt' shard's axis; t itself without a shard."""
+    return t if shard is None else shard.psum(t)
+
+
 def _refit_batch(w, basis, cfg: MultiHConfig):
     """(C, N) weights -> (C, 3, 3) moment-formulated batched refit of the
     configured model class; the eigensolve takes the kernel on CUDA
@@ -183,6 +192,28 @@ def _refit_batch(w, basis, cfg: MultiHConfig):
              else geometry.homography_refit_batch)
     return refit(w, basis, cfg.eig_method, cfg.eig_iterations,
                  eig_kernel=_kernels_enabled(cfg, w.device))
+
+
+def _refit(w, x1, x2, cfg: MultiHConfig, basis=None, shard=None):
+    """(C, N) Tukey weights -> (C, 3, 3): the batched moment refit on
+    `basis` (prepared from x1, x2 when None), or with
+    cfg.refit_moments=False the direct one. With a `shard` (a 'pt'
+    rank), w, x1 and x2 are its own points' and `basis` every point's:
+    the ranks gather w and refit on every point (shard.x1, shard.x2) as
+    the single-device fit does, bit for bit. A psum of per-rank float32
+    moment sums rounds apart from one sum, and an ulp of H moves the
+    labels of points at a tie. The gathered w keeps w's memory layout
+    (refit_planes passes a transposed view): on CUDA the layout picks
+    the GEMM's kernel and with it the order of the float32 sums."""
+    if shard is not None:
+        x1, x2 = shard.x1, shard.x2
+        w = (shard.gather(w.T, dim=0).T if w.T.is_contiguous()
+             else shard.gather(w))
+    if not cfg.refit_moments:
+        return _refit_direct(x1, x2, w, cfg)
+    if basis is None:
+        basis = _prepare_refit_basis(x1, x2, cfg)
+    return _refit_batch(w, basis, cfg)
 
 
 def _refit_direct(x1, x2, w, cfg: MultiHConfig):
@@ -432,6 +463,7 @@ def _hypothesize_verify_sharded(draws, x1, x2, valid, nbr_sample,
     rounds = max(1, cfg.progressive_rounds)
     s_total = cfg.n_hypotheses + (rounds - 1) * max(1, cfg.claims_per_round)
     dev = x1.device
+    n_extra = 0 if extra_Hs is None else extra_Hs.shape[0]
     with record_function("hypothesize"):
         Hs_loc, ok_loc, slot_loc = generate_hypotheses(
             draws, x1, x2, valid, nbr_sample, cfg, tau,
@@ -449,9 +481,13 @@ def _hypothesize_verify_sharded(draws, x1, x2, valid, nbr_sample,
             slot_loc = torch.cat([slot_loc, s_total + d * e_loc
                                   + torch.arange(e_loc, device=dev)])
     vs = max(1, cfg.verify_subsample)
-    # pipeline.py:646: the rescore's pre-selection is capped by the pool
-    # without the extras, as the reference caps it
-    m_sel = min(cfg.verify_rescore * m, s_total) if vs > 1 else m
+    # the rescore's pre-selection is capped by the whole pool, extras
+    # included, as the unsharded pick caps it. A deliberate divergence:
+    # the reference caps it by the pool without the extras
+    # (pipeline.py:646), so with seeds or affine H's and verify_rescore *
+    # M past the sampled pool it rescores fewer candidates than its own
+    # single-device fit
+    m_sel = min(cfg.verify_rescore * m, s_total + n_extra) if vs > 1 else m
     with record_function("verify"):
         # rank_residual only when a full-resolution rescore follows
         counts = count_inliers(
@@ -481,11 +517,14 @@ def _hypothesize_verify_sharded(draws, x1, x2, valid, nbr_sample,
 
 
 def refit_planes(Hs, labels, residuals, x1, x2, valid, cfg: MultiHConfig,
-                 tau=None, basis=None):
+                 tau=None, basis=None, shard=None):
     """Re-estimate every plane from its assigned points with Tukey-biweight
     weights gated by the current residual, all planes in one batched
     refit (the moment refit, or with cfg.refit_moments=False the direct
-    one); planes with fewer than 4 weighted members keep their H."""
+    one); planes with fewer than 4 weighted members keep their H. With a
+    `shard`, the points are a 'pt' rank's own (basis every point's), the
+    supports are summed over the axis and the refit gathers the weights
+    (`_refit`)."""
     k = cfg.max_labels
     thr = _thr(cfg, tau, x1)
     member = F.one_hot(labels.long(), k + 1)[:, :k].to(x1.dtype) \
@@ -495,26 +534,27 @@ def refit_planes(Hs, labels, residuals, x1, x2, valid, cfg: MultiHConfig,
     tukey = (1.0 - rr) ** 2 * (residuals.T < thr)
     w = member * tukey
     eff_support = (w > 0).to(x1.dtype).sum(0)
-    if not cfg.refit_moments:
-        Hs_fit = _refit_direct(x1, x2, w.T, cfg)
-    else:
-        if basis is None:
-            basis = _prepare_refit_basis(x1, x2, cfg)
-        Hs_fit = _refit_batch(w.T, basis, cfg)
+    support, eff_support = _psum(shard, torch.stack([support, eff_support]))
+    Hs_fit = _refit(w.T, x1, x2, cfg, basis, shard)
     Hs_new = torch.where((eff_support >= float(cfg.minimal_points))
                          [:, None, None], Hs_fit, Hs)
     return Hs_new, support
 
 
 def merge_duplicate_planes(r, support, active, thr, merge_iou: float,
-                           containment: bool = True):
+                           containment: bool = True, shard=None):
     """Deactivate planes whose inlier sets duplicate a stronger plane's
     (containment: intersection over the smaller set), greedy in order of
-    support. The fori_loop (pipeline.py:783) is a loop of tensor ops."""
+    support. The fori_loop (pipeline.py:783) is a loop of tensor ops.
+    With a `shard`, r holds a 'pt' rank's points and the counts and
+    intersections (integers) are summed over the axis."""
     k = r.shape[0]
     masks = (r < thr).to(r.dtype) * active[:, None]
     counts = masks.sum(1)
     inter = masks @ masks.T
+    if shard is not None:
+        both = shard.psum(torch.cat([inter, counts[:, None]], dim=1))
+        inter, counts = both[:, :k], both[:, k]
     if containment:
         denom = torch.minimum(counts[:, None], counts[None, :])
     else:
@@ -533,48 +573,57 @@ def merge_duplicate_planes(r, support, active, thr, merge_iou: float,
 
 
 def lo_refine_candidates(Hs, x1, x2, valid, cfg: MultiHConfig, rounds: int,
-                         tau=None):
+                         tau=None, shard=None, basis=None):
     """LO-RANSAC growth of candidates: `rounds` batched Tukey refits at
     geometrically shrinking thresholds (4tau, 2tau, tau), each kept only
     if the inlier count at tau does not drop. The lax.scan over rounds
     (pipeline.py:840) is a Python loop; with cfg.refit_moments=False each
-    round is one batched direct refit of all M rows."""
+    round is one batched direct refit of all M rows. With a `shard`, the
+    points are a 'pt' rank's own, `basis` every point's refit features,
+    the counts are summed over the axis and the refits gather the weights
+    (`_refit`)."""
     thr = _thr(cfg, tau, x1)
 
     def count(r):
         return ((r < thr) * valid[None, :]).sum(1)
 
-    basis = _prepare_refit_basis(x1, x2, cfg) if cfg.refit_moments else None
+    if basis is None and cfg.refit_moments:
+        basis = _prepare_refit_basis(x1, x2, cfg)
     m_min = float(cfg.minimal_points)
     for i in range(rounds):
         thr_r = thr * cfg.lo_shrink_eff ** (rounds - 1 - i)
         r = model_residual_matrix(Hs, x1, x2, cfg.residual, cfg)
         rr = torch.clamp(r / thr_r, 0.0, 1.0)
         w = ((1.0 - rr) ** 2 * (r < thr_r)) * valid[None, :]
-        enough = (w > 0).to(x1.dtype).sum(1) >= m_min
-        Hs_fit = (_refit_batch(w, basis, cfg) if cfg.refit_moments
-                  else _refit_direct(x1, x2, w, cfg))
+        enough = _psum(shard, (w > 0).to(x1.dtype).sum(1)) >= m_min
+        Hs_fit = _refit(w, x1, x2, cfg, basis, shard)
         Hs_new = torch.where(enough[:, None, None], Hs_fit, Hs)
         r_new = model_residual_matrix(Hs_new, x1, x2, cfg.residual, cfg)
-        better = (count(r_new) >= count(r))[:, None, None]
+        c_new, c_old = _psum(shard, torch.stack([count(r_new), count(r)]))
+        better = (c_new >= c_old)[:, None, None]
         Hs = torch.where(better, Hs_new, Hs)
     return Hs
 
 
 def _pearl_iteration(carry, it: int, x1, x2, valid, nbr_idx, nbr_w,
-                     cfg: MultiHConfig, tau=None, adj=None):
+                     cfg: MultiHConfig, tau=None, adj=None, shard=None,
+                     basis=None):
     """One PEARL alternation: residuals -> data costs -> mean-field + ICM
     -> refit -> accept -> merge duplicates -> label-cost prune (only in
     the second half of the iterations) -> for F, the union-refit merge.
     Where `fused_front_gate` holds, the residuals, data costs and sweeps
-    are one fused kernel call, whose dct and r the rest reuses."""
+    are one fused kernel call, whose dct and r the rest reuses. With a
+    `shard` (labeling.PointShard), the points, q and every (., N) array
+    are a 'pt' rank's own, the sweeps exchange halos, and every sum over
+    the points runs over the axis but the refits' (`_refit`); `basis`
+    is every point's refit basis."""
     Hs, active, q = carry
     thr = _thr(cfg, tau, x1)
     k = cfg.max_labels
     use_k = _kernels_enabled(cfg, x1.device)
     f_model = cfg.model == "fundamental"
 
-    if fused_front_gate(cfg, adj, False, x1.device):
+    if fused_front_gate(cfg, adj, shard is not None, x1.device):
         q, dct, r = labeling.pearl_relax_fused(
             x1, x2, valid, Hs, active, thr, cfg.outlier_cost,
             cfg.spatial_weight, cfg.meanfield_iterations,
@@ -588,32 +637,35 @@ def _pearl_iteration(carry, it: int, x1, x2, valid, nbr_idx, nbr_w,
             dct, nbr_idx, nbr_w, cfg.spatial_weight,
             cfg.meanfield_iterations, cfg.temperature_start,
             cfg.temperature, q_init=q, adj=adj, use_kernel=use_k,
+            shard=shard,
         )
     # two ICM starts: the mean-field argmax and the data argmin
     labels = labeling.best_labeling_t(
         [torch.argmax(q, dim=0), torch.argmin(dct, dim=0)],
         dct, nbr_idx, nbr_w, cfg.spatial_weight, cfg.icm_iterations,
-        adj=adj, use_kernel=use_k,
+        adj=adj, use_kernel=use_k, shard=shard,
     )
 
     # refit on assignments; accept per plane if inliers don't drop:
     # global inliers for homographies, the model's own members for F
     # (a bridge must be free to purify toward its members)
-    Hs_new, support = refit_planes(Hs, labels, r, x1, x2, valid, cfg, tau)
+    Hs_new, support = refit_planes(Hs, labels, r, x1, x2, valid, cfg, tau,
+                                   basis, shard)
     r_new = model_residual_matrix(Hs_new, x1, x2, cfg.residual, cfg)
     member_k = (labels[None, :] == torch.arange(
         k, device=labels.device)[:, None]).to(x1.dtype) * valid[None, :]
     acc_w = (member_k if f_model and cfg.f_member_acceptance
              else valid[None, :])
-    in_old = ((r < thr) * acc_w).sum(1)
-    in_new = ((r_new < thr) * acc_w).sum(1)
+    in_old, in_new = _psum(shard, torch.stack(
+        [((r < thr) * acc_w).sum(1), ((r_new < thr) * acc_w).sum(1)]))
     better = (in_new >= in_old)[:, None, None]
     Hs = torch.where(better, Hs_new, Hs)
     r_acc = torch.where(better[..., 0], r_new, r)
 
     # containment for homographies, symmetric Jaccard for F
     active = merge_duplicate_planes(r_acc, support, active, thr,
-                                    cfg.merge_iou, containment=not f_model)
+                                    cfg.merge_iou, containment=not f_model,
+                                    shard=shard)
 
     # PEARL label cost: drop the plane whose removal lowers the energy
     # the most, if any — one greedy removal for homographies, eight
@@ -630,7 +682,8 @@ def _pearl_iteration(carry, it: int, x1, x2, valid, nbr_idx, nbr_w,
             member = oh_lab[:k] * valid[None, :] * active[:, None]
             own = (oh_lab * dct_now).sum(0)
             runner = torch.where(oh_lab > 0, float("inf"), dct_now).amin(0)
-            switch_cost = ((runner - own)[None, :] * member).sum(1)
+            switch_cost = _psum(shard, ((runner - own)[None, :] * member
+                                        ).double().sum(1))
             gain = cfg.label_cost - switch_cost
             worst = torch.argmax(torch.where(active > 0, gain,
                                              float("-inf"))).view(1)
@@ -641,7 +694,7 @@ def _pearl_iteration(carry, it: int, x1, x2, valid, nbr_idx, nbr_w,
 
     energy = labeling.total_energy_t(
         labels, dct, nbr_idx, nbr_w, cfg.spatial_weight, cfg.label_cost,
-        active, adj=adj,
+        active, adj=adj, shard=shard,
     )
     if f_model and cfg.f_union_merge:
         with record_function("union_refit_merge"):
@@ -700,14 +753,14 @@ def _union_refit_merge(Hs, active, member_k, r_acc, x1, x2, thr,
 
 
 def _pearl_phase(Hs, active, q, its, x1, x2, valid, nbr_idx, nbr_w,
-                 cfg: MultiHConfig, tau, adj):
+                 cfg: MultiHConfig, tau, adj, shard=None, basis=None):
     """PEARL iterations `its` (the lax.scan at pipeline.py:1302 and
     :1430) as a Python loop; returns (Hs, active, q, energies)."""
     energies = []
     for it in its:
         (Hs, active, q), e = _pearl_iteration(
             (Hs, active, q), it, x1, x2, valid, nbr_idx, nbr_w, cfg, tau,
-            adj,
+            adj, shard, basis,
         )
         energies.append(e)
     return Hs, active, q, energies
@@ -956,12 +1009,15 @@ def _f_refine_phases(Hs, active, q, draws, x1, x2, valid, nbr_idx, nbr_w,
 
 def _hypothesize_verify(draws, x1, x2, valid, nbr_sample,
                         cfg: MultiHConfig, tau, extra_Hs, extra_ok,
-                        window_block: int):
+                        window_block: int, shard=None):
     """Single-device hypothesis generation, the extras appended, and the
     verification sweep + top-M (pipeline.py:1214-1257): with
     cfg.verify_subsample > 1 the ranking sweep runs on a Morton-strided
     subsample and only the top M_pre are rescored at full resolution.
-    Returns (Hs_cand (M, 3, 3), n_hyp_ok)."""
+    With a `shard` (a 'pt' rank), generation runs replicated on the
+    whole point set and each rank counts its own points' share of each
+    sweep (the same stride positions), the integer counts summed over
+    the axis. Returns (Hs_cand (M, 3, 3), n_hyp_ok)."""
     with record_function("hypothesize"):
         Hs_all, ok = generate_hypotheses(
             draws, x1, x2, valid, nbr_sample, cfg, tau,
@@ -971,20 +1027,24 @@ def _hypothesize_verify(draws, x1, x2, valid, nbr_sample,
         Hs_all = torch.cat([Hs_all] + extra_Hs)
         ok = torch.cat([ok] + extra_ok)
     vs = max(1, cfg.verify_subsample)
+    lo, hi = (0, x1.shape[0]) if shard is None else (shard.lo, shard.hi)
+
+    def counted(Hs, stride, kind=None):
+        sub = slice(lo + (-lo) % stride, hi, stride)
+        return _psum(shard, count_inliers(Hs, x1[sub], x2[sub], valid[sub],
+                                          cfg, tau, kind=kind))
+
     with record_function("verify"):
         # rank_residual only when a full-resolution rescore follows
-        counts = count_inliers(
-            Hs_all, x1[::vs], x2[::vs], valid[::vs], cfg, tau,
-            kind=(cfg.rank_residual or None) if vs > 1 else None,
+        counts = counted(
+            Hs_all, vs, (cfg.rank_residual or None) if vs > 1 else None,
         ) * ok
         if vs > 1:
             m_pre = min(cfg.verify_rescore * cfg.n_candidates,
                         counts.shape[0])
             # pipeline.py:1244/:1248: top_k tie order
             _, pre_idx = top_k_stable(counts, m_pre)
-            counts_full = count_inliers(
-                Hs_all[pre_idx], x1, x2, valid, cfg, tau
-            ) * ok[pre_idx]
+            counts_full = counted(Hs_all[pre_idx], 1) * ok[pre_idx]
             _, sel = top_k_stable(counts_full, cfg.n_candidates)
             top_idx = pre_idx[sel]
         else:
@@ -993,15 +1053,35 @@ def _hypothesize_verify(draws, x1, x2, valid, nbr_sample,
     return Hs_all[top_idx], ok.sum()
 
 
+def check_pt_gate(cfg: MultiHConfig, n_pts: int, mesh) -> None:
+    """ValueError unless a fit of N = n_pts points can shard its point
+    axis over `mesh` (a one-axis 'pt' mesh): the reference's gate
+    (sharding.py:93-99, an assert there) -- spatial_sort, agree_block >
+    0, N a multiple of agree_block * pt and N >= 2 agree_block -- plus
+    what the port's split needs: the windowed graph (knn_window), whose
+    band reaches one block, an even agree_block (a window keeps its
+    points' index parity for the red-black ICM), and the homography
+    model (the F model's split move and refine phases are not split)."""
+    npt = mesh.shape["pt"]
+    b = cfg.agree_block
+    if tuple(mesh.shape) != ("pt",):
+        raise ValueError(f"a 'pt' mesh has one axis, not {mesh.shape}")
+    if not (cfg.spatial_sort and b > 0):
+        raise ValueError("pt sharding needs the banded gate: spatial_sort "
+                         "+ agree_block")
+    if n_pts % (b * npt) or n_pts < 2 * b:
+        raise ValueError(f"max_points={n_pts} must be a multiple of "
+                         f"agree_block*npt={b}*{npt} and >= 2*agree_block")
+    if not cfg.knn_window or b % 2:
+        raise ValueError("pt sharding needs knn_window and an even "
+                         "agree_block")
+    if cfg.model != "homography":
+        raise ValueError("pt sharding runs the homography model")
+
+
 def _check_slice(cfg: MultiHConfig, affines, mesh):
-    """NotImplementedError for a mesh with a 'pt' axis (not ported
-    yet); the reference's ValueError for affine hypotheses on another
+    """The reference's ValueError for affine hypotheses on another
     model than homography (pipeline.py:1176-1180)."""
-    if mesh is not None and "pt" in mesh.shape:
-        raise NotImplementedError(
-            "not ported yet: the 'pt' (point) mesh axis, make_pt_mesh and "
-            "pt_sharded_fit, which need a halo exchange inside every "
-            "mean-field and ICM sweep")
     if affines is not None and cfg.model != "homography":
         raise ValueError(
             "affine one-point hypotheses are a homography-model path "
@@ -1052,12 +1132,22 @@ def fit(x1, x2, valid, key, cfg: MultiHConfig, affines=None, tau=None,
     of the seeds. mesh: a parallel.mesh.Mesh; where its 'hyp' axis is
     > 1, hypothesis generation and verification split over that axis
     (pipeline.py:1202-1212) and every rank of the axis returns the
-    single-device fit's result. Every rank passes the same inputs and a
-    key in the same state (a generator of the same seed), and array
-    inputs go to the mesh's device."""
+    single-device fit's result. A 'pt' mesh (sharding.make_pt_mesh)
+    splits the point axis (`check_pt_gate`): each rank takes a contiguous
+    run of Morton blocks, hypothesis generation runs replicated, the
+    sweeps exchange a one-block halo, the refits gather their weights,
+    the other sums over the points run over the axis, and every rank
+    returns the whole labeling (the reference's
+    `_pt_constrain` points, pipeline.py:531). Every rank passes the same
+    inputs and a key in the same state (a generator of the same seed),
+    and array inputs go to the mesh's device."""
     _check_slice(cfg, affines, mesh)
     x1, x2, valid = _inputs(x1, x2, valid, device, mesh)
     n_pts = x1.shape[0]
+    shard = None
+    if mesh is not None and "pt" in mesh.shape:
+        check_pt_gate(cfg, n_pts, mesh)
+        shard = labeling.PointShard(mesh, n_pts, cfg.agree_block)
     if isinstance(key, torch.Generator):
         if key.device.type != x1.device.type:
             raise ValueError(f"generator on {key.device}, points on "
@@ -1082,18 +1172,29 @@ def fit(x1, x2, valid, key, cfg: MultiHConfig, affines=None, tau=None,
     # holds and cfg.knn_window, for both graphs; its band is far-free.
     # Without the gate the labeling takes the gather path (adj None).
     windowed = graph_path(cfg, n_pts) == "windowed"
+    # a 'pt' rank builds its own points' rows (the windowed graph's, the
+    # gate's) and gathers the sampling graph, which generation reads whole
+    rows = None if shard is None else (shard.lo, shard.hi)
 
     def graph_of(feats):
         if windowed:
             return labeling.knn_graph_windowed(feats, valid, cfg.knn_k,
-                                               cfg.agree_block)
+                                               cfg.agree_block, rows)
         return labeling.knn_graph(feats, valid, cfg.knn_k,
                                   cfg.knn_row_block, cfg.knn_approx)
+
+    def gathered(nbr):
+        return nbr if shard is None else shard.gather(nbr.T).T.contiguous()
 
     with record_function("knn_graph"):
         nbr_idx, nbr_w = graph_of(x1)
     adj = None
-    if banded_gate(cfg, n_pts):
+    if shard is not None:
+        with record_function("banded_adjacency"):
+            adj = shard.adj = labeling.build_window_adjacency(
+                nbr_idx, nbr_w, shard,
+                neighbour_list=_kernels_enabled(cfg, dev))
+    elif banded_gate(cfg, n_pts):
         with record_function("banded_adjacency"):
             adj = labeling.build_banded_adjacency(
                 nbr_idx, nbr_w, cfg.agree_block,
@@ -1103,9 +1204,9 @@ def fit(x1, x2, valid, key, cfg: MultiHConfig, affines=None, tau=None,
     if cfg.sampling_motion_weight > 0.0:
         feat = torch.cat([x1, cfg.sampling_motion_weight * (x2 - x1)], dim=1)
         with record_function("sampling_knn"):
-            nbr_sample, _ = graph_of(feat)
+            nbr_sample = gathered(graph_of(feat)[0])
     else:
-        nbr_sample = nbr_idx
+        nbr_sample = gathered(nbr_idx)
 
     # extras join the sampled pool in the reference's order (pipeline.py:
     # 1171-1224): the affine one-point pool, then the seeds, so top_k's
@@ -1142,14 +1243,23 @@ def fit(x1, x2, valid, key, cfg: MultiHConfig, affines=None, tau=None,
     else:
         Hs_cand, n_hyp_ok = _hypothesize_verify(
             draws, x1, x2, valid, nbr_sample, cfg, tau, extra_Hs, extra_ok,
-            window_block)
+            window_block, shard)
+
+    basis = None
+    if shard is not None:
+        # from here on a 'pt' rank holds its own points only
+        own = slice(shard.lo, shard.hi)
+        shard.x1, shard.x2 = x1, x2
+        if cfg.refit_moments:
+            basis = _prepare_refit_basis(x1, x2, cfg)
+        x1, x2, valid = x1[own], x2[own], valid[own]
 
     with record_function("lo_refine"):
         Hs_top = lo_refine_candidates(Hs_cand, x1, x2, valid, cfg,
-                                      cfg.lo_rounds, tau)
+                                      cfg.lo_rounds, tau, shard, basis)
     with record_function("select"):
         r_top = model_residual_matrix(Hs_top, x1, x2, cfg.residual, cfg)
-        grown_counts = ((r_top < thr) * valid[None, :]).sum(1)
+        grown_counts = _psum(shard, ((r_top < thr) * valid[None, :]).sum(1))
         if cfg.model == "fundamental":
             # marginal coverage: bridging Fs outcount pure single-motion
             # models, so count + NMS would fill the roster with bridges
@@ -1161,6 +1271,7 @@ def fit(x1, x2, valid, key, cfg: MultiHConfig, affines=None, tau=None,
             cand_idx, cand_active = selection.select_candidates(
                 r_top, valid, thr, torch.ones_like(grown_counts),
                 cfg.n_candidates, k, cfg.nms_iou,
+                reduce=None if shard is None else shard.psum,
             )
     Hs = Hs_top[cand_idx]
     active = cand_active * (grown_counts[cand_idx]
@@ -1173,7 +1284,7 @@ def fit(x1, x2, valid, key, cfg: MultiHConfig, affines=None, tau=None,
     with record_function("pearl"):
         Hs, active, q, energies = _pearl_phase(
             Hs, active, q, range(cfg.pearl_iterations), x1, x2, valid,
-            nbr_idx, nbr_w, cfg, tau, adj,
+            nbr_idx, nbr_w, cfg, tau, adj, shard, basis,
         )
     f_model = cfg.model == "fundamental"
     if f_model and cfg.f_split_refine:
@@ -1194,14 +1305,16 @@ def fit(x1, x2, valid, key, cfg: MultiHConfig, affines=None, tau=None,
         labels = labeling.best_labeling_t(
             [torch.argmax(q, dim=0), torch.argmin(dct, dim=0)],
             dct, nbr_idx, nbr_w, cfg.spatial_weight, cfg.icm_iterations,
-            adj=adj, use_kernel=_kernels_enabled(cfg, dev),
+            adj=adj, use_kernel=_kernels_enabled(cfg, dev), shard=shard,
         )
         label_active = torch.cat([active, torch.ones(1, dtype=active.dtype,
                                                      device=dev)])
         labels = torch.where(label_active[labels] > 0, labels, k)
         labels = torch.where(valid > 0, labels, k).to(torch.int32)
         member = (labels[None, :] == torch.arange(k, device=dev)[:, None])
-        support = (member.to(x1.dtype) * valid[None, :]).sum(1)
+        support = _psum(shard, (member.to(x1.dtype) * valid[None, :]).sum(1))
+        if shard is not None:
+            labels = shard.gather(labels)
         if cfg.spatial_sort:
             # scatter labels back to the caller's point order
             labels = torch.empty_like(labels).index_copy_(0, perm, labels)
@@ -1215,7 +1328,7 @@ def fit(x1, x2, valid, key, cfg: MultiHConfig, affines=None, tau=None,
         energy=trace[-1],
         energy_trace=trace,
         n_hypotheses_ok=n_hyp_ok,
-        n_far_dropped=(adj.n_dropped if adj is not None
+        n_far_dropped=(_psum(shard, adj.n_dropped) if adj is not None
                        else torch.zeros((), dtype=torch.int32, device=dev)),
     )
 

@@ -23,18 +23,23 @@ def select_candidates(
     n_candidates: int,
     max_labels: int,
     nms_iou: float,
+    reduce=None,
 ):
     """Top-M by inlier count, then greedy IoU-NMS down to K candidates.
 
     Returns (cand_idx (K,) into the hypothesis pool, cand_active (K,)
     float): which slots hold a real (non-suppressed, non-empty)
     candidate. The K greedy rounds stay tensor ops: nothing waits on the
-    device inside the loop."""
+    device inside the loop. `reduce` sums the counts and intersections
+    over a 'pt' mesh's ranks, each holding its points' residuals."""
+    if reduce is None:
+        def reduce(t):
+            return t
     masks = inlier_mask(residuals, threshold_sq, valid)  # (S, N)
-    counts = masks.sum(1) * hypothesis_ok
+    counts = reduce(masks.sum(1)) * hypothesis_ok
     top_counts, top_idx = top_k_stable(counts, n_candidates)
     top_masks = masks[top_idx]
-    inter = top_masks @ top_masks.T  # exact: integer sums < 2^24
+    inter = reduce(top_masks @ top_masks.T)  # exact: integer sums < 2^24
     union = top_counts[:, None] + top_counts[None, :] - inter
     iou = inter / torch.clamp_min(union, 1.0)
 

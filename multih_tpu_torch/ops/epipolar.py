@@ -4,7 +4,8 @@ Multi-H paper's own hypothesis source, §3.1).
 
 Counterpart of ``multih_tpu/ops/epipolar.py``. Where the JAX version is
 vmapped, the functions here are batch-first over leading dimensions, in
-the JAX version's float32 operation order. The eigen- and singular-value
+the JAX version's float32 operation order, apart from `fundamental_8pt`,
+which solves float32 input in float64. The eigen- and singular-value
 problems are ``torch.linalg`` calls, as the reference's are jnp.linalg
 calls outside any Pallas kernel; on CUDA each of them reads its
 convergence flag back to the host.
@@ -41,7 +42,18 @@ def fundamental_8pt(x1: torch.Tensor, x2: torch.Tensor,
     x1, x2: (..., N, 2); weights: optional (..., N). Shared (N, 2) points
     with (C, N) weights give C refits in one batch (the direct refit of
     `pipeline._refit_direct`). Rank 2 by a 3x3 SVD with the smallest
-    singular value zeroed."""
+    singular value zeroed.
+
+    Float32 input is solved in float64 and rounded at the end, as K2
+    solves its minimal homographies: the normal matrix's float32 sum and
+    its float32 eigensolve each move F's null vector by up to ~7e-3 of
+    float64 (an F of two motions' members), and by how much depends on
+    the CPU's BLAS and LAPACK paths."""
+    if x1.dtype == torch.float32:
+        return fundamental_8pt(
+            x1.double(), x2.double(),
+            None if weights is None else weights.double(),
+            eig_method).to(torch.float32)
     x1n, T1 = geometry.hartley_normalize(x1, weights)
     x2n, T2 = geometry.hartley_normalize(x2, weights)
     rows = _f_rows(x1n, x2n)  # (..., N, 9)

@@ -49,7 +49,7 @@ _SIGNATURES = {
     "multih_mean_field": [_P] * 5 + [_I, _P, _I, _I, _I, _F] + [_P] * 3,
     "multih_mean_field_front": [_P] * 6 + [_I, _P, _P, _I, _I, _I, _F, _F,
                                            _I] + [_P] * 7,
-    "multih_icm": [_P] * 5 + [_I] * 5 + [_F] + [_P] * 3,
+    "multih_icm": [_P] * 5 + [_I] * 6 + [_F] + [_P] * 3,
     "multih_window_gather": [_P, _P] + [_I] * 7 + [_P, _P],
 }
 

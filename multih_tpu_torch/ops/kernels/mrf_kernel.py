@@ -49,6 +49,15 @@ The wrappers take CUDA tensors only and raise on anything else; the
 callers (labeling.build_banded_adjacency, labeling.mean_field_t,
 labeling._icm_batch, labeling.pearl_relax_fused) choose the plain
 versions for CPU tensors.
+
+On a 'pt' mesh a rank holds its own Morton blocks only, and a cooperative
+launch of every sweep cannot wait on a neighbour's halo. So
+`mean_field_windowed` and `icm_windowed` launch K4 once a sweep and K5
+once a half-sweep (`half_sweeps=1`, `parity0` alternating) on the rank's
+window, its own blocks plus one halo block a side, the halo exchanged
+before each launch; the band reaches one block, so the own blocks come
+out bit-equal to the unsharded launch. Their plain form calls the plain
+versions the same way.
 """
 
 from __future__ import annotations
@@ -95,7 +104,8 @@ def mean_field_fused_reference(q0_t, base_t, band, inv_temps,
 
 
 def icm_fused_reference(labels0, base_t, band, iterations: int,
-                        spatial_weight: float) -> torch.Tensor:
+                        spatial_weight: float, half_sweeps: int | None = None,
+                        parity0: int = 0) -> torch.Tensor:
     """Plain version of `icm_fused`, the kernel's arithmetic."""
     nb, block, _ = band.shape
     ns, n = labels0.shape
@@ -103,7 +113,8 @@ def icm_fused_reference(labels0, base_t, band, iterations: int,
     ids = torch.arange(l, dtype=labels0.dtype, device=labels0.device)
     parity = torch.arange(n, device=labels0.device) % 2
     labels = labels0
-    for h in range(2 * iterations):
+    halves = 2 * iterations if half_sweeps is None else half_sweeps
+    for h in range(parity0, parity0 + halves):
         win = _band_window(labels, nb, block, -1)  # (S, nb, 3B)
         oh = (win[:, None] == ids[None, :, None, None]).to(base_t.dtype)
         agree = _agree(oh.reshape(ns * l, nb, 3 * block), band)
@@ -318,9 +329,12 @@ mean_field_fused_front.launches = 0
 def icm_fused(labels0: torch.Tensor, base_t: torch.Tensor,
               band: torch.Tensor, iterations: int,
               spatial_weight: float,
-              nbr: NeighbourList | None = None) -> torch.Tensor:
+              nbr: NeighbourList | None = None,
+              half_sweeps: int | None = None,
+              parity0: int = 0) -> torch.Tensor:
     """All 2*iterations red-black ICM half-sweeps of S starts in one
-    launch, parity 0 first.
+    launch, parity 0 first; with `half_sweeps`, that many, the first on
+    parity `parity0` (a 'pt' rank's one half-sweep a launch).
 
     labels0: (S, N) int32; base_t: (L, N) float32 (dct + sw*deg^T);
     band: (nb, B, 3B) float32, far-free; nbr: the band's `band_list`
@@ -334,7 +348,8 @@ def icm_fused(labels0: torch.Tensor, base_t: torch.Tensor,
         raise ValueError(f"labels {tuple(labels0.shape)}, base "
                          f"{tuple(base_t.shape)}")
     _check_band(band, n, l)
-    if iterations <= 0:
+    halves = 2 * iterations if half_sweeps is None else half_sweeps
+    if halves <= 0:
         return labels0.clone()
     nbr = _neighbours(band, nbr)
     out = torch.empty_like(labels0)
@@ -342,9 +357,9 @@ def icm_fused(labels0: torch.Tensor, base_t: torch.Tensor,
                       device=labels0.device)  # the labels, double-buffered
     rc = _build.load().multih_icm(
         labels0.data_ptr(), base_t.data_ptr(), nbr.cols.data_ptr(),
-        nbr.ws.data_ptr(), nbr.cnt.data_ptr(), band.shape[2], iterations,
-        ns, l, n, float(spatial_weight), out.data_ptr(), tmp.data_ptr(),
-        _build.stream_handle(labels0),
+        nbr.ws.data_ptr(), nbr.cnt.data_ptr(), band.shape[2], halves,
+        parity0 & 1, ns, l, n, float(spatial_weight), out.data_ptr(),
+        tmp.data_ptr(), _build.stream_handle(labels0),
     )
     _build.check(rc, "icm_fused")
     icm_fused.launches += 1
@@ -352,3 +367,69 @@ def icm_fused(labels0: torch.Tensor, base_t: torch.Tensor,
 
 
 icm_fused.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# a 'pt' rank's sweeps: its own blocks and a one-block halo on each side
+# ---------------------------------------------------------------------------
+
+def _pad_window(t: torch.Tensor, block: int) -> torch.Tensor:
+    """(R, n_own) -> (R, n_own + 2B), a zero block on each side."""
+    z = torch.zeros((t.shape[0], block), dtype=t.dtype, device=t.device)
+    return torch.cat([z, t, z], dim=1)
+
+
+def mean_field_windowed(q_t, base_t, band, inv_temps, spatial_weight: float,
+                        window, nbr: NeighbourList | None = None,
+                        use_kernel: bool = True) -> torch.Tensor:
+    """The annealed mean-field sweeps of a rank's own rows (L, n_own) on
+    a 'pt' mesh: each sweep one `mean_field_fused` launch (with
+    `use_kernel`, else its plain version) on the rank's window, its own
+    blocks plus one halo block on each side, `window(q)` exchanging the
+    halo; only the own blocks' output is kept. band: the window's (n_own
+    / B + 2, B, 3B) band, its halo blocks' rows zero; nbr its list. The
+    band reaches one block, so the own blocks equal the unsharded
+    launch's bit for bit (the halo rows' output is discarded)."""
+    block = band.shape[1]
+    base_w = _pad_window(base_t, block).contiguous()
+    own = slice(block, block + q_t.shape[1])
+    q = q_t
+    for s in range(inv_temps.shape[0]):
+        q_w = window(q).contiguous()
+        if use_kernel:
+            q_w = mean_field_fused(q_w, base_w, band, inv_temps[s:s + 1],
+                                   spatial_weight, nbr=nbr)
+        else:
+            q_w = mean_field_fused_reference(q_w, base_w, band,
+                                             inv_temps[s:s + 1],
+                                             spatial_weight)
+        q = q_w[:, own]
+    return q
+
+
+def icm_windowed(labels0, base_t, band, iterations: int,
+                 spatial_weight: float, window,
+                 nbr: NeighbourList | None = None,
+                 use_kernel: bool = True) -> torch.Tensor:
+    """The 2*iterations red-black ICM half-sweeps of a rank's own rows
+    (S, n_own) on a 'pt' mesh: one `icm_fused` half-sweep launch (with
+    `use_kernel`, else its plain version) a half-sweep on the rank's
+    window, parity 0 first, `window(labels)` exchanging the halo before
+    each; as `mean_field_windowed`, the own blocks equal the unsharded
+    launch's. The window starts at a multiple of B (even), so a window
+    index has its global index's parity."""
+    block = band.shape[1]
+    base_w = _pad_window(base_t, block).contiguous()
+    own = slice(block, block + labels0.shape[1])
+    labels = labels0
+    for h in range(2 * iterations):
+        lab_w = window(labels).contiguous()
+        if use_kernel:
+            lab_w = icm_fused(lab_w, base_w, band, 0, spatial_weight,
+                              nbr=nbr, half_sweeps=1, parity0=h % 2)
+        else:
+            lab_w = icm_fused_reference(lab_w, base_w, band, 0,
+                                        spatial_weight, half_sweeps=1,
+                                        parity0=h % 2)
+        labels = lab_w[:, own]
+    return labels

@@ -6,8 +6,11 @@ sharding.py`` builds over devices. Here one process drives one device
 (a rank), so a mesh lays the world's ranks out on named axes, row-major
 as ``np.array(devices).reshape(pair, hyp)`` does, and carries one process
 group per axis through this rank: the ``hyp`` group is its row, the
-``pair`` group its column. The collectives that the JAX code takes from
-``jax.lax`` (`axis_index`, `all_gather`, `psum`) are methods of the mesh.
+``pair`` group its column; a 'pt' mesh (`sharding.make_pt_mesh`) has one
+axis. The collectives that the JAX code takes from ``jax.lax``
+(`axis_index`, `all_gather`, `psum`) are methods of the mesh, and so is
+the halo exchange of a 'pt' sweep (`halo_exchange`), which GSPMD derives
+from the reference's sharding annotations.
 
 Backends. NCCL keeps tensors on the card but needs one card a rank (it
 refuses two ranks on one device). Gloo runs any number of ranks on one
@@ -129,6 +132,39 @@ class Mesh:
             self.host_staged += 2 * buf.nbytes
             buf = buf.to(t.device)
         return buf
+
+    def halo_exchange(self, t: torch.Tensor, axis: str, width: int):
+        """(prev, next): the last `width` entries of the previous rank's
+        t along `axis` and the first `width` of the next rank's, on t's
+        last dimension, zeros past the axis's ends (the one-block halo of
+        a 'pt' sweep). Point-to-point sends and receives with the two
+        neighbours; every rank of the axis passes the same shape."""
+        group = self.groups[axis]
+        dev = t.device
+        lo = t[..., :width].detach().contiguous()
+        hi = t[..., t.shape[-1] - width:].detach().contiguous()
+        if group is None:
+            return torch.zeros_like(lo), torch.zeros_like(hi)
+        staged = self._staged(t)
+        if staged:
+            lo, hi = lo.cpu(), hi.cpu()
+        prev, nxt = torch.zeros_like(hi), torch.zeros_like(lo)
+        line = self.members[axis]
+        i = line.index(self.rank)
+        ops = []
+        if i > 0:
+            ops += [dist.P2POp(dist.isend, lo, line[i - 1], group),
+                    dist.P2POp(dist.irecv, prev, line[i - 1], group)]
+        if i + 1 < len(line):
+            ops += [dist.P2POp(dist.isend, hi, line[i + 1], group),
+                    dist.P2POp(dist.irecv, nxt, line[i + 1], group)]
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        if staged:
+            self.host_staged += 2 * (lo.nbytes + hi.nbytes)
+            prev, nxt = prev.to(dev), nxt.to(dev)
+        return prev, nxt
 
     def replicated_ok(self, vals, axis: str) -> torch.Tensor:
         """1.0 where every value of `vals` is bit-equal on every rank of

@@ -16,8 +16,11 @@ pair's hypothesis pool (`hyp_sharded_fit`, `sharded_verification`,
 `batched_fit(mesh=)`), each generating and counting its slice; the rest
 of the fit runs replicated. Every rank of the world calls the same
 function with the same arguments, as one JAX program runs on every
-device. The 'pt' (point) axis is not ported: `pipeline.fit` raises
-NotImplementedError for a mesh that has one.
+device. A 'pt' mesh (`make_pt_mesh`, one axis) splits one pair's points
+into contiguous runs of Morton blocks (`pt_sharded_fit`): the labeling's
+sweeps exchange a one-block halo between neighbouring ranks, the
+refits gather their weights, and the other sums over the points are
+psums.
 """
 
 from __future__ import annotations
@@ -48,6 +51,40 @@ def make_mesh(devices=None, pair_axis: int | None = None,
     hyp = len(devices) // pair
     return Mesh(np.array(devices[:pair * hyp]).reshape(pair, hyp),
                 ("pair", "hyp"), device)
+
+
+def make_pt_mesh(ranks=None, device=None) -> Mesh:
+    """1-D mesh over the point axis, ('pt',) (sharding.py:48): `ranks`
+    are ranks of the initialized default group, all of the world's by
+    default. Every rank of the world calls it with the same arguments.
+    device: this rank's device, by default cuda:<local rank % cards>."""
+    if ranks is None:
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        ranks = range(world)
+    return Mesh(np.array(list(ranks)), ("pt",), device)
+
+
+def pt_sharded_fit(cfg: MultiHConfig, mesh: Mesh):
+    """The single-pair fit with the point axis split over the mesh's
+    'pt' axis (sharding.py:57): f(x1, x2, valid, key) -> FitResult, the
+    whole labeling on every rank. Each rank holds the whole coordinate
+    arrays and computes the same Morton order; it owns a contiguous run
+    of N / (agree_block * pt) blocks, on which it builds its k-NN rows,
+    its band, residuals, data costs, q and labels; hypothesis generation
+    runs replicated. Raises ValueError where the reference asserts its
+    gate (`pipeline.check_pt_gate`, checked here on cfg.max_points and in
+    the fit on N). The counts sum exactly over the ranks; the energies
+    sum in float64, and the refits gather their (C, N) weights and run
+    the single-device refit, so the result equals the single-device
+    fit's. The reference psums float32 moments and energies
+    (sharding.py:76-82), which round apart from one sum; a deliberate
+    divergence. Every rank passes the same inputs and a key in the same
+    state."""
+    pipeline.check_pt_gate(cfg, cfg.max_points, mesh)
+
+    def f(x1, x2, valid, key):
+        return pipeline.fit(x1, x2, valid, key, cfg, mesh=mesh)
+    return f
 
 
 def _stack(results):

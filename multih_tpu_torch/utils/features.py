@@ -1,14 +1,67 @@
-"""Local affine frames for the affine one-point hypotheses (numpy only).
+"""Feature front end and local affine frames for the affine one-point
+hypotheses (numpy, and OpenCV on the host).
 
-Counterpart of ``multih_tpu/utils/features.py``, without its OpenCV
-front end (`detect_and_match` is not ported yet): the ground-truth
-style frames of `affines_from_homographies`, a byte-for-byte copy, which
-the tests and `chip_smoke.py` feed to ``fit(affines=...)``.
+Counterpart of ``multih_tpu/utils/features.py``: `detect_and_match`,
+SIFT + ratio-test matching with a similarity frame for each match (the
+CLI's ``fit-images``; OpenCV is imported only when it runs), and the
+ground-truth style frames of `affines_from_homographies`, a byte-for-byte
+copy, which the tests and `chip_smoke.py` feed to ``fit(affines=...)``.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from multih_tpu_torch.utils.data import CorrespondenceSet
+
+
+def detect_and_match(
+    img1: np.ndarray,
+    img2: np.ndarray,
+    max_features: int = 4000,
+    ratio: float = 0.8,
+    name: str = "pair",
+):
+    """SIFT + ratio-test matching (features.py:19).
+
+    Returns (CorrespondenceSet, affines (N, 2, 2) float32) where affines
+    are the similarity transforms implied by the keypoints' scale and
+    orientation change (local approximation of dp2/dp1). Raises
+    ImportError without OpenCV."""
+    import cv2
+
+    sift = cv2.SIFT_create(nfeatures=max_features)
+    if img1.ndim == 3:
+        img1 = cv2.cvtColor(img1, cv2.COLOR_BGR2GRAY)
+    if img2.ndim == 3:
+        img2 = cv2.cvtColor(img2, cv2.COLOR_BGR2GRAY)
+    kp1, des1 = sift.detectAndCompute(img1, None)
+    kp2, des2 = sift.detectAndCompute(img2, None)
+    if not kp1 or not kp2:
+        return CorrespondenceSet(
+            np.zeros((0, 2), np.float32), np.zeros((0, 2), np.float32),
+            None, name,
+        ), np.zeros((0, 2, 2), np.float32)
+
+    matcher = cv2.BFMatcher(cv2.NORM_L2)
+    knn = matcher.knnMatch(des1, des2, k=2)
+    x1, x2, affines = [], [], []
+    for pair in knn:
+        if len(pair) < 2:
+            continue
+        m, n = pair
+        if m.distance < ratio * n.distance:
+            a, b = kp1[m.queryIdx], kp2[m.trainIdx]
+            x1.append(a.pt)
+            x2.append(b.pt)
+            ds = (b.size / max(a.size, 1e-6))
+            dth = np.deg2rad(b.angle - a.angle)
+            c, s = np.cos(dth), np.sin(dth)
+            affines.append(ds * np.array([[c, -s], [s, c]]))
+    x1 = np.asarray(x1, np.float32).reshape(-1, 2)
+    x2 = np.asarray(x2, np.float32).reshape(-1, 2)
+    affines = np.asarray(affines, np.float32).reshape(-1, 2, 2)
+    return CorrespondenceSet(x1, x2, None, name), affines
 
 
 def affines_from_homographies(Hs, labels, x1, outlier_label):

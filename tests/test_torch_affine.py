@@ -104,10 +104,11 @@ def test_one_point_pool_float32_floor(scene):
     """The fit's affine pool stage on its own: F from the replayed draws
     on the Morton-sorted points, then one H a point. F as close to the
     port's float64 estimate on the same draws as the JAX estimate is
-    (measured: the port 2e-5, JAX 8.7e-4; F of two unrelated planes is
-    poorly determined), with the same inlier count to a boundary tie or
-    two; the pool within 1e-3 of the JAX pool and each within float32's
-    floor (measured 8e-4) of the port's float64 solve."""
+    (F of two unrelated planes is poorly determined: JAX measured 8.7e-4
+    and 1.6e-5 on two CPUs; the port solves its 8-point F in float64),
+    with the same inlier count to a boundary tie or two; the pool within
+    1e-3 of the JAX pool and each within float32's floor (measured 8e-4)
+    of the port's float64 solve."""
     x1, x2, valid, _, A = scene
     perm = np.asarray(jpipe.morton_order(jnp.asarray(x1),
                                          jnp.asarray(valid)))
@@ -150,8 +151,8 @@ def test_refit_direct_matches_reference(scene, model):
     a row of 20 members. F rows come from a two-motion scene (points of
     one plane leave F undetermined). Each row is as close to the port's
     float64 refit as the reference's row is, to 2x (measured: the F of
-    the first row is 1.1e-3 from float64 in JAX, 1.6e-3 in the port;
-    every other row within 7e-5)."""
+    the first row is 1.1e-3 from float64 in JAX; every other row within
+    7e-5. The port solves its F refit in float64, within 3e-8)."""
     if model == "fundamental":
         cs, _ = jdata.synthetic_motion_scene(240, 2, 0.1, 0.5, seed=5)
         x1, x2, _, gt = multih_tpu.pad_points(cs.x1, cs.x2, cs.gt_labels,

@@ -137,7 +137,7 @@ def test_stream_synth(capsys):
 @pytest.mark.parametrize("argv", [
     ["synth", "--aot"],
     ["synth", "--save-viz", "out.png"],
-    ["fit-images", "a.png", "b.png"],
+    ["fit-images", "a.png", "b.png", "--save-viz", "out.png"],
     ["stream", "synth", "--model", "mixed"],
 ], ids=["aot", "save_viz", "fit_images", "stream_mixed"])
 def test_not_ported_exits_nonzero(argv, capsys):

@@ -98,9 +98,10 @@ def two_view_scene(rng, n=100, noise=0.3):
 def test_fundamental_8pt_minimal_samples(rng):
     """(S, m, 2) samples, the batch estimate_fundamental solves. At the
     minimal m = 8 the 9x9 normal matrix is rank-deficient up to noise and
-    float32 loses the null vector to ~0.03-0.06 of float64 in either
-    package (measured), so the port is held to the reference's own floor;
-    at m = 12 both sit within 1e-4 of float64 and 1e-3 of each other."""
+    float32 loses the null vector to ~0.01-0.06 of float64 (measured in
+    JAX), so the port is held to the reference's own floor; at m = 12
+    JAX sits within 1e-4 of float64 and the two within 1e-3 of each
+    other. The port solves float32 input in float64 (3e-8 of it)."""
     x1, x2 = two_view_scene(rng)
     for m in (8, 12):
         idx = np.stack([rng.choice(x1.shape[0], m, replace=False)
@@ -117,15 +118,45 @@ def test_fundamental_8pt_minimal_samples(rng):
             assert np.abs(got - want).max() < 1e-3
 
 
-def test_sampson_error_f(scene):
-    cs, _, _, F = scene
+def sampson_floor64(Fs, x1, x2):
+    """(float64 Sampson errors, float32's forward-error floor of each):
+    S = num^2 / den with num = x2h^T F x1h, whose float32 rounding error
+    is bounded by eps * T, T = |x2h|^T |F| |x1h|, so
+    floor = eps * (2 |num| T / den + S)."""
+    x1h = np.hstack([x1, np.ones((len(x1), 1))]).astype(np.float64)
+    x2h = np.hstack([x2, np.ones((len(x2), 1))]).astype(np.float64)
+    F = np.asarray(Fs, np.float64)
+    fx1 = np.einsum("sij,nj->sni", F, x1h)
+    ftx2 = np.einsum("sji,nj->sni", F, x2h)
+    num = (x2h[None] * fx1).sum(-1)
+    den = (fx1[..., 0] ** 2 + fx1[..., 1] ** 2 + ftx2[..., 0] ** 2
+           + ftx2[..., 1] ** 2)
+    s64 = num ** 2 / den
+    big_t = np.einsum("ni,sij,nj->sn", np.abs(x2h), np.abs(F), np.abs(x1h))
+    eps = np.finfo(np.float32).eps
+    return s64, eps * (2.0 * np.abs(num) * big_t / den + s64)
+
+
+@pytest.mark.parametrize("seed", [21, 22, 23, 24])
+def test_sampson_error_f(seed):
+    """Against float64, within float32's forward-error floor of each
+    point's error (`sampson_floor64`). Inliers' num cancels to ~1e-5 of
+    its terms, so two float32 evaluations part by up to 1e-3 relative
+    and which of them is nearer float64 depends on the CPU's products
+    (measured over seeds 21-28: the port and JAX both within 0.6 of the
+    floor)."""
+    cs, _ = jdata.synthetic_scene(200, 2, 0.1, 0.3, seed=seed)
+    F = np.asarray(jepi.fundamental_8pt(jnp.asarray(cs.x1),
+                                        jnp.asarray(cs.x2)))
     Fs = np.stack([F, -F, F.T])
     want = np.asarray(jepi.sampson_error_f(jnp.asarray(Fs),
                                            jnp.asarray(cs.x1),
                                            jnp.asarray(cs.x2)))
     got = tepi.sampson_error_f(t(Fs), t(cs.x1), t(cs.x2)).numpy()
     assert got.shape == (3, cs.n_points)
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6)
+    s64, floor = sampson_floor64(Fs, cs.x1, cs.x2)
+    for s in (got, want):
+        assert (np.abs(s - s64) <= floor).all()
 
 
 @pytest.mark.parametrize("which", ["right", "left"])

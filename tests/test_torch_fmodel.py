@@ -25,6 +25,7 @@ from multih_tpu.ops.kernels import residual_kernel as jres
 from multih_tpu.utils import data as jdata
 
 import multih_tpu_torch as mt
+from multih_tpu_torch.models import pipeline as tpipe
 from multih_tpu_torch.models import selection as tsel
 from multih_tpu_torch.ops import fmodel as tfm
 from multih_tpu_torch.ops.kernels import eig_kernel as teig
@@ -286,6 +287,41 @@ class FitReplayDrawsF(KeyDraws):
         return super().gumbel(stream, shape, device)
 
 
+def energy64(res, x1, x2, valid, cfg, tau=None):
+    """The PEARL energy of a fit's output (its labels, models and active
+    flags), evaluated in float64 on the graph the fit builds (Morton order
+    from the float32 points): data + spatial_weight * Potts + label_cost
+    * |used active labels|. It judges two float32 fits by what they
+    return, not by the energy of their last PEARL iteration."""
+    from multih_tpu_torch.models import labeling as tlab
+
+    x1, x2, valid = (torch.from_numpy(np.array(a, np.float32))
+                     for a in (x1, x2, valid))
+    n = x1.shape[0]
+    perm = (tpipe.morton_order(x1, valid) if cfg.spatial_sort
+            else torch.arange(n))
+    x1, x2, valid = (a[perm].double() for a in (x1, x2, valid))
+    windowed = tpipe.graph_path(cfg, n) == "windowed"
+    if windowed:
+        nbr_idx, nbr_w = tlab.knn_graph_windowed(x1, valid, cfg.knn_k,
+                                                 cfg.agree_block)
+    else:
+        nbr_idx, nbr_w = tlab.knn_graph(x1, valid, cfg.knn_k,
+                                        cfg.knn_row_block)
+    adj = (tlab.build_banded_adjacency(nbr_idx, nbr_w, cfg.agree_block,
+                                       far_capacity=0 if windowed else None)
+           if tpipe.banded_gate(cfg, n) else None)
+    thr = (cfg.inlier_threshold if tau is None else tau) ** 2
+    hs, active = (torch.from_numpy(np.array(a, np.float64))
+                  for a in (res.homographies, res.active))
+    r = tpipe.model_residual_matrix(hs, x1, x2, cfg.residual, cfg)
+    dct = tlab.data_costs_t(r, valid, thr, cfg.outlier_cost, active)
+    labels = torch.from_numpy(np.array(res.labels, np.int64))[perm]
+    return float(tlab.total_energy_t(labels, dct, nbr_idx, nbr_w,
+                                     cfg.spatial_weight, cfg.label_cost,
+                                     active, adj=adj))
+
+
 @pytest.fixture(scope="module")
 def f_fits():
     """(JAX result, port result) per key on fm4_a, one JAX compile."""
@@ -321,12 +357,19 @@ def test_f_fit_matches_reference(f_fits, seed):
 
 
 def test_f_fit_fundamentals_match_reference(f_fits):
-    """On key 0, where every label agrees: energies within 1e-3 and
-    matched F's (canonical form) within 2e-3, the refit tolerance of
-    the homography path."""
+    """On key 0, where every label agrees: the outputs' energies,
+    evaluated in float64 (`energy64`), within 1e-3, and matched F's
+    (canonical form) within 2e-3, the refit tolerance of the homography
+    path. The energy of the last PEARL iteration (`energy`) is not the
+    output's: the refinement phases follow it, and on an AVX-512 CPU the
+    two float32 fits' split phases part there (201.07 against 202.96)
+    and meet again in the same labeling (193.043 against 193.012)."""
     jr, tr, _ = f_fits[0]
-    np.testing.assert_allclose(float(tr.energy), float(jr.energy),
-                               rtol=1e-3)
+    cs = tdata.motion_suite_scene("fm4_a")
+    x1, x2, valid, _ = mt.pad_points(cs.x1, cs.x2, cs.gt_labels, 512)
+    cfg = mt.MultiHConfig(**F_CFG)
+    np.testing.assert_allclose(energy64(tr, x1, x2, valid, cfg),
+                               energy64(jr, x1, x2, valid, cfg), rtol=1e-3)
     assert float(tr.n_hypotheses_ok) == float(jr.n_hypotheses_ok)
     mapping = evaluation.match_labels(tr.labels.numpy(),
                                       np.asarray(jr.labels), 16, 16)

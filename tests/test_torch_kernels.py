@@ -596,6 +596,58 @@ class TestCudaKernels:
         assert torch.equal(got, ref)
         assert bool((got != starts).any())
 
+    @pytest.mark.parametrize("parity0,halves", [(1, 1), (0, 3)])
+    def test_icm_kernel_half_sweeps(self, rng, cuda_device, parity0, halves):
+        """`half_sweeps` half-sweeps from parity `parity0` (a 'pt' rank's
+        one half-sweep a launch) equal the plain version's, one launch."""
+        dct, q0, base, band = mrf_inputs(rng, 2048, 128, 17, cuda_device)
+        starts = torch.stack([torch.argmin(dct, 0), torch.argmax(q0, 0)]
+                             ).to(torch.int32).contiguous()
+        before = tmrf.icm_fused.launches
+        got = tmrf.icm_fused(starts, base, band, 0, 0.1, half_sweeps=halves,
+                             parity0=parity0)
+        assert tmrf.icm_fused.launches == before + 1
+        ref = tmrf.icm_fused_reference(starts, base, band, 0, 0.1,
+                                       half_sweeps=halves, parity0=parity0)
+        assert torch.equal(got, ref)
+        assert bool((got != starts).any())
+
+    def test_windowed_sweeps_own_blocks(self, rng, cuda_device):
+        """K4 a launch a sweep and K5 a launch a half-sweep on one rank's
+        window (blocks 3-7 of 16 plus a halo block a side, the halo cut
+        from the unsharded state before each launch): its own blocks
+        bit-equal to the unsharded launches."""
+        n, block = 2048, 128
+        dct, q0, base, band = mrf_inputs(rng, n, block, 17, cuda_device)
+        nbr = tmrf.band_list(band)
+        inv_t = torch.tensor([1.0, 1.5, 2.0], device=cuda_device)
+        starts = torch.argmin(dct, 0)[None].to(torch.int32).contiguous()
+        q_full = [q0]
+        for i in range(3):
+            q_full.append(tmrf.mean_field_fused(q_full[-1], base, band,
+                                                inv_t[i:i + 1], 0.1, nbr=nbr))
+        l_full = [starts]
+        for h in range(4):
+            l_full.append(tmrf.icm_fused(l_full[-1], base, band, 0, 0.1,
+                                         nbr=nbr, half_sweeps=1,
+                                         parity0=h % 2))
+        lo, hi = 3 * block, 8 * block
+        win = torch.cat([torch.zeros_like(band[:1]), band[3:8],
+                         torch.zeros_like(band[:1])]).contiguous()
+
+        def window(states):
+            it = iter(states[:-1])  # the unsharded state before each launch
+            return lambda t: next(it)[:, lo - block:hi + block]
+
+        q = tmrf.mean_field_windowed(q0[:, lo:hi].contiguous(),
+                                     base[:, lo:hi].contiguous(), win, inv_t,
+                                     0.1, window(q_full))
+        lab = tmrf.icm_windowed(starts[:, lo:hi].contiguous(),
+                                base[:, lo:hi].contiguous(), win, 2, 0.1,
+                                window(l_full))
+        assert torch.equal(q_full[-1][:, lo:hi], q)
+        assert torch.equal(l_full[-1][:, lo:hi], lab)
+
     @pytest.mark.parametrize("n,block,t_sel", [
         (2048, 128, 777), (10240, 128, 1600), (2048, 256, 1280),
         (1024, 256, 1),

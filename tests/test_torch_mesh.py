@@ -1,14 +1,16 @@
 """The port's mesh axes on the CPU: parallel/mesh.py's Mesh and
 collectives, parallel/sharding.py's hyp-sharded fit, sharded
-verification and pair-split batches, against the port's own single-device
-results, and two pieces against the JAX package.
+verification, pair-split batches and the 'pt'-sharded fit with its
+windowed sweeps, against the port's own single-device results, and two
+pieces against the JAX package.
 
 One module fixture spawns 4 gloo ranks on the CPU once
 (tests/torch_mesh_ranks.py::mesh_rank, under a deadline after which the
 ranks are killed and the fixture fails). Each rank writes its results as
 numpy under tmp_path; each check below is a test of its own. The (1, 4),
 (1, 2), (2, 2) and (4, 1) meshes are built over the 4 ranks; the (2, 2)
-mesh's two rows fit different cases at once.
+mesh's two rows fit different cases at once; the 'pt' meshes over all
+four ranks and over ranks (0, 1) and (2, 3) at once.
 
 In this process: `windowed_quadruples(window_range=)` against JAX's on
 replayed draws, and `sharded_verification` against
@@ -34,6 +36,7 @@ from multih_tpu_torch.ops import sampling as tsamp
 from multih_tpu_torch.ops.topk import top_k_stable
 from multih_tpu_torch.parallel import mesh as tmesh
 from multih_tpu_torch.parallel import sharding as tshard
+from multih_tpu_torch.utils import evaluation
 import torch_mesh_ranks as R
 from test_torch_kernels import t
 from test_torch_windowed import (KeyWindowDraws, _knn_windowed,
@@ -137,6 +140,22 @@ def test_hyp_sharded_fit_equals_fit(ranks_dir, mesh_name, case, ranks):
         np.testing.assert_allclose(got["homographies"],
                                    ref.homographies.numpy(), rtol=2e-4,
                                    atol=2e-5)
+
+
+def test_hyp_rescore_cap_counts_the_extras(ranks_dir):
+    """With the one-point pool's 128 extras and verify_rescore * M = 256
+    past the 131-hypothesis sampled pool, the hyp-sharded pre-selection
+    is capped by the whole pool, as the unsharded pick is: every rank's
+    homographies equal the single fit's bit for bit. (Capped by the
+    sampled pool alone, as the reference caps it, they parted on this
+    scene by 1.78 in an inactive slot.)"""
+    (x1, x2, valid), key, kw = R.fit_inputs("rescore_cap")
+    ref = mt.fit(x1, x2, valid, torch.Generator().manual_seed(key),
+                 R.fit_config("rescore_cap"), device="cpu", **kw)
+    for rank in range(WORLD):
+        got = load(ranks_dir, "hyp4_rescore_cap", rank)
+        np.testing.assert_array_equal(got["homographies"],
+                                      ref.homographies.numpy())
 
 
 def test_hypothesize_verify_replication_guard(ranks_dir):
@@ -265,3 +284,122 @@ def test_windowed_quadruples_window_range_matches_jax(rng, n_shards):
             t(np.asarray(ji)), s, block, window_range=(d * nw, nw)).numpy()
         assert got.shape == (32, s // n_shards)
         np.testing.assert_array_equal(got, ref)
+
+
+# ---------------------------------------------------------------------------
+# the 'pt' (point) axis
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def pt_single():
+    """The port's unsharded fit of each 'pt' case."""
+    out = {}
+    for case in R.PT_CASES:
+        (x1, x2, valid), cfg, key, cs = R.pt_inputs(case)
+        out[case] = (mt.fit(x1, x2, valid, torch.Generator().manual_seed(key),
+                            cfg, device="cpu"), cs)
+    return out
+
+
+@pytest.mark.parametrize("ranks,case", R.PT_RUNS,
+                         ids=[f"pt{len(r)}-{c}" for r, c in R.PT_RUNS])
+def test_pt_sharded_fit_equals_fit(ranks_dir, pt_single, ranks, case):
+    """pt_sharded_fit on 4 and 2 gloo ranks (2 and 4 Morton blocks a
+    rank) against the port's unsharded fit with the same generator seed
+    (tests/test_sharding.py:338-377 at a cut-down N): labels and active
+    exact on every rank, energy within rtol 1e-3, misclassification
+    under 2%; also with the direct refit (refit_moments=False)."""
+    ref, cs = pt_single[case]
+    k = R.PT["max_labels"]
+    for rank in ranks:
+        got = load(ranks_dir, f"pt{len(ranks)}_{case}", rank)
+        np.testing.assert_array_equal(got["labels"], ref.labels.numpy(),
+                                      err_msg=f"rank {rank}")
+        np.testing.assert_array_equal(got["active"], ref.active.numpy())
+        np.testing.assert_array_equal(got["n_hypotheses_ok"],
+                                      ref.n_hypotheses_ok.numpy())
+        np.testing.assert_allclose(got["energy"], ref.energy.numpy(),
+                                   rtol=1e-3)
+        err = evaluation.misclassification_error(
+            got["labels"][:cs.n_points], cs.gt_labels, k)
+        assert err < 2.0, err
+
+
+def test_pt_gate_refused(ranks_dir):
+    """pt_sharded_fit raises ValueError where the reference asserts
+    (sharding.py:93-99): 512 points are not a multiple of agree_block 256
+    times 4 ranks."""
+    for rank in range(WORLD):
+        msg = str(load(ranks_dir, "pt4_gate", rank)["refused"])
+        assert "multiple of agree_block*npt=256*4" in msg
+
+
+def test_pt_windowed_sweeps_equal_unsharded(ranks_dir):
+    """Each rank's window band (its own blocks' rows) equals the whole
+    far-free band's, and the plain windowed sweeps with a halo exchange
+    a sweep -- mean-field (mrf_kernel.mean_field_windowed) and red-black
+    ICM a half-sweep a call (icm_windowed) -- equal the unsharded plain
+    versions on the rank's own blocks, bit for bit."""
+    from multih_tpu_torch.models import labeling as tlab
+    from multih_tpu_torch.ops.kernels import mrf_kernel as tmrf
+
+    c = R.PT_SWEEPS
+    x1, valid, q0, base, starts, inv_t = (torch.from_numpy(a) for a in
+                                          R.pt_sweep_inputs())
+    nbr, w = tlab.knn_graph_windowed(x1, valid, 6, c["block"])
+    band = tlab.build_banded_adjacency(nbr, w, c["block"],
+                                       far_capacity=0).band
+    q = tmrf.mean_field_fused_reference(q0, base, band, inv_t, 0.7).numpy()
+    lab = tmrf.icm_fused_reference(starts, base, band, 2, 0.7).numpy()
+    n_own, nb_own = c["n"] // WORLD, c["n"] // WORLD // c["block"]
+    assert (lab != starts.numpy()).any()  # the sweeps move labels
+    for rank in range(WORLD):
+        got = load(ranks_dir, "pt4_sweeps", rank)
+        own = slice(rank * n_own, (rank + 1) * n_own)
+        np.testing.assert_array_equal(
+            got["band"][1:-1], band[rank * nb_own:(rank + 1) * nb_own])
+        assert not got["band"][[0, -1]].any()  # the halo rows are zero
+        np.testing.assert_array_equal(got["q"], q[:, own])
+        np.testing.assert_array_equal(got["labels"], lab[:, own])
+
+
+def test_pt_mesh_of_one_rank_equals_fit():
+    """A 'pt' mesh of one rank (no process group) runs the sharded code
+    path with empty halos and identity sums: every output equals the
+    unsharded fit's bit for bit."""
+    (x1, x2, valid), cfg, key, _ = R.pt_inputs("plain")
+    m = tshard.make_pt_mesh(device="cpu")
+    assert m.shape == {"pt": 1}
+    got = tshard.pt_sharded_fit(cfg, m)(x1, x2, valid,
+                                        torch.Generator().manual_seed(key))
+    ref = mt.fit(x1, x2, valid, torch.Generator().manual_seed(key), cfg,
+                 device="cpu")
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+def test_pt_window_neighbour_list(monkeypatch):
+    """The window band's neighbour list (what K4 / K5 read on a 'pt'
+    rank), built by the list's plain version on a one-rank mesh: one
+    row a window point, its own rows the whole band's lists shifted by
+    the halo block, the halo rows empty."""
+    from multih_tpu_torch.models import labeling as tlab
+    from multih_tpu_torch.ops.kernels import mrf_kernel as tmrf
+
+    monkeypatch.setattr(tmrf, "band_list", tmrf.band_list_reference)
+    c = R.PT_SWEEPS
+    x1, valid = (torch.from_numpy(a) for a in R.pt_sweep_inputs()[:2])
+    nbr, w = tlab.knn_graph_windowed(x1, valid, 6, c["block"])
+    full = tmrf.band_list_reference(tlab.build_banded_adjacency(
+        nbr, w, c["block"], far_capacity=0).band)
+    shard = tlab.PointShard(tshard.make_pt_mesh(device="cpu"), c["n"],
+                            c["block"])
+    win = tlab.build_window_adjacency(nbr, w, shard, neighbour_list=True).nbr
+    own = slice(c["block"], c["block"] + c["n"])
+    assert win.cols.shape == (c["n"] + 2 * c["block"], 3 * c["block"])
+    assert torch.equal(win.cnt[own], full.cnt)
+    used = torch.arange(3 * c["block"])[None, :] < full.cnt[:, None]
+    assert torch.equal(torch.where(used, win.cols[own] - c["block"], 0),
+                       full.cols)
+    assert torch.equal(win.ws[own], full.ws)
+    assert int(win.cnt[:c["block"]].sum() + win.cnt[-c["block"]:].sum()) == 0

@@ -126,6 +126,23 @@ class TestSliceMatchesReference:
             assert abs(float(tr.support[p]) - js[q]) <= 2.0
 
 
+def reference_fit_x64(jf, x1, x2, valid, key):
+    """The reference's fit run in float64 (jax x64) on the float32 run's
+    draws: randint and gumbel at the dtypes they draw without x64, so the
+    same keys give the same samples. A float64 judge of two float32
+    fits that is not the port's code."""
+    ri, gu = jax.random.randint, jax.random.gumbel
+    with pytest.MonkeyPatch.context() as mp, jax.enable_x64(True):
+        mp.setattr(jax.random, "randint",
+                   lambda k, shape, lo, hi, dtype=None: ri(
+                       k, shape, lo, hi, dtype=jnp.int32))
+        mp.setattr(jax.random, "gumbel",
+                   lambda k, shape=(), dtype=None, **kw: gu(
+                       k, shape, dtype=jnp.float32, **kw).astype(jnp.float64))
+        return jax.device_get(jf(*(a.astype(np.float64)
+                                   for a in (x1, x2, valid)), key))
+
+
 @pytest.fixture(scope="module")
 def stress_shaped_fits():
     """The stress config's code paths at a small size (bench.py
@@ -149,19 +166,25 @@ def stress_shaped_fits():
         jr = jax.device_get(jf(x1, x2, valid, key))
         tr = mt.fit(x1, x2, valid, JaxReplayDraws(key, 2), tcfg,
                     device="cpu")
-        out[seed] = (jr, tr, gt)
+        out[seed] = (jr, tr, gt, reference_fit_x64(jf, x1, x2, valid, key))
     return out
 
 
 @pytest.mark.parametrize("seed", (11, 12))
 def test_stress_shaped_slice(stress_shaped_fits, seed):
-    jr, tr, gt = stress_shaped_fits[seed]
+    """Plane count, labels and counters as the reference's; the energy
+    within rtol 1e-3 of the reference's fit run in float64
+    (`reference_fit_x64`). On seed 12 the two float32 fits take one plane
+    from different candidates, and the float64 reference lands on the
+    port's: energies 478.63 (port, float32), 478.63 (reference, float64)
+    and 480.31 (reference, float32), measured on an AVX-512 CPU."""
+    jr, tr, gt, jr64 = stress_shaped_fits[seed]
     assert int(tr.active.sum()) == int(np.asarray(jr.active).sum()) == 6
     agree = 100.0 - evaluation.misclassification_error(
         tr.labels.numpy(), np.asarray(jr.labels), 8, gt_outlier=8)
     assert agree >= 99.0, agree
     assert float(tr.n_hypotheses_ok) == float(jr.n_hypotheses_ok)
-    np.testing.assert_allclose(float(tr.energy), float(jr.energy),
+    np.testing.assert_allclose(float(tr.energy), float(jr64.energy),
                                rtol=1e-3)
     assert evaluation.misclassification_error(tr.labels.numpy(), gt,
                                               8) < 3.0
@@ -233,6 +256,42 @@ def test_gates_match_reference(n_pts, expect):
     assert not tpipe._kernels_enabled(cfg, torch.device("cpu"))
 
 
+def test_golden_outlier50_b_on_reference_draws():
+    """outlier50_b's golden bound (|3-key mean - golden| <= 0.5 pp + two
+    points of slack, tests/test_golden_parity.py:85-98) on the
+    reference's own draws of keys 0-2, replayed into the port's fit.
+    test_torch_kernels.py::test_golden_scene draws the port's keys 0-2
+    from torch generators, and on an AVX-512 CPU they miss this scene's
+    bound (2.22 pp against a golden 1.00); on the reference's draws the
+    port's mean is 1.556 and the reference's 1.389 on the same CPU: the
+    two part at the draws, not in the fit."""
+    import os
+
+    cs = tdata.suite_scene("outlier50_b")
+    npad = 1 << max(9, (cs.n_points - 1).bit_length())
+    g = np.load(os.path.join(os.path.dirname(__file__), "goldens",
+                             "outlier50_b.npz"))
+    tau = float(g["inlier_threshold"])
+    jcfg = multih_tpu.MultiHConfig(max_points=npad)
+    jf = multih_tpu.make_fit_tau(jcfg)
+    tf = mt.make_fit_tau(mt.MultiHConfig(max_points=npad), device="cpu")
+    x1, x2, valid = mt.pad_points(cs.x1, cs.x2, None, npad)
+    errs = {"port": [], "reference": []}
+    for k in range(3):
+        key = jax.random.key(k)
+        for name, res in (
+                ("reference", jax.device_get(jf(x1, x2, valid, key, tau))),
+                ("port", tf(x1, x2, valid, JaxReplayDraws(
+                    key, jcfg.progressive_rounds), tau))):
+            errs[name].append(evaluation.misclassification_error(
+                np.asarray(res.labels)[:cs.n_points], cs.gt_labels,
+                jcfg.max_labels))
+    golden = float(g["misclassification"])
+    bound = 0.5 + min(2.0 * 100.0 / cs.n_points, 1.0) + 1e-9
+    for name, e in errs.items():
+        assert abs(np.mean(e) - golden) <= bound, (name, e, golden)
+
+
 @pytest.mark.parametrize("kw", [
     # the fundamental model with its direct (non-moment) refit
     dict(model="fundamental", refit_moments=False),
@@ -284,17 +343,24 @@ def test_out_of_slice_raises(kw):
 
 @pytest.mark.parametrize("model", ["homography", "fundamental"])
 def test_out_of_slice_arguments_raise(model):
-    """A mesh with a 'pt' (point) axis raises NotImplementedError (not
-    ported yet; the 'pair' and 'hyp' axes are, tests/test_torch_mesh.py).
-    Affine hypotheses run for homographies (tests/test_torch_affine.py
-    holds them to the reference) and raise the reference's ValueError for
-    the fundamental model; seed homographies are in the port
-    (tests/test_torch_stream.py)."""
+    """A 'pt' (point) mesh runs the homography model on the windowed graph
+    (tests/test_torch_mesh.py); without knn_window, or for the
+    fundamental model, the fit raises the port's gate's ValueError
+    (pipeline.check_pt_gate). Affine hypotheses run for homographies
+    (tests/test_torch_affine.py holds them to the reference) and raise
+    the reference's ValueError for the fundamental model; seed
+    homographies are in the port (tests/test_torch_stream.py)."""
     cfg = mt.MultiHConfig(max_points=512, knn_window=False, model=model)
     z = torch.zeros((512, 2))
     pt_mesh = Mesh([0], ("pt",), device="cpu")
-    with pytest.raises(NotImplementedError, match="'pt'"):
+    with pytest.raises(ValueError, match="pt sharding needs knn_window"):
         mt.fit(z, z, torch.ones(512), torch.Generator(), cfg, mesh=pt_mesh)
+    with pytest.raises(ValueError, match="pt sharding runs the homography"
+                       if model == "fundamental" else "multiple of"):
+        mt.fit(z, z, torch.ones(512), torch.Generator(), dataclasses.replace(
+            cfg, knn_window=True,
+            agree_block=256 if model == "fundamental" else 384),
+            mesh=pt_mesh)
     if model == "fundamental":
         with pytest.raises(ValueError, match="affine"):
             mt.fit(z, z, torch.ones(512), torch.Generator(), cfg,

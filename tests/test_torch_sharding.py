@@ -165,9 +165,10 @@ def test_mixed_adaptive_with_taus_raises(mixed_cfgs):
 def test_mesh_raises(tcfg, mixed_cfgs, pairs, fn):
     """With a mesh of one rank (no process group) each surface equals the
     call without a mesh, bit for bit, its arrays on the mesh's device;
-    the multi-rank meshes are tests/test_torch_mesh.py's. A mesh with a
-    'pt' (point) axis raises NotImplementedError in the fit: that axis is
-    not ported yet."""
+    the multi-rank meshes are tests/test_torch_mesh.py's. A 'pt' (point)
+    mesh reaches the fit, whose gate (pipeline.check_pt_gate) refuses
+    the tiny config's 128 points under agree_block 256 with a
+    ValueError."""
     m1 = tshard.make_mesh(device="cpu")
     x1, x2, valid = (np.stack(a) for a in zip(*(
         mt.pad_points(cs.x1, cs.x2, None, tcfg.max_points) for cs in pairs)))
@@ -190,7 +191,7 @@ def test_mesh_raises(tcfg, mixed_cfgs, pairs, fn):
         assert torch.equal(torch.as_tensor(x), torch.as_tensor(y))
     if fn == "batched_fit":
         pt_mesh = Mesh([0], ("pt",), device="cpu")
-        with pytest.raises(NotImplementedError, match="'pt'"):
+        with pytest.raises(ValueError, match="multiple of agree_block"):
             tshard.batched_fit(tcfg, mesh=pt_mesh)(x1, x2, valid, gens(),
                                                    TAUS)
 

@@ -40,17 +40,88 @@ FIT_CASES = {
                "planes", 4, 5, None),
     "seeded": (dict(TINY, verify_subsample=4), "planes", 6, 11, "seeds"),
     "affine": (TINY, "planes", 7, 11, "affines"),
+    # the rescore cap with extras: verify_rescore * M = 256 past the
+    # 131-hypothesis sampled pool, the 96 one-point H's on top
+    "rescore_cap": (dict(TINY, n_hypotheses=128, verify_subsample=4,
+                         verify_rescore=4), "planes", 6, 11, "affines"),
 }
 # (mesh, case) runs: the (1, 4) mesh fits each case on all four ranks;
 # the (2, 2) mesh's two rows are separate 'hyp' groups of two, each
 # fitting its own case at the same time
-HYP4_CASES = ("tiny_vs1", "tiny_vs4", "window", "seeded")
+HYP4_CASES = ("tiny_vs1", "tiny_vs4", "window", "seeded", "rescore_cap")
 HYP2_ROWS = (("tiny_vs1", "fundamental"), ("tiny_vs4", "window"),
              ("seeded", "affine"))
+
+# 'pt' (point) axis cases: name -> (config, scene seed, key seed); 8
+# Morton blocks of 64, 2 a rank on the 4-rank mesh, 4 on the 2-rank ones
+PT = dict(max_points=512, agree_block=64, n_hypotheses=512, n_candidates=64,
+          max_labels=8)
+PT_CASES = {
+    "plain": (PT, 5, 0),
+    "window_vs4": (dict(PT, window_sampling=True, verify_subsample=4), 8, 3),
+    "direct": (dict(PT, refit_moments=False), 9, 1),
+}
+# (mesh ranks, case) of every 'pt' fit: all four ranks, then the two
+# 2-rank meshes at once
+PT_RUNS = (((0, 1, 2, 3), "plain"), ((0, 1, 2, 3), "direct"),
+           ((0, 1), "plain"), ((2, 3), "window_vs4"))
+# the windowed sweeps' check: N, B, labels, starts, sweeps
+PT_SWEEPS = dict(n=512, block=64, labels=9, starts=2, sweeps=4)
 
 MIXED_H = dict(max_points=320, agree_block=128, n_hypotheses=512,
                max_labels=4)
 BATCH_TAUS = [3.0, 4.5, 3.0, 3.5, 4.0]
+
+
+def pt_inputs(case):
+    """(x1, x2, valid) numpy, the config and the key seed of a 'pt'
+    case: a 3-plane scene of 470 points padded to 512."""
+    cfg, seed, key = PT_CASES[case]
+    cs, _ = tdata.synthetic_scene(470, 3, 0.1, 0.5, seed=seed)
+    return (mt.pad_points(cs.x1, cs.x2, None, cfg["max_points"]),
+            mt.MultiHConfig(**cfg), key, cs)
+
+
+def pt_sweep_inputs():
+    """The windowed sweeps' inputs, numpy: Morton-sorted points of a
+    4-plane scene with their valid mask, q0 (L, N) softmax rows, base
+    (L, N), int32 starts (S, N) and the inverse temperatures."""
+    c = PT_SWEEPS
+    cs, _ = tdata.synthetic_scene(c["n"] - 40, 4, 0.2, 0.5, seed=4)
+    x1, _, valid = mt.pad_points(cs.x1, cs.x2, None, c["n"])
+    perm = pipeline.morton_order(torch.from_numpy(x1),
+                                 torch.from_numpy(valid)).numpy()
+    rng = np.random.default_rng(12)
+    base = rng.uniform(0.0, 4.0, (c["labels"], c["n"])).astype(np.float32)
+    q0 = np.exp(-base)
+    q0 = (q0 / q0.sum(0)).astype(np.float32)
+    starts = rng.integers(0, c["labels"], (c["starts"], c["n"]),
+                          dtype=np.int32)
+    inv_t = (1.0 / np.geomspace(4.0, 0.5, c["sweeps"])).astype(np.float32)
+    return x1[perm], valid[perm], q0, base, starts, inv_t
+
+
+def pt_sweeps(shard, spatial_weight=0.7):
+    """On a 'pt' rank: its window band, then the plain windowed
+    mean-field and ICM sweeps (mrf_kernel.mean_field_windowed /
+    icm_windowed, use_kernel=False: the 'pt' fit's sweeps on the CPU)
+    on its own blocks, halos exchanged over the mesh."""
+    from multih_tpu_torch.ops.kernels import mrf_kernel
+
+    x1, valid, q0, base, starts, inv_t = (torch.from_numpy(a) for a in
+                                          pt_sweep_inputs())
+    nbr, w = labeling.knn_graph_windowed(x1, valid, 6, shard.block,
+                                         (shard.lo, shard.hi))
+    adj = labeling.build_window_adjacency(nbr, w, shard)
+    own = slice(shard.lo, shard.hi)
+    q = mrf_kernel.mean_field_windowed(
+        q0[:, own].contiguous(), base[:, own].contiguous(), adj.band, inv_t,
+        spatial_weight, shard.window, use_kernel=False)
+    lab = mrf_kernel.icm_windowed(
+        starts[:, own].contiguous(), base[:, own].contiguous(), adj.band, 2,
+        spatial_weight, shard.window, use_kernel=False)
+    return {"band": adj.band.numpy(), "deg": adj.deg.numpy(),
+            "q": q.numpy(), "labels": lab.numpy()}
 
 
 def fit_config(case):
@@ -207,6 +278,26 @@ def mesh_rank(rank, device, out_dir):
     res = sharding.sharded_fit_mixed(cfg_h, cfg_f, meshes["2x2"])(
         *mixed_batch(), [torch.Generator().manual_seed(i) for i in (0, 1)])
     _save(out_dir, "mixed_2x2", rank, _numpy(res))
+
+    # the 'pt' axis: every mesh is built by every rank (a collective)
+    pt_meshes = {ranks: sharding.make_pt_mesh(ranks, device=device)
+                 for ranks, _ in PT_RUNS}
+    for ranks, case in PT_RUNS:
+        if rank not in ranks:
+            continue
+        (x1, x2, valid), cfg, key, _ = pt_inputs(case)
+        res = sharding.pt_sharded_fit(cfg, pt_meshes[ranks])(
+            x1, x2, valid, torch.Generator().manual_seed(key))
+        _save(out_dir, f"pt{len(ranks)}_{case}", rank, _numpy(res))
+    pt4 = pt_meshes[(0, 1, 2, 3)]
+    shard = labeling.PointShard(pt4, PT_SWEEPS["n"], PT_SWEEPS["block"])
+    _save(out_dir, "pt4_sweeps", rank, pt_sweeps(shard))
+    try:  # 512 points are not a multiple of 256 * 4
+        sharding.pt_sharded_fit(mt.MultiHConfig(max_points=512), pt4)
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    _save(out_dir, "pt4_gate", rank, {"refused": refused})
     return rank
 
 

@@ -4,12 +4,14 @@
 Run from the repository root on a host with 4 cards:
 
     python3 tools/torch_mesh_cards.py            # 4 ranks, NCCL
+    python3 tools/torch_mesh_cards.py --parts pt # the 'pt' case alone
 
 or, as a rehearsal on the CPU at a small size:
 
     python3 tools/torch_mesh_cards.py --device cpu --small
 
-Each rank fits, in turns (single, sharded, sharded, single):
+Each rank fits, in turns (single, sharded, sharded, single), the parts
+asked for (`--parts`, all three by default):
   - the stress cell (chip_smoke.py phase 5's scene at stress_cfg()) on
     its own card alone, and hyp-sharded over a (1, world) mesh; checks
     the sharded result equals the single card fit; reports the warm
@@ -18,7 +20,15 @@ Each rank fits, in turns (single, sharded, sharded, single):
     through the host;
   - the 24 golden scenes at N=1024 (phase 10's batch) without a mesh on
     rank 0's card, and split over a (world, 1) mesh; checks every pair
-    equal; reports both walls.
+    equal; reports both walls;
+  - pt: the stress cell with its points split over a (pt=world) mesh,
+    N / world points a card (20 Morton blocks of 128 at world 4), halos
+    exchanged by NCCL sends and receives, against the single card fit;
+    reports the labels that differ from it, the
+    warm walls, each rank's launches of K1, K3, K4 and K5, its peak
+    allocated memory beside the single fit's and the host-staged bytes.
+    (Labels and active equal to the single card fit and the energy
+    within rtol 1e-3 are checked.)
 Prints one JSON line per rank, then the card line from nvidia-smi.
 """
 
@@ -51,8 +61,9 @@ def _wall_ms(fn, device) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def rank_main(rank, device, small, trace_dir):
-    import numpy as np
+def pt_part(rank, device, cfg, args, gen):
+    """The 'pt' case: the stress cell on a (pt=world) mesh against this
+    card's single fit."""
     import torch
     import torch.distributed as dist
 
@@ -60,20 +71,61 @@ def rank_main(rank, device, small, trace_dir):
     import multih_tpu_torch as mt
     from multih_tpu_torch.parallel import sharding
 
-    world = dist.get_world_size()
-    hyp = sharding.make_mesh(pair_axis=1, device=device)
-    pair = sharding.make_mesh(device=device)
-    cfg = cs.stress_cfg()
-    if small:
-        cfg = dataclasses.replace(cfg, max_points=1024, n_hypotheses=4096,
-                                  n_candidates=64)
-        from multih_tpu_torch.utils import data
+    pt = sharding.make_pt_mesh(device=device)
+    f = sharding.pt_sharded_fit(cfg, pt)
 
-        scene = data.synthetic_scene(1000, 3, 0.3, 0.5, seed=42)[0]
-        args = cs._to(device, *mt.pad_points(scene.x1, scene.x2, None, 1024))
+    def single():
+        return mt.fit(*args, gen.manual_seed(0), cfg)
+
+    def sharded():
+        return f(*args, gen.manual_seed(0))
+
+    def peak(fn):
+        _sync(device)
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        res = fn()
+        _sync(device)
+        return res, (torch.cuda.max_memory_allocated(device)
+                     if device.type == "cuda" else 0)
+
+    ref, single_peak = peak(single)
+    dist.barrier()
+    pt.host_staged = 0
+    if device.type == "cuda":
+        got, launches = cs.count_launches(
+            f"pt rank {rank}", cs.PT_KERNELS, lambda: peak(sharded),
+            quiet=True)
+        got, sharded_peak = got
     else:
-        args = cs._stress_points(device)
-    gen = torch.Generator(device=device)
+        (got, sharded_peak), launches = peak(sharded), {}
+    n_diff = int((ref.labels != got.labels).sum())
+    gap = abs(float(got.energy) - float(ref.energy)) / abs(float(ref.energy))
+    if not torch.equal(ref.active, got.active) or gap > 1e-3 or n_diff:
+        raise AssertionError(f"rank {rank}: pt fit {n_diff} labels, energy "
+                             f"gap {gap}, active {got.active.tolist()}")
+    out = dict(planes=int(got.active.sum()), labels_differing=n_diff,
+               energy_gap=gap,
+               launches=launches, staged_bytes=pt.host_staged,
+               peak_bytes=dict(single=single_peak, sharded=sharded_peak))
+    walls = {"single": [], "sharded": []}
+    for turn in ("single", "sharded", "sharded", "single") * 3:
+        dist.barrier()
+        walls[turn].append(_wall_ms(single if turn == "single" else sharded,
+                                    device))
+    out["wall_ms"] = walls
+    return out
+
+
+def hyp_part(rank, device, cfg, args, gen, hyp, trace_dir):
+    """The stress cell hyp-sharded over a (1, world) mesh against this
+    card's single fit."""
+    import torch
+    import torch.distributed as dist
+
+    import chip_smoke as cs
+    import multih_tpu_torch as mt
+    from multih_tpu_torch.parallel import sharding
 
     def single():
         return mt.fit(*args, gen.manual_seed(0), cfg)
@@ -87,8 +139,7 @@ def rank_main(rank, device, small, trace_dir):
     for k in ("labels", "active", "n_hypotheses_ok", "homographies"):
         if not torch.equal(getattr(ref, k), getattr(got, k)):
             raise AssertionError(f"rank {rank}: sharded {k} differs")
-    out = dict(rank=rank, world=world, device=str(device),
-               planes=int(got.active.sum()))
+    out = dict(planes=int(got.active.sum()))
     walls = {"single": [], "sharded": []}
     for turn in ("single", "sharded", "sharded", "single") * 3:
         dist.barrier()
@@ -119,6 +170,18 @@ def rank_main(rank, device, small, trace_dir):
         dist.barrier()
         out["hv_sharded"] = cs._traced_device_ms(hv_sharded, trace_dir,
                                                  f"sharded{rank}")
+    return out
+
+
+def batch_part(rank, device, small, pair):
+    """The 24 golden scenes split over a (world, 1) mesh against rank 0's
+    card alone."""
+    import numpy as np
+    import torch.distributed as dist
+
+    import chip_smoke as cs
+    import multih_tpu_torch as mt
+    from multih_tpu_torch.parallel import sharding
 
     bcfg = mt.MultiHConfig(max_points=1024)
     css, taus = cs._golden_batch()
@@ -149,8 +212,39 @@ def rank_main(rank, device, small, trace_dir):
             for k, a in ref._asdict().items():
                 if not np.array_equal(a, getattr(res, k)):
                     raise AssertionError(f"batch {k} differs")
-    out["batch_wall_ms"] = bwalls
-    out["batch_pairs"] = len(css)
+    return dict(batch_wall_ms=bwalls, batch_pairs=len(css))
+
+
+def rank_main(rank, device, small, trace_dir, parts):
+    import torch
+    import torch.distributed as dist
+
+    import chip_smoke as cs
+    import multih_tpu_torch as mt
+    from multih_tpu_torch.parallel import sharding
+
+    world = dist.get_world_size()
+    # every mesh is built by every rank (creating a group is collective)
+    hyp = sharding.make_mesh(pair_axis=1, device=device)
+    pair = sharding.make_mesh(device=device)
+    cfg = cs.stress_cfg()
+    if small:
+        cfg = dataclasses.replace(cfg, max_points=1024, n_hypotheses=4096,
+                                  n_candidates=64)
+        from multih_tpu_torch.utils import data
+
+        scene = data.synthetic_scene(1000, 3, 0.3, 0.5, seed=42)[0]
+        args = cs._to(device, *mt.pad_points(scene.x1, scene.x2, None, 1024))
+    else:
+        args = cs._stress_points(device)
+    gen = torch.Generator(device=device)
+    out = dict(rank=rank, world=world, device=str(device))
+    if "hyp" in parts:
+        out.update(hyp_part(rank, device, cfg, args, gen, hyp, trace_dir))
+    if "batch" in parts:
+        out.update(batch_part(rank, device, small, pair))
+    if "pt" in parts:
+        out["pt"] = pt_part(rank, device, cfg, args, gen)
     return out
 
 
@@ -160,6 +254,8 @@ def main() -> int:
     ap.add_argument("--small", action="store_true",
                     help="a small stress config and 8 batch pairs")
     ap.add_argument("--world", type=int, default=4)
+    ap.add_argument("--parts", nargs="+", default=["hyp", "batch", "pt"],
+                    choices=("hyp", "batch", "pt"))
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     import torch
@@ -179,12 +275,16 @@ def main() -> int:
         backend, dev_of = "gloo", (lambda r: "cpu")
     with tempfile.TemporaryDirectory() as tmp:
         outs = mesh.spawn(rank_main, args.world, backend, dev_of,
-                          timeout_s=900.0, args=(args.small, tmp))
+                          timeout_s=900.0, args=(args.small, tmp,
+                                                 tuple(args.parts)))
     for o in outs:
         print(json.dumps(o))
     r0 = outs[0]
-    for name in ("stress_wall_ms", "batch_wall_ms"):
-        w = r0[name]
+    walls = {k: r0[k] for k in ("stress_wall_ms", "batch_wall_ms")
+             if k in r0}
+    if "pt" in r0:
+        walls["pt_wall_ms"] = r0["pt"]["wall_ms"]
+    for name, w in walls.items():
         print(f"{name}: single median {statistics.median(w['single']):.1f}, "
               f"sharded median {statistics.median(w['sharded']):.1f} "
               f"(runs {w})")
