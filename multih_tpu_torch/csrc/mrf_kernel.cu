@@ -48,15 +48,27 @@
 // plain version's exactly.
 //
 // K6, the fused front: the homography residuals, the data costs and base
-// = dct + sw*deg per point, as the TPU kernel does in its load pass. The
-// first sweep of point i needs q0 (an input) and point i's own base
-// only, so the front and sweep 0 share one launch (mf_front: the warp of
-// point i computes its L costs, one label per lane, into shared memory,
-// then runs the sweep on them); sweeps 1.. are one K4 launch reading base
-// from device memory: 1 or 2 launches a call. Residuals use IEEE
-// division and the plain elementwise order (no FMA), so near a vanishing
-// w (r up to 1e9 px^2) they stay the plain version's to float32
-// rounding; thr is read from device memory.
+// = dct + sw*deg, as the TPU kernel does in its load pass, then every
+// sweep, in one cooperative launch (mf_front_grid). The pass before the
+// first grid barrier is the front, laid out for itself: a block stages
+// the K planes' H, adjugate and active flag in shared memory once, then
+// takes tiles of 32 consecutive points, a lane a point and a warp every
+// 8th label, so the point inputs are read and r and dct (label-major)
+// written coalesced; base and q0 go point-major into the sweeps' scratch
+// through a shared tile (contiguous stores). After the barrier run K4's
+// sweeps (mf_sweeps, the code mf_grid runs), so K6's q equals K4's on
+// K6's own base bit for bit. It reads the fit's own tensors (x1, x2,
+// valid, deg, Hs, active, by their strides) and thr from device memory;
+// the adjugate is rounded term by term as geometry.adjugate_3x3 rounds
+// it. Residuals use IEEE division and the plain elementwise order (no
+// FMA), so near a vanishing w (r up to 1e9 px^2) they stay the plain
+// version's to float32 rounding. Bound: at N=512 the call moves ~0.18
+// MB and its front does ~0.4 M operations, together ~0.05 us at the
+// card's rates; what is left is latency: the front's loads and its
+// division chains before the first barrier, then K4's sweeps. A variant
+// that loaded a tile's points and q0 before the planes' staging and
+// unrolled a lane's labels was measured beside this one on the H100 and
+// was no faster (PERF.md, section 6).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -217,31 +229,21 @@ band_list(const float* __restrict__ band, int n, int block,
   if (lane == 0) cnt[i] = pos;
 }
 
-// K4: every sweep in one cooperative launch, state in device
-// memory: a first pass copies q0 and base point-major into tmp (coalesced
-// reads), then every sweep reads its neighbours' L values contiguously.
+// K4's sweeps, run by mf_grid and mf_front_grid after their first pass
+// and its grid barrier: sweep s reads the state point-major from buf0 or
+// buf1 and base from sbase (both (N, L|1)), writes the other buffer, or
+// `out` label-major on the last sweep, and waits at the grid barrier.
 template <int LPL>
-__global__ void __launch_bounds__(kWarps * 32)
-mf_grid(const float* __restrict__ q0, const float* __restrict__ base,
-        const int* __restrict__ cols, const float* __restrict__ ws,
-        const int* __restrict__ cnt, int cap,
-        const float* __restrict__ inv_temps, int n_sweeps, int l, int n,
-        float sw, float* __restrict__ out, float* __restrict__ tmp) {
-  cg::grid_group grid = cg::this_grid();
+__device__ __forceinline__ void mf_sweeps(
+    cg::grid_group& grid, const float* sbase, float* buf0, float* buf1,
+    const int* __restrict__ cols, const float* __restrict__ ws,
+    const int* __restrict__ cnt, int cap,
+    const float* __restrict__ inv_temps, int n_sweeps, int l, int n,
+    float sw, float* __restrict__ out) {
   const int ls = l | 1;
   const int lane = threadIdx.x & 31;
-  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
-  const int nt = gridDim.x * blockDim.x;
-  const int gw = tid >> 5, nw = nt >> 5;
-  float* sbase = tmp;
-  float* buf0 = tmp + static_cast<size_t>(n) * ls;
-  float* buf1 = buf0 + static_cast<size_t>(n) * ls;
-  for (int t = tid; t < l * n; t += nt) {
-    const int lbl = t / n, i = t - lbl * n;
-    sbase[static_cast<size_t>(i) * ls + lbl] = base[t];
-    buf0[static_cast<size_t>(i) * ls + lbl] = q0[t];
-  }
-  grid.sync();
+  const int gw = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int nw = (gridDim.x * blockDim.x) >> 5;
   for (int s = 0; s < n_sweeps; ++s) {
     const bool last = s == n_sweeps - 1;
     const GlobalQ q{(s & 1) ? buf1 : buf0, ls, 1};
@@ -267,6 +269,33 @@ mf_grid(const float* __restrict__ q0, const float* __restrict__ base,
     }
     if (!last) grid.sync();
   }
+}
+
+// K4: every sweep in one cooperative launch, state in device
+// memory: a first pass copies q0 and base point-major into tmp (coalesced
+// reads), then every sweep reads its neighbours' L values contiguously.
+template <int LPL>
+__global__ void __launch_bounds__(kWarps * 32)
+mf_grid(const float* __restrict__ q0, const float* __restrict__ base,
+        const int* __restrict__ cols, const float* __restrict__ ws,
+        const int* __restrict__ cnt, int cap,
+        const float* __restrict__ inv_temps, int n_sweeps, int l, int n,
+        float sw, float* __restrict__ out, float* __restrict__ tmp) {
+  cg::grid_group grid = cg::this_grid();
+  const int ls = l | 1;
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int nt = gridDim.x * blockDim.x;
+  float* sbase = tmp;
+  float* buf0 = tmp + static_cast<size_t>(n) * ls;
+  float* buf1 = buf0 + static_cast<size_t>(n) * ls;
+  for (int t = tid; t < l * n; t += nt) {
+    const int lbl = t / n, i = t - lbl * n;
+    sbase[static_cast<size_t>(i) * ls + lbl] = base[t];
+    buf0[static_cast<size_t>(i) * ls + lbl] = q0[t];
+  }
+  grid.sync();
+  mf_sweeps<LPL>(grid, sbase, buf0, buf1, cols, ws, cnt, cap, inv_temps,
+                 n_sweeps, l, n, sw, out);
 }
 
 // One ICM move of point i (current label cur), by its warp: its first
@@ -389,79 +418,125 @@ __device__ __forceinline__ float affine(float a, float x, float b, float y,
 
 __device__ __forceinline__ float sq(float a) { return __fmul_rn(a, a); }
 
-// The fused front (K6) and the first sweep. Per point i (one warp), lane
-// j mod 32 computes label j's squared residual r (forward transfer through
-// hm row j's H, plus, when `symmetric`, the backward transfer through its
-// adjugate), its truncated-quadratic data cost dct (labeling.data_costs_t:
-// min(r/thr, 8)*oc, +1e6 on an inactive plane, oc on the outlier row L-1,
-// times valid) and base = dct + sw*deg; writes r (labels < L-1), dct and
-// base, and keeps base in shared memory for the warp. With `sweep` the
-// warp then runs mean-field sweep 0 from q0, which needs only its own
-// point's base; otherwise it copies q0 to dst (no sweeps).
+// K6's inputs as the fit holds them: x1, x2 (N, 2), valid (N,), deg (N,
+// or N x 1), Hs (K, 3, 3), active (K,), each by its element strides, and
+// the squared threshold in device memory.
+struct FrontIn {
+  const float *x1, *x2, *valid, *deg, *hs, *active, *thr;
+  int x1_r, x1_c, x2_r, x2_c, valid_s, deg_s, hs_k, hs_r, hs_c, active_s;
+};
+
+constexpr int kTileP = 32;  // points a front tile, a lane each
+
+// K6: the front, then (n_sweeps > 0) the grid barrier and K4's sweeps.
+// Front, per point i (a lane) and label j (warp j mod 8): the squared
+// residual r (forward transfer through H_j, plus, when SYMMETRIC, the
+// backward transfer through its adjugate), the truncated-quadratic data
+// cost dct (labeling.data_costs_t: min(r/thr, 8)*oc, +1e6 on an
+// inactive plane, oc on the outlier row L-1, times valid) and base = dct
+// + sw*deg; r (labels < L-1) and dct are written label-major, base and
+// q0 point-major into tmp (with no sweeps, q0 is copied to out).
 template <int LPL, bool SYMMETRIC>
 __global__ void __launch_bounds__(kWarps * 32)
-mf_front(const float* __restrict__ q0, const float* __restrict__ pts,
-         const float* __restrict__ hm, const int* __restrict__ cols,
-         const float* __restrict__ ws, const int* __restrict__ cnt, int cap,
-         const float* __restrict__ inv_temps, const float* __restrict__ thr_p,
-         int sweep, int l, int n, float sw, float oc,
-         float* __restrict__ dst, float* __restrict__ dct,
-         float* __restrict__ r_out, float* __restrict__ base) {
-  __shared__ float s_hm[32 * LPL * 19];
-  __shared__ float s_base[kWarps][32 * LPL];
-  for (int t = threadIdx.x; t < l * 19; t += blockDim.x) s_hm[t] = hm[t];
+mf_front_grid(const float* __restrict__ q0, FrontIn in,
+              const int* __restrict__ cols, const float* __restrict__ ws,
+              const int* __restrict__ cnt, int cap,
+              const float* __restrict__ inv_temps, int n_sweeps, int l,
+              int n, float sw, float oc, float* __restrict__ out,
+              float* __restrict__ dct, float* __restrict__ r_out,
+              float* __restrict__ tmp) {
+  constexpr int kTs = 32 * LPL + 1;  // a tile row's stride, L|1 at most
+  __shared__ float s_h[(32 * LPL - 1) * 19];  // H (9), adj(H) (9), active
+  __shared__ float s_base[kTileP * kTs];
+  __shared__ float s_q[kTileP * kTs];
+  const int k = l - 1;
+  // one thread a plane: H, its adjugate, each product and difference
+  // rounded on its own (geometry.adjugate_3x3; no FMA contraction), and
+  // the active flag
+  for (int j = threadIdx.x; j < k; j += blockDim.x) {
+    float* h = s_h + j * 19;
+#pragma unroll
+    for (int e = 0; e < 9; ++e)
+      h[e] = in.hs[j * in.hs_k + (e / 3) * in.hs_r + (e % 3) * in.hs_c];
+    const auto minor = [&](int a, int b, int c, int d) {
+      return __fsub_rn(__fmul_rn(h[a], h[b]), __fmul_rn(h[c], h[d]));
+    };
+    h[9] = minor(4, 8, 5, 7);
+    h[10] = minor(2, 7, 1, 8);
+    h[11] = minor(1, 5, 2, 4);
+    h[12] = minor(5, 6, 3, 8);
+    h[13] = minor(0, 8, 2, 6);
+    h[14] = minor(2, 3, 0, 5);
+    h[15] = minor(3, 7, 4, 6);
+    h[16] = minor(1, 6, 0, 7);
+    h[17] = minor(0, 4, 1, 3);
+    h[18] = in.active[j * in.active_s];
+  }
   __syncthreads();
   const int lane = threadIdx.x & 31;
-  const int w = threadIdx.x >> 5;
-  const int i = blockIdx.x * kWarps + w;
-  if (i >= n) return;  // uniform across the warp; no barrier follows
-  const float x = pts[i], y = pts[n + i];
-  const float u = pts[2 * n + i], v = pts[3 * n + i];
-  const float valid = pts[4 * n + i], sw_deg = pts[5 * n + i];
-  const float thr = *thr_p;
-  const int k = l - 1;
-  for (int j = lane; j < l; j += 32) {
-    float d = oc;
-    if (j < k) {
-      const float* h = s_hm + j * 19;
-      const float w1 = safe_w(affine(h[6], x, h[7], y, h[8]));
-      const float px = __fdiv_rn(affine(h[0], x, h[1], y, h[2]), w1);
-      const float py = __fdiv_rn(affine(h[3], x, h[4], y, h[5]), w1);
-      float r = __fadd_rn(sq(__fsub_rn(px, u)), sq(__fsub_rn(py, v)));
-      if (SYMMETRIC) {
-        const float w2 = safe_w(affine(h[15], u, h[16], v, h[17]));
-        const float bx = __fdiv_rn(affine(h[9], u, h[10], v, h[11]), w2);
-        const float by = __fdiv_rn(affine(h[12], u, h[13], v, h[14]), w2);
-        r = __fadd_rn(__fadd_rn(r, sq(__fsub_rn(bx, x))),
-                      sq(__fsub_rn(by, y)));
+  const int wid = threadIdx.x >> 5;
+  const int ls = l | 1;
+  const float thr = *in.thr;
+  float* sbase = tmp;
+  float* buf0 = tmp + static_cast<size_t>(n) * ls;
+  float* buf1 = buf0 + static_cast<size_t>(n) * ls;
+  for (int i0 = blockIdx.x * kTileP; i0 < n; i0 += gridDim.x * kTileP) {
+    const int i = i0 + lane;
+    if (i < n) {
+      const float x = in.x1[i * in.x1_r], y = in.x1[i * in.x1_r + in.x1_c];
+      const float u = in.x2[i * in.x2_r], v = in.x2[i * in.x2_r + in.x2_c];
+      const float valid = in.valid[i * in.valid_s];
+      const float sw_deg = __fmul_rn(sw, in.deg[i * in.deg_s]);
+      for (int j = wid; j < l; j += kWarps) {
+        const size_t o = static_cast<size_t>(j) * n + i;
+        float d = oc;
+        if (j < k) {
+          const float* h = s_h + j * 19;  // a broadcast across the warp
+          const float w1 = safe_w(affine(h[6], x, h[7], y, h[8]));
+          const float px = __fdiv_rn(affine(h[0], x, h[1], y, h[2]), w1);
+          const float py = __fdiv_rn(affine(h[3], x, h[4], y, h[5]), w1);
+          float r = __fadd_rn(sq(__fsub_rn(px, u)), sq(__fsub_rn(py, v)));
+          if (SYMMETRIC) {
+            const float w2 = safe_w(affine(h[15], u, h[16], v, h[17]));
+            const float bx = __fdiv_rn(affine(h[9], u, h[10], v, h[11]), w2);
+            const float by = __fdiv_rn(affine(h[12], u, h[13], v, h[14]),
+                                       w2);
+            r = __fadd_rn(__fadd_rn(r, sq(__fsub_rn(bx, x))),
+                          sq(__fsub_rn(by, y)));
+          }
+          r_out[o] = r;
+          float c = __fdiv_rn(r, thr);
+          c = c > 8.f ? 8.f : c;  // clamp_max: NaN stays NaN
+          d = __fadd_rn(__fmul_rn(c, oc),
+                        __fmul_rn(__fsub_rn(1.f, h[18]), 1e6f));
+        }
+        d = __fmul_rn(d, valid);
+        dct[o] = d;
+        if (n_sweeps > 0) {  // ls is odd: lanes hit distinct banks
+          s_base[lane * ls + j] = __fadd_rn(d, sw_deg);
+          s_q[lane * ls + j] = q0[o];
+        } else {
+          out[o] = q0[o];
+        }
       }
-      r_out[static_cast<size_t>(j) * n + i] = r;
-      float c = __fdiv_rn(r, thr);
-      c = c > 8.f ? 8.f : c;  // clamp_max: NaN stays NaN
-      d = __fadd_rn(__fmul_rn(c, oc),
-                    __fmul_rn(__fsub_rn(1.f, h[18]), 1e6f));
     }
-    d = __fmul_rn(d, valid);
-    const float b = __fadd_rn(d, sw_deg);
-    dct[static_cast<size_t>(j) * n + i] = d;
-    base[static_cast<size_t>(j) * n + i] = b;
-    s_base[w][j] = b;
+    if (n_sweeps > 0) {
+      // the tile's points are contiguous point-major rows
+      __syncthreads();
+      const size_t o = static_cast<size_t>(i0) * ls;
+      const int m = min(kTileP, n - i0) * ls;
+      for (int t = threadIdx.x; t < m; t += blockDim.x) {
+        sbase[o + t] = s_base[t];
+        buf0[o + t] = s_q[t];
+      }
+      __syncthreads();
+    }
   }
-  __syncwarp();
-  if (!sweep) {
-    for (int j = lane; j < l; j += 32)
-      dst[static_cast<size_t>(j) * n + i] = q0[static_cast<size_t>(j) * n + i];
-    return;
-  }
-  float acc[LPL], bv[LPL];
-  load_base<LPL>(s_base[w], 1, lane, l, bv);
-  agree_row<LPL>(GlobalQ{q0, 1, n}, cols + static_cast<size_t>(i) * cap,
-                 ws + static_cast<size_t>(i) * cap, cnt[i], lane, l, acc);
-  mf_finish<LPL>(acc, bv, inv_temps[0], sw, lane, l);
-#pragma unroll
-  for (int kk = 0; kk < LPL; ++kk)
-    if (lane + 32 * kk < l)
-      dst[static_cast<size_t>(lane + 32 * kk) * n + i] = acc[kk];
+  if (n_sweeps == 0) return;  // uniform across the grid
+  cg::grid_group grid = cg::this_grid();
+  grid.sync();
+  mf_sweeps<LPL>(grid, sbase, buf0, buf1, cols, ws, cnt, cap, inv_temps,
+                 n_sweeps, l, n, sw, out);
 }
 
 // Launches `kern` cooperatively: as many 8-warp blocks as `want`, but
@@ -495,29 +570,21 @@ int mean_field(const float* q0, const float* base, const int* cols,
   return launch_grid<mf_grid<LPL>>((n + kWarps - 1) / kWarps, args, st);
 }
 
-// K6: the front fused with sweep 0 into `mid` (into `out` with one
-// sweep), then sweeps 1.. as one K4 launch: 1 or 2 launches.
+// K6: one cooperative launch, the front's tiles and the sweeps' warps
+// striding over the points (a warp a point at most)
 template <int LPL>
-int mean_field_front(const float* q0, const float* pts, const float* hm,
-                     const int* cols, const float* ws, const int* cnt,
-                     int cap, const float* inv_temps, const float* thr,
-                     int n_sweeps, int l, int n, float sw, float oc,
-                     int symmetric, float* out, float* dct, float* r,
-                     float* base, float* mid, float* tmp, cudaStream_t st) {
-  const int grid = (n + kWarps - 1) / kWarps;
-  float* dst = n_sweeps > 1 ? mid : out;
-  if (symmetric)
-    mf_front<LPL, true><<<grid, kWarps * 32, 0, st>>>(
-        q0, pts, hm, cols, ws, cnt, cap, inv_temps, thr, n_sweeps > 0, l, n,
-        sw, oc, dst, dct, r, base);
-  else
-    mf_front<LPL, false><<<grid, kWarps * 32, 0, st>>>(
-        q0, pts, hm, cols, ws, cnt, cap, inv_temps, thr, n_sweeps > 0, l, n,
-        sw, oc, dst, dct, r, base);
-  const int rc = static_cast<int>(cudaGetLastError());
-  if (rc || n_sweeps <= 1) return rc;
-  return mean_field<LPL>(mid, base, cols, ws, cnt, cap, inv_temps + 1,
-                         n_sweeps - 1, l, n, sw, out, tmp, st);
+int mean_field_front(const float* q0, const FrontIn& in, const int* cols,
+                     const float* ws, const int* cnt, int cap,
+                     const float* inv_temps, int n_sweeps, int l, int n,
+                     float sw, float oc, int symmetric, float* out,
+                     float* dct, float* r, float* tmp, cudaStream_t st) {
+  void* args[] = {&q0, const_cast<FrontIn*>(&in), &cols, &ws, &cnt,
+                  &cap, &inv_temps, &n_sweeps, &l, &n, &sw, &oc, &out,
+                  &dct, &r, &tmp};
+  const int want = (n + kWarps - 1) / kWarps;
+  return symmetric
+             ? launch_grid<mf_front_grid<LPL, true>>(want, args, st)
+             : launch_grid<mf_front_grid<LPL, false>>(want, args, st);
 }
 
 template <int LPL>
@@ -560,20 +627,25 @@ extern "C" int multih_mean_field(const float* q0, const float* base,
 }
 
 extern "C" int multih_mean_field_front(
-    const float* q0, const float* pts, const float* hm, const int* cols,
+    const float* q0, const float* x1, int x1_r, int x1_c, const float* x2,
+    int x2_r, int x2_c, const float* valid, int valid_s, const float* deg,
+    int deg_s, const float* hs, int hs_k, int hs_r, int hs_c,
+    const float* active, int active_s, const float* thr, const int* cols,
     const float* ws, const int* cnt, int cap, const float* inv_temps,
-    const float* thr, int n_sweeps, int l, int n, float sw, float oc,
-    int symmetric, float* out, float* dct, float* r, float* base,
-    float* mid, float* tmp, void* stream) {
+    int n_sweeps, int l, int n, float sw, float oc, int symmetric,
+    float* out, float* dct, float* r, float* tmp, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const FrontIn in{x1,   x2,   valid,   deg,   hs,   active, thr,
+                   x1_r, x1_c, x2_r,    x2_c,  valid_s, deg_s, hs_k,
+                   hs_r, hs_c, active_s};
   if (l <= 32)
-    return mean_field_front<1>(q0, pts, hm, cols, ws, cnt, cap, inv_temps,
-                               thr, n_sweeps, l, n, sw, oc, symmetric, out,
-                               dct, r, base, mid, tmp, st);
+    return mean_field_front<1>(q0, in, cols, ws, cnt, cap, inv_temps,
+                               n_sweeps, l, n, sw, oc, symmetric, out, dct,
+                               r, tmp, st);
   if (l <= 64)
-    return mean_field_front<2>(q0, pts, hm, cols, ws, cnt, cap, inv_temps,
-                               thr, n_sweeps, l, n, sw, oc, symmetric, out,
-                               dct, r, base, mid, tmp, st);
+    return mean_field_front<2>(q0, in, cols, ws, cnt, cap, inv_temps,
+                               n_sweeps, l, n, sw, oc, symmetric, out, dct,
+                               r, tmp, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

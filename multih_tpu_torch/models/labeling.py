@@ -21,7 +21,6 @@ from typing import NamedTuple
 
 import torch
 
-from multih_tpu_torch.ops import geometry
 from multih_tpu_torch.ops.kernels import mrf_kernel
 from multih_tpu_torch.ops.sampling import window_roll
 from multih_tpu_torch.ops.topk import top_k_stable
@@ -519,43 +518,24 @@ def mean_field_t(dct, nbr_idx, nbr_w, spatial_weight: float,
     return q
 
 
-def pack_front(x1, x2, valid, Hs, active, spatial_weight: float,
-               adj: BandedAdjacency):
-    """The fused front's packed inputs (labeling.py:676-694): the points
-    (8, N) as [x1x, x1y, x2x, x2y, valid, sw*deg, 0, 0], the labels
-    (K+1, 19) as [H, adj(H), active] with an all-zero outlier row."""
-    dt = torch.float32
-    n = x1.shape[0]
-    zeros = torch.zeros((n,), dtype=dt, device=x1.device)
-    pts = torch.stack([
-        x1[:, 0], x1[:, 1], x2[:, 0], x2[:, 1], valid,
-        spatial_weight * adj.deg[:, 0], zeros, zeros,
-    ]).to(dt)
-    k = Hs.shape[0]
-    hm = torch.cat([Hs.reshape(k, 9), geometry.adjugate_3x3(Hs).reshape(k, 9),
-                    active.reshape(k, 1)], dim=1).to(dt)
-    hm = torch.cat([hm, torch.zeros((1, 19), dtype=dt, device=hm.device)])
-    return pts, hm
-
-
 def pearl_relax_fused(x1, x2, valid, Hs, active, thr, outlier_cost: float,
                       spatial_weight: float, iterations: int,
                       temp_start: float, temp_end: float, q_init,
                       adj: BandedAdjacency, kind: str = "symmetric",
                       use_kernel: bool = False):
     """residual_matrix -> data_costs_t -> mean_field_t as one fused call
-    (labeling.py:652) on `pack_front`'s inputs. `use_kernel` runs the
-    CUDA kernel (mrf_kernel.mean_field_fused_front), else its plain
-    version. Homography transfer / symmetric kinds and a far-free band
-    only. Returns (q, dct, r) for the rest of the PEARL iteration."""
-    pts, hm = pack_front(x1, x2, valid, Hs, active, spatial_weight, adj)
+    (labeling.py:652) on the fit's own tensors and the band's degree.
+    `use_kernel` runs the CUDA kernel (mrf_kernel.mean_field_fused_front),
+    else its plain version. Homography transfer / symmetric kinds and a
+    far-free band only. Returns (q, dct, r) for the rest of the PEARL
+    iteration."""
     temps = _mf_temps(iterations, temp_start, temp_end, torch.float32,
                       x1.device)
     front = (mrf_kernel.mean_field_fused_front if use_kernel
              else mrf_kernel.mean_field_fused_front_reference)
-    return front(q_init.to(torch.float32).contiguous(), pts, hm, adj.band,
-                 1.0 / temps, thr, spatial_weight, outlier_cost, kind=kind,
-                 nbr=adj.nbr)
+    return front(q_init.to(torch.float32).contiguous(), x1, x2, valid,
+                 adj.deg, Hs, active, adj.band, 1.0 / temps, thr,
+                 spatial_weight, outlier_cost, kind=kind, nbr=adj.nbr)
 
 
 def _energies_batch(labels, dct, agree_fn, deg, spatial_weight,

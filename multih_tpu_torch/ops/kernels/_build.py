@@ -47,8 +47,13 @@ _SIGNATURES = {
     "multih_eig9_smallest": [_P, _I, _P, _P],
     "multih_band_list": [_P, _I, _I, _P, _P, _P, _P],
     "multih_mean_field": [_P] * 5 + [_I, _P, _I, _I, _I, _F] + [_P] * 3,
-    "multih_mean_field_front": [_P] * 6 + [_I, _P, _P, _I, _I, _I, _F, _F,
-                                           _I] + [_P] * 7,
+    # q0; x1, x2 and their strides; valid, deg; Hs; active; thr and the
+    # list; cap, inv_temps, the sizes and weights; the outputs, scratch
+    # and stream
+    "multih_mean_field_front": [_P] + [_P, _I, _I] * 2 + [_P, _I] * 2
+                               + [_P, _I, _I, _I, _P, _I] + [_P] * 4
+                               + [_I, _P, _I, _I, _I, _F, _F, _I]
+                               + [_P] * 5,
     "multih_icm": [_P] * 5 + [_I] * 6 + [_F] + [_P] * 3,
     "multih_window_gather": [_P, _P] + [_I] * 7 + [_P, _P],
 }

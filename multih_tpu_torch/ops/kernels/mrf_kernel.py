@@ -15,8 +15,8 @@ weight) pairs of its non-zeros in column order, in a fixed capacity of
 3B slots), built once per fit beside the band. Each wrapper call is one
 cooperative launch that runs every sweep (every half-sweep of every
 start for ICM), a grid-wide sync the barrier between them, the state in
-device memory. The fused front is its front and first sweep in one
-launch, then the other sweeps in one mean-field launch. In every kernel
+device memory. The fused front is its front and every sweep in one
+launch too, the front before the first grid barrier. In every sweep
 one warp updates a point, one label a lane (two for L > 32).
 
 The plain versions repeat the kernels' arithmetic order (they are the
@@ -28,10 +28,12 @@ label's cost by one-hot sum, and a move only on the half-sweep's parity
 when better by more than 1e-6. In both, base = dct + sw*deg^T is built
 by the caller.
 
-The fused front computes each point's (K, N) homography residuals, its
-data costs and base in the launch of the first sweep
-(csrc/mrf_kernel.cu, mf_front); its plain version is
-geometry.residual_matrix -> labeling.data_costs_t -> the plain sweeps.
+The fused front computes the (K, N) homography residuals, the data
+costs and base from the fit's own tensors (x1, x2, valid, the band's
+degree, Hs, active) before the sweeps of the same launch
+(csrc/mrf_kernel.cu, mf_front_grid, whose sweeps are K4's code); its
+plain version is geometry.residual_matrix -> labeling.data_costs_t ->
+the plain sweeps.
 
 Tolerances against the plain versions: the neighbour list bit-exact;
 mean-field q within 1e-5 max-abs (the agreement sums in list order, the
@@ -41,8 +43,9 @@ subtraction separately, as PyTorch does); the front's r to rtol 1e-3 /
 atol 1e-4 below 1e6 px^2 and min(r/thr, 8) to atol 1e-4 everywhere (the
 elementwise residual against the plain matmul; past 1e6 px^2 w nears
 zero, float32 cancellation sets r's digits and the cost is saturated),
-its dct equal to data_costs_t of its own r, its q within 1e-5 of the
-plain sweeps on its own dct and within 1e-4 of the plain version (r's
+its dct equal to data_costs_t of its own r, its q equal to K4's on its
+own base dct + sw*deg^T bit for bit (the same sweep code; so within 1e-5
+of the plain sweeps there) and within 1e-4 of the plain version (r's
 last bits, where px - u cancels, reach q through 1/T up to 4).
 
 The wrappers take CUDA tensors only and raise on anything else; the
@@ -252,70 +255,84 @@ mean_field_fused.launches = 0
 FRONT_KINDS = ("symmetric", "transfer")
 
 
-def mean_field_fused_front_reference(q0_t, pts, hm, band, inv_temps, thr,
+def mean_field_fused_front_reference(q0_t, x1, x2, valid, deg, Hs, active,
+                                     band, inv_temps, thr,
                                      spatial_weight: float,
                                      outlier_cost: float,
                                      kind: str = "symmetric", nbr=None):
     """Plain version of `mean_field_fused_front`:
     geometry.residual_matrix -> labeling.data_costs_t -> the plain sweeps
-    of `mean_field_fused_reference`, on the kernel's packed inputs (it
-    reads the band; `nbr`, the kernel's view of it, is accepted so the
-    two are called alike)."""
+    of `mean_field_fused_reference` on base = dct + sw*deg^T, on the same
+    inputs (it reads the band; `nbr`, the kernel's view of it, is
+    accepted so the two are called alike)."""
     from multih_tpu_torch.models import labeling  # labeling imports us
 
-    k = q0_t.shape[0] - 1
-    hs = hm[:k, :9].reshape(k, 3, 3)
-    r = geometry.residual_matrix(hs, pts[0:2].T, pts[2:4].T, kind)
-    dct = labeling.data_costs_t(r, pts[4], thr, outlier_cost, hm[:k, 18])
-    q = mean_field_fused_reference(q0_t, dct + pts[5:6], band, inv_temps,
+    r = geometry.residual_matrix(Hs, x1, x2, kind)
+    dct = labeling.data_costs_t(r, valid, thr, outlier_cost, active)
+    base = dct + spatial_weight * deg.reshape(1, -1)
+    q = mean_field_fused_reference(q0_t, base, band, inv_temps,
                                    spatial_weight)
     return q, dct, r
 
 
-def mean_field_fused_front(q0_t: torch.Tensor, pts: torch.Tensor,
-                           hm: torch.Tensor, band: torch.Tensor,
+def mean_field_fused_front(q0_t: torch.Tensor, x1: torch.Tensor,
+                           x2: torch.Tensor, valid: torch.Tensor,
+                           deg: torch.Tensor, Hs: torch.Tensor,
+                           active: torch.Tensor, band: torch.Tensor,
                            inv_temps: torch.Tensor, thr,
                            spatial_weight: float, outlier_cost: float,
                            kind: str = "symmetric",
                            nbr: NeighbourList | None = None):
     """`mean_field_fused` with the residual and data-cost front fused in
-    (homography "symmetric" / "transfer" kinds): the front and sweep 0 in
-    one launch, the other sweeps in one more.
+    (homography "symmetric" / "transfer" kinds): the front and every
+    sweep in one launch, on the fit's own tensors.
 
-    q0_t: (L, N) float32; pts: (8, N) float32, rows [x1x, x1y, x2x, x2y,
-    valid, sw*deg, 0, 0]; hm: (L, 19) float32, per label [H (9), adj(H)
-    (9), active], the outlier row L-1 all zeros; band: (nb, B, 3B)
-    float32, far-free; inv_temps: (S,) float32; thr: the squared inlier
-    threshold, a 0-dim CUDA tensor (read on the card, never synchronised)
-    or a number; nbr: the band's `band_list` (built here when None).
-    Returns (q (L, N), dct (L, N), r (L-1, N)). CUDA tensors only."""
-    _build.require_cuda(q0_t, pts, hm, band, inv_temps)
+    q0_t: (L, N) float32; x1, x2: (N, 2) float32; valid: (N,) float32;
+    deg: the band's (N, 1) or (N,) degree; Hs: (L-1, 3, 3) float32;
+    active: (L-1,) float32 (the points' and planes' tensors are read by
+    their strides); band: (nb, B, 3B) float32, far-free; inv_temps: (S,)
+    float32; thr: the squared inlier threshold, a one-element float32
+    CUDA tensor (read on the card, never synchronised; a number or
+    another type is made one); nbr: the band's `band_list` (built here
+    when None). Returns (q (L, N), dct (L, N), r (L-1, N)); with S = 0, q
+    is a copy of q0. CUDA tensors only."""
+    _build.require_cuda(q0_t, band, inv_temps)
+    _build.require_cuda(x1, x2, valid, deg, Hs, active, contiguous=False)
     l, n = q0_t.shape
+    k = l - 1
     if kind not in FRONT_KINDS:
         raise ValueError(f"fused front kind {kind!r} not in {FRONT_KINDS}")
-    if pts.shape != (8, n) or hm.shape != (l, 19) or inv_temps.dim() != 1:
-        raise ValueError(f"q0 {tuple(q0_t.shape)}, pts {tuple(pts.shape)}, "
-                         f"hm {tuple(hm.shape)}, inv_temps "
+    if (x1.shape != (n, 2) or x2.shape != (n, 2) or valid.shape != (n,)
+            or deg.shape not in ((n, 1), (n,)) or Hs.shape != (k, 3, 3)
+            or active.shape != (k,) or inv_temps.dim() != 1):
+        raise ValueError(f"q0 {tuple(q0_t.shape)}, x1 {tuple(x1.shape)}, "
+                         f"x2 {tuple(x2.shape)}, valid {tuple(valid.shape)},"
+                         f" deg {tuple(deg.shape)}, Hs {tuple(Hs.shape)}, "
+                         f"active {tuple(active.shape)}, inv_temps "
                          f"{tuple(inv_temps.shape)}")
     _check_band(band, n, l)
+    if not (torch.is_tensor(thr) and thr.numel() == 1
+            and thr.dtype == torch.float32 and thr.device == q0_t.device):
+        thr = torch.as_tensor(thr, dtype=torch.float32, device=q0_t.device)
+    ins = (x1, x2, valid, deg, Hs, active, band, inv_temps, thr)
+    if any(t.device != q0_t.device for t in ins):
+        raise ValueError("mean_field_fused_front: inputs on different "
+                         "devices")
     nbr = _neighbours(band, nbr)
-    thr_t = torch.as_tensor(thr, dtype=torch.float32,
-                            device=q0_t.device).reshape(1).contiguous()
-    _build.require_cuda(thr_t)
     n_sweeps = inv_temps.shape[0]
     out = torch.empty_like(q0_t)
     dct = torch.empty_like(q0_t)
-    r = torch.empty((l - 1, n), dtype=q0_t.dtype, device=q0_t.device)
-    base = torch.empty_like(q0_t)
-    mid, tmp = ((torch.empty_like(q0_t), _scratch(l, n, out))
-                if n_sweeps > 1 else (out, out))
+    r = torch.empty((k, n), dtype=q0_t.dtype, device=q0_t.device)
+    tmp = _scratch(l, n, out)
     rc = _build.load().multih_mean_field_front(
-        q0_t.data_ptr(), pts.data_ptr(), hm.data_ptr(), nbr.cols.data_ptr(),
+        q0_t.data_ptr(), x1.data_ptr(), *x1.stride(), x2.data_ptr(),
+        *x2.stride(), valid.data_ptr(), valid.stride(0), deg.data_ptr(),
+        deg.stride(0), Hs.data_ptr(), *Hs.stride(), active.data_ptr(),
+        active.stride(0), thr.data_ptr(), nbr.cols.data_ptr(),
         nbr.ws.data_ptr(), nbr.cnt.data_ptr(), band.shape[2],
-        inv_temps.data_ptr(), thr_t.data_ptr(), n_sweeps, l, n,
-        float(spatial_weight), float(outlier_cost), int(kind == "symmetric"),
-        out.data_ptr(), dct.data_ptr(), r.data_ptr(),
-        base.data_ptr(), mid.data_ptr(), tmp.data_ptr(),
+        inv_temps.data_ptr(), n_sweeps, l, n, float(spatial_weight),
+        float(outlier_cost), int(kind == "symmetric"), out.data_ptr(),
+        dct.data_ptr(), r.data_ptr(), tmp.data_ptr(),
         _build.stream_handle(q0_t),
     )
     _build.check(rc, "mean_field_fused_front")

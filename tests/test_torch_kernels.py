@@ -493,8 +493,8 @@ class TestCudaKernels:
     @pytest.mark.parametrize("n,block,l", [(512, 256, 17), (10240, 128, 17),
                                            (10240, 128, 64)])
     def test_mrf_kernels_one_launch(self, rng, cuda_device, n, block, l):
-        """torch.profiler sees one CUDA kernel a K4 call and a K5 call
-        (the list given), and two a K6 call with more than one sweep."""
+        """torch.profiler sees one CUDA kernel a K4, K5 and K6 call (the
+        list given; K6 on a stride-0 stack of H's)."""
         kernels = launches_per_call
         x1, x2, valid, _, adj = windowed_band(rng, n, block, cuda_device)
         dct = t(rng.uniform(0, 2.0, (l, n)).astype(np.float32)).to(
@@ -509,13 +509,11 @@ class TestCudaKernels:
         assert kernels(lambda: tmrf.icm_fused(
             starts, base, adj.band, 2, 0.1, nbr=adj.nbr)) == 1
         hs = torch.eye(3, device=cuda_device).expand(l - 1, 3, 3)
-        pts, hm = tlab.pack_front(x1, x2, valid, hs,
-                                  torch.ones(l - 1, device=cuda_device),
-                                  0.1, adj)
+        active = torch.ones(l - 1, device=cuda_device)
         thr = torch.tensor(9.0, device=cuda_device)
         assert kernels(lambda: tmrf.mean_field_fused_front(
-            q0, pts, hm, adj.band, inv_t, thr, 0.1, 1.0,
-            nbr=adj.nbr)) == 2
+            q0, x1, x2, valid, adj.deg, hs, active, adj.band, inv_t, thr,
+            0.1, 1.0, nbr=adj.nbr)) == 1
 
     @pytest.mark.parametrize("kind", ["symmetric", "transfer"])
     @pytest.mark.parametrize("n,block,sweeps", [
@@ -524,11 +522,12 @@ class TestCudaKernels:
     def test_mean_field_front_kernel(self, rng, cuda_device, kind, n, block,
                                      sweeps):
         """The fused front against its plain version, thr a device
-        tensor: r to rtol 1e-3 / atol 1e-4 up to 1e6 px^2 and
-        min(r/thr, 8) to atol 1e-4 everywhere; dct equal to
-        data_costs_t of the kernel's own r (rtol 2e-6); q within 1e-5 of
-        the plain sweeps on the kernel's own dct (K4's tolerance) and
-        within 1e-4 of the plain version end to end.
+        tensor, one launch a call: r to rtol 1e-3 / atol 1e-4 up to 1e6
+        px^2 and min(r/thr, 8) to atol 1e-4 everywhere; dct equal to
+        data_costs_t of the kernel's own r (rtol 2e-6); q equal to K4's
+        on the kernel's own base dct + sw*deg bit for bit (the same sweep
+        code), so within 1e-5 of the plain sweeps there, and within 1e-4
+        of the plain version end to end.
         Past 1e6 px^2 (a transfer 1000 px off) w nears zero, and its
         float32 cancellation, not the kernel, sets r's digits: the
         elementwise sum and the plain version's matmul differ by up to
@@ -545,14 +544,16 @@ class TestCudaKernels:
         q0 = torch.softmax(t(rng.normal(size=(17, n)).astype(np.float32)),
                            0).to(cuda_device)
         thr = torch.tensor(9.0, device=cuda_device)
-        pts, hm = tlab.pack_front(x1, x2, valid, hs, active, 0.1, adj)
         # the fit's annealing schedule (a single sweep at temp_end)
         inv_t = (1.0 / tlab._mf_temps(sweeps, 2.0, 0.25, torch.float32,
                                       cuda_device))[:sweeps]
-        args = (q0, pts, hm, adj.band, inv_t, thr, 0.1, 1.0, kind)
+        args = (q0, x1, x2, valid, adj.deg, hs, active, adj.band, inv_t,
+                thr, 0.1, 1.0, kind)
         before = tmrf.mean_field_fused_front.launches
         q, dct, r = tmrf.mean_field_fused_front(*args)
         assert tmrf.mean_field_fused_front.launches == before + 1
+        assert launches_per_call(
+            lambda: tmrf.mean_field_fused_front(*args, nbr=adj.nbr)) == 1
         q_ref, _, r_ref = tmrf.mean_field_fused_front_reference(*args)
         near = r_ref <= 1e6
         torch.testing.assert_close(r[near], r_ref[near], rtol=1e-3,
@@ -565,8 +566,12 @@ class TestCudaKernels:
         torch.testing.assert_close(
             dct, tlab.data_costs_t(r, valid, thr, 1.0, active),
             rtol=2e-6, atol=1e-6, msg=lambda m: f"dct: {m}")
-        q_own = tmrf.mean_field_fused_reference(q0, dct + pts[5:6],
-                                                adj.band, inv_t, 0.1)
+        base = (dct + 0.1 * adj.deg.T).contiguous()
+        if sweeps:
+            assert torch.equal(q, tmrf.mean_field_fused(
+                q0, base, adj.band, inv_t, 0.1, nbr=adj.nbr))
+        q_own = tmrf.mean_field_fused_reference(q0, base, adj.band, inv_t,
+                                                0.1)
         assert float((q - q_own).abs().max()) <= 1e-5
         assert float((q - q_ref).abs().max()) <= 1e-4
         if sweeps == 0:

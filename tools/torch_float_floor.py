@@ -18,7 +18,10 @@ K6: the fused front's min(r/thr, 8) at chip_smoke.py's stress shape
 (L=17, N=10240, B=128; 15 near-identity planes, a wild one), its inputs
 drawn as front_kernels draws them but from generators seeded 0..N-1:
 per seed and kind, the largest distance between kernel, plain version
-and float64, and how many of the 163840 costs are beyond 1e-4.
+and float64, and how many of the 163840 costs are beyond 1e-4; and r's
+largest relative distance from float64 (up to 1e6 px^2) for each. The
+float64 residuals come from the same float32 inputs (H's adjugate in
+float64).
 """
 
 from __future__ import annotations
@@ -110,7 +113,7 @@ def k6_front(dev, seeds: int) -> None:
     import torch
 
     import chip_smoke as cs
-    from multih_tpu_torch.models import labeling
+    from multih_tpu_torch.ops import geometry
     from multih_tpu_torch.ops.kernels import mrf_kernel as mk
 
     l, sw, n_points, n, block, sweeps = 17, 0.1, 10000, 10240, 128, 4
@@ -129,13 +132,12 @@ def k6_front(dev, seeds: int) -> None:
         active[1] = 0.0
         q0 = torch.softmax(torch.from_numpy(rng.normal(size=(l, n)).astype(
             np.float32)).to(dev), 0)
-        pts, hm = labeling.pack_front(x1, x2, valid, hs, active, sw, adj)
-        k = l - 1
-        h64 = hm[:k, :9].reshape(k, 3, 3).double()
-        a64 = hm[:k, 9:18].reshape(k, 3, 3).double()
-        p1, p2 = pts[0:2].T.double(), pts[2:4].T.double()
+        h64 = hs.double()
+        a64 = geometry.adjugate_3x3(h64)
+        p1, p2 = x1.double(), x2.double()
         for kind in ("symmetric", "transfer"):
-            args = (q0, pts, hm, adj.band, inv_t, thr, sw, 1.0, kind)
+            args = (q0, x1, x2, valid, adj.deg, hs, active, adj.band, inv_t,
+                    thr, sw, 1.0, kind)
             r = mk.mean_field_fused_front(*args, nbr=adj.nbr)[2]
             r_ref = mk.mean_field_fused_front_reference(*args)[2]
             r64 = _transfer_sq(h64, p1, p2)
@@ -149,6 +151,11 @@ def k6_front(dev, seeds: int) -> None:
                 d = (a - b).abs()
                 parts.append(f"{label} {float(d.max()):.3g} "
                              f"({int((d > 1e-4).sum())} beyond 1e-4)")
+            near = r64 <= 1e6
+            for label, a in (("kernel", r), ("plain", r_ref)):
+                d = (a.double() - r64).abs() / r64.abs().clamp_min(1e-4)
+                parts.append(f"r from float64 (relative, up to 1e6 px^2) "
+                             f"{label} {float(d[near].max()):.3g}")
             print(f"K6 front L={l} N={n} seed {seed} {kind}: "
                   + "; ".join(parts))
 

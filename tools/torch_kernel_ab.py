@@ -34,11 +34,15 @@ which, all but dltlanes by default):
     tree's launch takes a run length (`T_BLOCK`), at runs of (T, 640,
     320, 256, 128) selections a block; `torch.gather` of the same rows
     ("index");
-  - mrf: K4 `mean_field_fused`, K5 `icm_fused` and K6
-    `mean_field_fused_front` (symmetric) at L=17, N=512 B=256 (6 sweeps,
-    2 starts x 2 iterations) and N=10240 B=128 (4 sweeps, 2 x 1), each
-    held to its plain version first, with its CUDA launches a call, and
-    the neighbour-list build where the tree has one (`band_list`);
+  - mrf: K4 `mean_field_fused`, K5 `icm_fused`, K6
+    `mean_field_fused_front` (symmetric; on packed inputs where the tree
+    has `labeling.pack_front`, else on the fit's own tensors) and the
+    fit's fused call `labeling.pearl_relax_fused` (K6 with the tree's
+    packing, if any: the same signature in every tree) at L=17, N=512
+    B=256 (6 sweeps, 2 starts x 2 iterations) and N=10240 B=128 (4
+    sweeps, 2 x 1), each held to its plain version first, with its CUDA
+    launches a call, and the neighbour-list build where the tree has one
+    (`band_list`);
   - fits: the default fit at N=512 (easy2_a) and the motion fit at
     N=512 (fm4_a, the motion suite's config): device busy time per fit
     (5 warm fits under torch.profiler) and median latency (10 fits).
@@ -204,23 +208,36 @@ def mrf_part(cs, dev, timed, out):
 
         hs = np.eye(3)[None] + rng.normal(0, 0.02, (l - 1, 3, 3))
         hs = torch.from_numpy(hs.astype(np.float32)).to(dev)
-        pts, hm = labeling.pack_front(x1, x2, valid, hs,
-                                      torch.ones(l - 1, device=dev), sw, adj)
+        active = torch.ones(l - 1, device=dev)
         thr = torch.tensor(9.0, device=dev)
+        if hasattr(labeling, "pack_front"):  # K6 on packed inputs
+            pts, hm = labeling.pack_front(x1, x2, valid, hs, active, sw, adj)
+            k6_args = (q0, pts, hm, band, inv_t, thr, sw, 1.0, "symmetric")
+        else:  # K6 on the fit's own tensors
+            k6_args = (q0, x1, x2, valid, adj.deg, hs, active, band, inv_t,
+                       thr, sw, 1.0, "symmetric")
 
         def k6():
-            return mk.mean_field_fused_front(q0, pts, hm, band, inv_t, thr,
-                                             sw, 1.0, "symmetric", **kw)
+            return mk.mean_field_fused_front(*k6_args, **kw)
 
-        q6_ref = mk.mean_field_fused_front_reference(
-            q0, pts, hm, band, inv_t, thr, sw, 1.0, "symmetric")[0]
+        def relax(use_kernel=True):
+            # the fit's fused call, the packing (where the tree has it)
+            # included; the same signature in every tree
+            return labeling.pearl_relax_fused(
+                x1, x2, valid, hs, active, thr, 1.0, sw, sweeps, 2.0, 0.25,
+                q0, adj, kind="symmetric", use_kernel=use_kernel)
+
+        q6_ref = mk.mean_field_fused_front_reference(*k6_args)[0]
+        relax_ref = relax(use_kernel=False)[0]
         for name, fn, ok in (
                 (f"K4 mean-field {shape} sweeps={sweeps}", k4,
                  lambda r: float((r - mf_ref).abs().max()) <= 1e-5),
                 (f"K5 ICM {shape} S=2 it={icm_it}", k5,
                  lambda r: torch.equal(r, icm_ref)),
                 (f"K6 front {shape} sweeps={sweeps}", k6,
-                 lambda r: float((r[0] - q6_ref).abs().max()) <= 1e-4)):
+                 lambda r: float((r[0] - q6_ref).abs().max()) <= 1e-4),
+                (f"pearl_relax_fused {shape} sweeps={sweeps}", relax,
+                 lambda r: float((r[0] - relax_ref).abs().max()) <= 1e-4)):
             if not ok(fn()):
                 raise AssertionError(f"{name}: differs from its plain version")
             timed(name, fn)
