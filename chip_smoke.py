@@ -3,7 +3,8 @@
 homography fit (default and fused-front routes), the fundamental
 (multi-motion) fit, the adaptive-threshold fit, the frame stream, the
 mixed plane + motion fit, the batch surface, the affine one-point pool,
-the direct refit and the CLI.
+the direct refit, the CLI, the mesh axes ('pair', 'hyp', 'pt') and the
+dryrun of every mesh path.
 
 Run from the repository root on a host with a CUDA card and the CUDA
 toolkit:
@@ -25,7 +26,9 @@ Phases, each raising on failure:
      on the mixed stages' (2051 x 1024), with its CUDA launches a call:
      1; K2 from the sampler's (32, S) rows with degenerate and padded
      quads, ok exact, H's within 5e-4 of the plain version and 1e-6 of
-     float64, 1 launch a call; K3 at the LO-refine batch C=256 and a
+     float64, 1 launch a call, its library call batched
+     torch.linalg.solve_ex on the plain version's (S, 8, 8) float64
+     systems; K3 at the LO-refine batch C=256 and a
      PEARL batch C=16 and on the F normal matrices of a real refit in a
      motion fit and in the mixed polish (C=8), held to float64 eigh too;
      K6 at both homography kinds on the fit's own tensors with the
@@ -116,14 +119,25 @@ Phases, each raising on failure:
      residuals, data costs, q and labels), generation replicated, a
      halo exchanged before every K4 sweep and K5 half-sweep (a launch
      each), counts and float64 energies summed over the axis, the
-     refits' weights gathered. On
-     BASELINE config 2 (N=1024) and the stress cell (N=10240): labels
-     and active equal to the single card fit, the energy within rtol
-     1e-3, each rank's launches of K1, K3, K4 and K5 (K4 and K5 exactly
-     a launch a sweep), the host-staged bytes, each rank's peak
-     allocated memory beside the single fit's and the warm walls; then
-     K4 and K5 on each rank's window at the stress shape, its own blocks
-     bit-equal to the unsharded launch.
+     refits' weights gathered. On BASELINE config 2 (N=1024), the
+     stress cell (N=10240), the F model on fm4_a at the motion suite's
+     config (N=512, held to the motion bound |delta| <= 2.0 pp) and at
+     full width (10000 points, 4 motions, N=10240, agree_block 128), and
+     BASELINE config 2 on the exact graph (the side config: its far
+     edges' columns gathered once a sweep, no K4 or K5): labels, active
+     and n_far_dropped equal to the single card fit, the energy within
+     rtol 1e-3, each rank's launches of every kernel equal to the
+     single fit's (K4 and K5 times their sweeps a call: a launch a
+     sweep), the host-staged bytes of a fit and of one sweep's
+     agreement, each rank's peak allocated memory beside the single
+     fit's and the warm walls; then K4 and K5 on each rank's window at
+     the stress shape, its own blocks bit-equal to the unsharded launch;
+ 13. tools/torch_dryrun_multichip.py (the port's dryrun_multichip) on
+     two gloo ranks sharing the card: the 'pair' and pair x hyp batches,
+     sharded verification, the hyp-sharded F fit, the 'pt' homography
+     and F fits and the pair-sharded mixed fit at the reference's tiny
+     shapes, each asserted on known labels, each rank's launches
+     counted.
 Then one JSON line of per-kernel results, the card line, and the last
 line {"ok": true, "device": {...}}. Without a CUDA device, or outside
 the repository, it exits nonzero and prints no result.
@@ -428,6 +442,31 @@ def _sampler_rows(rng, s, device):
     rows = np.zeros((s, 4, 8), np.float32)
     rows[:, :, 0:2], rows[:, :, 2:4], rows[:, :, 4] = p1, p2, avail
     return torch.from_numpy(rows.reshape(s, 32)).to(device).T
+
+
+def _dlt_systems(gt):
+    """The (S, 8, 8) float64 systems A h = b of K2's plain version on the
+    sampler's (32, S) rows: its Hartley-normalized DLT rows
+    (geometry.homography_4pt) with h33 = 1, A their first 8 columns and b
+    minus the last; and a function that turns solve's (S, 8) solutions
+    into Frobenius-normalized H's the plain version's way."""
+    import torch
+
+    from multih_tpu_torch.ops import geometry
+
+    s = gt.shape[1]
+    quad = torch.stack([gt[8 * q:8 * q + 4] for q in range(4)])  # (4, 4, S)
+    x1 = quad[:, 0:2].permute(2, 0, 1)  # (S, 4, 2)
+    x2 = quad[:, 2:4].permute(2, 0, 1)
+    x1n, t1 = geometry.hartley_normalize(x1)
+    x2n, t2 = geometry.hartley_normalize(x2)
+    rows = geometry.dlt_rows(x1n, x2n).reshape(s, 8, 9).double()
+
+    def to_h(h8):
+        h = torch.cat([h8, torch.ones_like(h8[:, :1])], 1).reshape(s, 3, 3)
+        return geometry._denormalize_h(h.float(), t1, t2)
+
+    return rows[:, :, :8].contiguous(), -rows[:, :, 8:].contiguous(), to_h
 
 
 def _normal_matrices(rng, c):
@@ -761,10 +800,22 @@ def phase_kernels(dev):
               f"{int(ill.sum())} ill-conditioned, max abs err vs float64 "
               f"there: kernel {e_k:.3g}, plain "
               f"{float(e_plain[ill].max()) if ill.any() else 0.0:.3g}")
+        # the library call: batched LU solves of the plain version's
+        # (S, 8, 8) float64 systems (solve_ex: no host check of singular
+        # ones), the denormalization outside the timed call
+        a8, b8, to_h = _dlt_systems(gt)
+        h_lib = to_h(torch.linalg.solve_ex(a8, b8)[0][..., 0])
+        sign = torch.where((h_lib * hs).sum((1, 2)) < 0, -1.0, 1.0)
+        e_lib = float((h_lib * sign[:, None, None] - hs).abs().amax(
+            (1, 2))[well].max())
+        print(f"  dlt S={s}: library call torch.linalg.solve_ex on the "
+              f"(S, 8, 8) float64 systems, max abs err vs the kernel "
+              f"{e_lib:.3g} on the well-conditioned usable quads")
         row = record("dlt_4pt", f"S={s} (32, S) rows", err,
                      lambda: dlt_kernel.homography_4pt_gt(gt),
                      lambda: dlt_kernel.homography_4pt_gt_reference(gt),
-                     4 * 30 * s, (DLT_OPS + DLT_TEST_OPS) * s)
+                     4 * 30 * s, (DLT_OPS + DLT_TEST_OPS) * s,
+                     lib=lambda: torch.linalg.solve_ex(a8, b8))
         n_launch, launched = cuda_launches(
             lambda: dlt_kernel.homography_4pt_gt(gt))
         check(n_launch in (1, None), f"DLT S={s}: launches {launched}")
@@ -2260,31 +2311,68 @@ PT_KERNELS = ("inlier_counts", "eig9_smallest", "mean_field_fused",
 
 
 def _pt_cells(device):
-    """Phase 12's two cells: (name, config, (x1, x2, valid) on `device`,
-    ground-truth labels): BASELINE config 2 at the default config (N =
-    1024, 4 blocks of 256) and the stress cell (phase 5's scene, N =
-    10240, 80 blocks of 128)."""
+    """Phase 12's cells, each a dict of name, cfg, args ((x1, x2, valid)
+    on `device`), gt (padded ground-truth labels), key (returns the
+    fit's key in its start state; every rank and the single fit take the
+    same) and golden (a golden misclassification, or None):
+      baseline2    BASELINE config 2 at the default config (N = 1024,
+                   4 blocks of 256);
+      stress       phase 5's scene at the stress settings (N = 10240, 80
+                   blocks of 128);
+      fm4_a        the motion suite's config (tests/test_golden_parity.py
+                   :144-148) at the golden tau, N = 512, phase 6's CPU
+                   key 0, held to the motion bound;
+      motion_full  the F model at full width: 10000 points, 4 motions,
+                   30% outliers, N = 10240 at agree_block 128 (40 blocks
+                   a rank), the motion suite's config otherwise;
+      exact        BASELINE config 2 at the side config (the exact graph,
+                   whose far edges a sweep gathers; no K4 or K5)."""
+    import torch
+
     import multih_tpu_torch as mt
     from multih_tpu_torch.utils import data
 
+    def cuda_key():
+        return torch.Generator(device=device).manual_seed(0)
+
+    g = np.load(os.path.join(ROOT, "tests", "goldens", "fm4_a.npz"))
+    baseline2 = data.synthetic_scene(1000, 2, 0.0, 0.0)[0]
+    rows = (
+        ("baseline2", 1024, mt.MultiHConfig(max_points=1024), baseline2,
+         cuda_key, None),
+        ("stress", 10240, stress_cfg(),
+         data.synthetic_scene(10000, 8, 0.7, 0.5, seed=42)[0], cuda_key,
+         None),
+        ("fm4_a", 512, dataclasses.replace(
+            motion_cfg(512), inlier_threshold=float(g["inlier_threshold"])),
+         data.motion_suite_scene("fm4_a"), lambda: _cpu_draws(0),
+         float(g["misclassification"])),
+        ("motion_full", 10240,
+         dataclasses.replace(motion_cfg(10240), agree_block=128),
+         data.synthetic_motion_scene(10000, 4, 0.3, 0.5, seed=42)[0],
+         cuda_key, None),
+        ("exact", 1024, _slice_cfg(max_points=1024), baseline2, cuda_key,
+         None),
+    )
     out = []
-    for name, n_pad, cfg, scene in (
-            ("baseline2", 1024, mt.MultiHConfig(max_points=1024),
-             data.synthetic_scene(1000, 2, 0.0, 0.0)[0]),
-            ("stress", 10240, stress_cfg(),
-             data.synthetic_scene(10000, 8, 0.7, 0.5, seed=42)[0])):
+    for name, n_pad, cfg, scene, key, golden in rows:
         x1, x2, valid, gt = mt.pad_points(scene.x1, scene.x2,
                                           scene.gt_labels, n_pad)
-        out.append((name, cfg, _to(device, x1, x2, valid), gt))
+        out.append(dict(name=name, cfg=cfg, args=_to(device, x1, x2, valid),
+                        gt=gt, key=key, golden=golden))
     return out
 
 
-def _pt_expected(cfg) -> dict:
-    """K4 and K5 launches of one 'pt' fit: a launch a mean-field sweep and
-    one an ICM half-sweep (PEARL iterations and the finalize)."""
-    return {"mean_field_fused": cfg.pearl_iterations
-            * cfg.meanfield_iterations,
-            "icm_fused": (cfg.pearl_iterations + 1) * 2 * cfg.icm_iterations}
+def _pt_expected(cfg, single: dict) -> dict:
+    """Each kernel's launches in one 'pt' rank's fit, from the single
+    card fit's (`single`): K4 a launch a mean-field sweep and K5 one an
+    ICM half-sweep where the single fit launches each once a call (none
+    on the exact graph's band, in either), every other kernel as often
+    as in the single fit (the refits gather their weights and refit
+    whole; each rank counts its own points, once a sweep)."""
+    factor = {"mean_field_fused": cfg.meanfield_iterations,
+              "icm_fused": 2 * cfg.icm_iterations}
+    return {k: n * factor.get(k, 1) for k, n in single.items()}
 
 
 def _pt_sweep_inputs(device):
@@ -2308,30 +2396,52 @@ def _pt_sweep_inputs(device):
 
 
 def _pt_graphs(cfg, x1, x2, valid, mesh=None):
-    """The fit's two windowed k-NN graphs (positions; the sampling
-    features) on the Morton-sorted points as numpy: a 'pt' rank's own
-    rows with `mesh`, else every row."""
+    """The fit's two k-NN graphs (positions; the sampling features), the
+    windowed or the exact one as the fit builds it, on the Morton-sorted
+    points as numpy: every row, or with `mesh` a 'pt' rank's own rows.
+    With `mesh`, also the rank's band as the fit builds it
+    (labeling.shard_adjacency) and the host-staged bytes of one sweep's
+    agreement on it (the halo exchange, and on the exact graph the
+    gather of the far columns), with the far columns a rank sends."""
     import torch
 
     from multih_tpu_torch.models import labeling, pipeline
 
     perm = pipeline.morton_order(x1, valid)
     x1, x2, valid = x1[perm], x2[perm], valid[perm]
-    rows = None
+    windowed = pipeline.graph_path(cfg, x1.shape[0]) == "windowed"
+    shard = rows = None
     if mesh is not None:
         shard = labeling.PointShard(mesh, x1.shape[0], cfg.agree_block)
         rows = (shard.lo, shard.hi)
+
+    def graph(f):
+        if windowed:
+            return labeling.knn_graph_windowed(f, valid, cfg.knn_k,
+                                               cfg.agree_block, rows)
+        return labeling.knn_graph(f, valid, cfg.knn_k, cfg.knn_row_block,
+                                  cfg.knn_approx, rows)
+
     feat = torch.cat([x1, cfg.sampling_motion_weight * (x2 - x1)], dim=1)
-    return [labeling.knn_graph_windowed(f, valid, cfg.knn_k,
-                                        cfg.agree_block, rows)[0].cpu().numpy()
-            for f in (x1, feat)]
+    nbr, w = graph(x1)
+    graphs = [nbr.cpu().numpy(), graph(feat)[0].cpu().numpy()]
+    if shard is None:
+        return graphs, None
+    labeling.shard_adjacency(nbr, w, shard, windowed)
+    q = torch.zeros((cfg.max_labels + 1, shard.n_own), device=x1.device)
+    staged = mesh.host_staged
+    shard.agree_t(q)
+    return graphs, dict(
+        bytes=mesh.host_staged - staged,
+        far_cols=0 if shard.far is None else int(shard.far.send.shape[0]))
 
 
 def _pt_rank(rank, device):
     """One of phase 12's two gloo ranks on the one card: each cell's fit
     on a (pt=2) mesh (its launches, host-staged bytes, peak memory and
-    warm walls), then K4 and K5 on the rank's window at the stress shape,
-    a launch a sweep with the halo exchanged between launches."""
+    warm walls, and the bytes of one sweep's agreement), then K4 and K5
+    on the rank's window at the stress shape, a launch a sweep with the
+    halo exchanged between launches."""
     import torch
 
     from multih_tpu_torch.models import labeling
@@ -2339,24 +2449,25 @@ def _pt_rank(rank, device):
     from multih_tpu_torch.parallel import sharding
 
     m = sharding.make_pt_mesh(device=device)
-    gen = torch.Generator(device=device)
     out = {}
-    for name, cfg, args, _ in _pt_cells(device):
-        out[f"{name}_graphs"] = _pt_graphs(cfg, *args, m)
-        f = sharding.pt_sharded_fit(cfg, m)
-        f(*args, gen.manual_seed(0))  # warm: the library loads once
+    for c in _pt_cells(device):
+        name, args, key = c["name"], c["args"], c["key"]
+        out[f"{name}_graphs"], sweep = _pt_graphs(c["cfg"], *args, m)
+        f = sharding.pt_sharded_fit(c["cfg"], m)
+        f(*args, key())  # warm: the library loads once
         m.host_staged = 0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(device)
         res, launches = count_launches(
-            f"pt {name} rank {rank}", PT_KERNELS + ("band_list",),
-            lambda: f(*args, gen.manual_seed(0)), quiet=True)
+            f"pt {name} rank {rank}", (), lambda: f(*args, key()),
+            quiet=True)
         out[name] = dict(
             labels=res.labels.cpu().numpy(), active=res.active.cpu().numpy(),
             energy=float(res.energy), launches=launches,
-            staged_bytes=m.host_staged,
+            n_far_dropped=int(res.n_far_dropped),
+            staged_bytes=m.host_staged, sweep=sweep,
             peak_bytes=torch.cuda.max_memory_allocated(device),
-            warm_ms=host_ms(lambda: f(*args, gen.manual_seed(0)), reps=3))
+            warm_ms=host_ms(lambda: f(*args, key()), reps=3))
 
     x1, valid, q0, base, starts, inv_t = _pt_sweep_inputs(device)
     shard = labeling.PointShard(m, 10240, 128)
@@ -2394,26 +2505,29 @@ def phase_pt(dev):
     from multih_tpu_torch.utils import evaluation
 
     print("== 12. the 'pt' (point) axis: a (pt=2) mesh of two gloo ranks "
-          "on the one card, BASELINE config 2 (N=1024) and the stress cell "
-          "(N=10240)")
+          "on the one card; BASELINE config 2 (N=1024), the stress cell "
+          "(N=10240), the F model on fm4_a (N=512) and at full width "
+          "(N=10240), and BASELINE config 2 on the exact graph")
     t_start = time.perf_counter()
-    gen = torch.Generator(device=dev)
     single = {}
-    for name, cfg, args, gt in _pt_cells(dev):
-        mt.fit(*args, gen.manual_seed(0), cfg)
+    for c in _pt_cells(dev):
+        name, cfg, args, key = c["name"], c["cfg"], c["args"], c["key"]
+        mt.fit(*args, key(), cfg)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
-        ref = mt.fit(*args, gen.manual_seed(0), cfg)
+        ref, launches = count_launches(f"single {name}", (),
+                                       lambda: mt.fit(*args, key(), cfg),
+                                       quiet=True)
         torch.cuda.synchronize()
         single[name] = dict(
-            ref=ref, cfg=cfg, gt=gt, args=args,
+            c, ref=ref, launches=launches,
             peak_bytes=torch.cuda.max_memory_allocated(dev),
-            warm_ms=host_ms(lambda: mt.fit(*args, gen.manual_seed(0), cfg),
-                            reps=3))
+            warm_ms=host_ms(lambda: mt.fit(*args, key(), cfg), reps=3))
     # why a 'pt' refit gathers its weights in their own layout: the
     # moment GEMM's float32 sums follow the operand's layout
     x1s, x2s, _ = _stress_points(dev)
     feats = geometry.prepare_refit(x1s, x2s).feats
+    gen = torch.Generator(device=dev)
     wt = torch.rand((10240, 16), device=dev, generator=gen.manual_seed(0))
     d = float((wt.T @ feats - wt.T.contiguous() @ feats).abs().max())
     print(f"moment GEMM at the stress shape (16 x 10240 weights): a "
@@ -2427,16 +2541,19 @@ def phase_pt(dev):
                                     nbr=adj.nbr).cpu().numpy()
     t0 = time.perf_counter()
     ranks = mesh.spawn(_pt_rank, 2, "gloo", lambda r: "cuda:0",
-                       timeout_s=500.0)
+                       timeout_s=900.0)
     t_gloo = time.perf_counter() - t0
     out, launches = {"cells": {}, "moment_gemm_layout_diff": d}, {}
     for name, s in single.items():
         ref, cfg = s["ref"], s["cfg"]
-        want = _pt_expected(cfg)
-        graphs = _pt_graphs(cfg, *s["args"])
+        want = _pt_expected(cfg, s["launches"])
+        graphs, _ = _pt_graphs(cfg, *s["args"])
         n_own = cfg.max_points // 2
+        k1 = ("inlier_counts_f" if cfg.model == "fundamental"
+              else "inlier_counts")
         cell = dict(single_warm_ms=s["warm_ms"],
-                    single_peak_bytes=s["peak_bytes"], ranks=[])
+                    single_peak_bytes=s["peak_bytes"],
+                    single_launches=s["launches"], ranks=[])
         for r, got in enumerate(ranks):
             g = got[name]
             graph_eq = all(np.array_equal(
@@ -2446,38 +2563,57 @@ def phase_pt(dev):
             lab_eq = n_diff == 0
             act_eq = bool(np.array_equal(g["active"],
                                          ref.active.cpu().numpy()))
+            drop_eq = g["n_far_dropped"] == int(ref.n_far_dropped)
             gap = abs(g["energy"] - float(ref.energy)) / abs(float(ref.energy))
             err = evaluation.misclassification_error(
                 g["labels"], s["gt"], cfg.max_labels)
-            lc = g["launches"]
+            lc, sw = g["launches"], g["sweep"]
             print(f"rank {r} {name}: k-NN rows (both graphs) equal to the "
                   f"unsharded rows {graph_eq}; labels equal to the single "
                   f"card fit {lab_eq} ({n_diff} of {cfg.max_points} "
-                  f"differ), active equal {act_eq}, energy rel. gap "
-                  f"{gap:.3g}, planes {int(g['active'].sum())}, "
-                  f"misclassification {err:.3f}%; launches K1 "
-                  f"{lc['inlier_counts']}, K3 {lc['eig9_smallest']}, K4 "
-                  f"{lc['mean_field_fused']}, K5 {lc['icm_fused']}, list "
-                  f"{lc['band_list']}; host-staged bytes "
-                  f"{g['staged_bytes']}; peak allocated "
+                  f"differ), active equal {act_eq}, n_far_dropped "
+                  f"{g['n_far_dropped']} (single {int(ref.n_far_dropped)}),"
+                  f" energy rel. gap {gap:.3g}, models "
+                  f"{int(g['active'].sum())}, misclassification "
+                  f"{err:.3f}%; launches K1 {lc[k1]} (single "
+                  f"{s['launches'][k1]}), K3 {lc['eig9_smallest']} (single "
+                  f"{s['launches']['eig9_smallest']}), K4 "
+                  f"{lc['mean_field_fused']} (single "
+                  f"{s['launches']['mean_field_fused']}), K5 "
+                  f"{lc['icm_fused']} (single {s['launches']['icm_fused']}),"
+                  f" list {lc['band_list']}; host-staged bytes a fit "
+                  f"{g['staged_bytes']}, a sweep's agreement {sw['bytes']} "
+                  f"(far columns a rank {sw['far_cols']}); peak allocated "
                   f"{g['peak_bytes'] / 2**20:.1f} MiB (single "
                   f"{s['peak_bytes'] / 2**20:.1f} MiB); warm wall ms "
                   f"{', '.join(f'{x:.1f}' for x in g['warm_ms'])} (single "
                   f"{', '.join(f'{x:.1f}' for x in s['warm_ms'])})")
-            check(graph_eq and lab_eq and act_eq,
+            check(graph_eq and lab_eq and act_eq and drop_eq,
                   f"rank {r} {name}: {n_diff} labels differ, active "
-                  f"{act_eq}, graph {graph_eq}")
+                  f"{act_eq}, graph {graph_eq}, n_far_dropped {drop_eq}")
             check(gap <= 1e-3, f"rank {r} {name}: energy gap {gap:.3g}")
-            for k, n in want.items():
-                check(lc[k] == n, f"rank {r} {name}: {lc[k]} {k} launches, "
-                      f"{n} expected (a launch a sweep)")
+            check(lc == want, f"rank {r} {name}: launches {lc}, expected "
+                  f"{want} (the single fit's, K4 a launch a sweep, K5 one "
+                  f"a half-sweep)")
+            # no K4 or K5 on the exact graph's band (far edges)
+            for k in ((k1, "eig9_smallest", "mean_field_fused", "icm_fused")
+                      if cfg.knn_window else (k1, "eig9_smallest")):
+                check(lc[k] > 0, f"rank {r} {name}: {k} never launched")
+            if s["golden"] is not None:
+                delta = err - s["golden"]
+                print(f"  {name} rank {r}: misclassification {err:.3f}% "
+                      f"against the golden {s['golden']:.3f}%, delta "
+                      f"{delta:+.3f} pp (bound 2.0)")
+                check(abs(delta) <= 2.0, f"rank {r} {name}: delta "
+                      f"{delta:+.3f} pp past the motion bound")
             launches[f"pt_{name}_r{r}"] = lc
             cell["ranks"].append(dict(
                 labels_equal=lab_eq, labels_differing=n_diff,
-                graph_equal=graph_eq, active_equal=act_eq, energy_gap=gap,
+                graph_equal=graph_eq, active_equal=act_eq,
+                n_far_dropped=g["n_far_dropped"], energy_gap=gap,
                 misclassification=err, launches=lc,
-                staged_bytes=g["staged_bytes"], peak_bytes=g["peak_bytes"],
-                warm_ms=g["warm_ms"]))
+                staged_bytes=g["staged_bytes"], sweep=sw,
+                peak_bytes=g["peak_bytes"], warm_ms=g["warm_ms"]))
         out["cells"][name] = cell
     sweeps = []
     for r, got in enumerate(ranks):
@@ -2499,6 +2635,41 @@ def phase_pt(dev):
     print(f"phase 12: {out['seconds']['phase']:.1f} s (gloo ranks "
           f"{t_gloo:.1f} s) [{card_line()}]")
     return out, launches
+
+
+def _dryrun_rank(rank, device):
+    """One of phase 13's gloo ranks: tools/torch_dryrun_multichip.py's
+    rank function, its kernel launches counted."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import torch_dryrun_multichip as dryrun
+
+    return count_launches(
+        f"dryrun rank {rank}", ("inlier_counts", "inlier_counts_f",
+                                "dlt_4pt", "eig9_smallest",
+                                "mean_field_fused", "icm_fused",
+                                "band_list"),
+        lambda: dryrun.dryrun_rank(rank, device, 2), quiet=True)
+
+
+def phase_dryrun():
+    """Phase 13: the port's dryrun_multichip (tools/torch_dryrun_multichip
+    .py) on two gloo ranks sharing the card: every mesh path at the
+    reference's tiny shapes, asserted on known labels in the ranks."""
+    from multih_tpu_torch.parallel import mesh
+
+    print("== 13. dryrun_multichip: every mesh path on two gloo ranks on "
+          "the one card")
+    t0 = time.perf_counter()
+    ranks = mesh.spawn(_dryrun_rank, 2, "gloo", lambda r: "cuda:0",
+                       timeout_s=600.0)
+    res = [r[0] for r in ranks]
+    for r, got in enumerate(res):
+        check(got == res[0], f"dryrun rank {r}: {got}, rank 0 {res[0]}")
+    seconds = time.perf_counter() - t0
+    print(f"dryrun_multichip OK on 2 gloo ranks: {res[0]}; launches by "
+          f"rank {[r[1] for r in ranks]}; {seconds:.1f} s [{card_line()}]")
+    launches = {f"dryrun_r{r}": lc for r, (_, lc) in enumerate(ranks)}
+    return dict(res[0], seconds=seconds), launches
 
 
 def main(argv=None) -> int:
@@ -2533,6 +2704,8 @@ def main(argv=None) -> int:
     launches.update(mesh_launches)
     pt_out, pt_launches = phase_pt(dev)
     launches.update(pt_launches)
+    dryrun_out, dryrun_launches = phase_dryrun()
+    launches.update(dryrun_launches)
     if args.profile:
         profile_fit()
         profile_stress()
@@ -2558,7 +2731,8 @@ def main(argv=None) -> int:
                       "stress": stress, "motion": motion,
                       "adaptive": adaptive, "stream": stream,
                       "mixed": mixed, "surfaces": surfaces,
-                      "mesh": mesh_out, "pt": pt_out}))
+                      "mesh": mesh_out, "pt": pt_out,
+                      "dryrun": dryrun_out}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,9 +10,10 @@ and the gather path (``adj=None``): the symmetrized agreement as a
 gather plus an ``index_add_`` over the k-NN graph itself, for points in
 any order and any N (no kernel: it runs in plain PyTorch everywhere).
 On a 'pt' mesh (`PointShard`) a rank builds its own blocks' rows of the
-windowed graph and of the band (`build_window_adjacency`), and every
+graph (windowed or exact) and of the band (`shard_adjacency`), and every
 sweep and energy reads its neighbours' edge blocks through a halo
-exchange.
+exchange, and on the exact graph the columns of its far edges through
+one all_gather.
 """
 
 from __future__ import annotations
@@ -33,15 +34,19 @@ _BIG = 1e30
 # ---------------------------------------------------------------------------
 
 def knn_graph(pts: torch.Tensor, valid: torch.Tensor, k: int,
-              row_block: int = 0, approx: bool = False):
+              row_block: int = 0, approx: bool = False,
+              rows: tuple[int, int] | None = None):
     """Exact spatial k-NN: dense for N <= 4096, `row_block`-row blocks
     above (row_block <= 0 = auto, 2048). Padded points never appear as
     neighbors. `approx` is accepted for config parity and ignored: the
     port always takes the exact top-k (the JAX package's
     `lax.approx_max_k` is exact on the CPU as well).
 
-    Returns (nbr_idx (N, k) int32, nbr_w (N, k) float {0,1})."""
+    Returns (nbr_idx (N, k) int32, nbr_w (N, k) float {0,1}); with
+    `rows` = (lo, hi), only the rows of points lo..hi-1 (a 'pt' rank's
+    own points) against all N, each as the whole graph has it."""
     n = pts.shape[0]
+    lo, hi = (0, n) if rows is None else rows
     if row_block <= 0:
         row_block = n if n <= 4096 else 2048
     sq = (pts * pts).sum(1)
@@ -49,9 +54,9 @@ def knn_graph(pts: torch.Tensor, valid: torch.Tensor, k: int,
     col_idx = torch.arange(n, device=pts.device)
 
     idxs, reals = [], []
-    for r0 in range(0, n, row_block):
-        p_blk = pts[r0:r0 + row_block]
-        i_blk = col_idx[r0:r0 + row_block]
+    for r0 in range(lo, hi, row_block):
+        p_blk = pts[r0:min(r0 + row_block, hi)]
+        i_blk = col_idx[r0:min(r0 + row_block, hi)]
         d2 = (p_blk * p_blk).sum(1)[:, None] + sq[None, :] \
             - 2.0 * (p_blk @ pts.T)
         d2 = d2 + col_pen[None, :]
@@ -61,7 +66,7 @@ def knn_graph(pts: torch.Tensor, valid: torch.Tensor, k: int,
         idxs.append(idx.to(torch.int32))
         reals.append((-neg_d2 < _BIG * 0.5).to(pts.dtype))
     nbr_idx = torch.cat(idxs)
-    nbr_w = torch.cat(reals) * valid[:, None]
+    nbr_w = torch.cat(reals) * valid[lo:hi, None]
     return nbr_idx, nbr_w
 
 
@@ -206,28 +211,45 @@ def build_banded_adjacency(
         far_capacity = max(block, (3 * n) // 4)
     nb = n // block
     dev = nbr_idx.device
-
-    i_idx = torch.arange(n, dtype=torch.int64, device=dev).repeat_interleave(k)
-    j_idx = nbr_idx.reshape(-1).to(torch.int64)
-    w_half = 0.5 * nbr_w.reshape(-1)
-    out_e = torch.cat([i_idx, j_idx])
-    in_e = torch.cat([j_idx, i_idx])
-    w_e = torch.cat([w_half, w_half])
-
-    blk_out = out_e // block
-    blk_in = in_e // block
-    near = (blk_out - blk_in).abs() <= 1
-    live = w_e > 0
-
-    col = in_e - (blk_out - 1) * block
+    out_e, in_e, w_e, near, live = _directed_edges(nbr_idx, nbr_w, block)
+    col = in_e - (out_e // block - 1) * block
     w_near = torch.where(near & live, w_e, 0.0)
     col = torch.where(near, col, 0)
     band = torch.zeros(n * 3 * block, dtype=nbr_w.dtype, device=dev)
     band.index_add_(0, out_e * (3 * block) + col, w_near)
     band = band.reshape(nb, block, 3 * block)
 
-    # far part: compact far-live edges to the front (stable argsort, as
-    # labeling.py:382), cap at capacity
+    far_out, far_in, far_w, n_dropped = _far_edges(
+        out_e, in_e, w_e, near, live, far_capacity)
+    deg = band.sum(2).reshape(n)
+    deg = deg.index_add(0, far_out, far_w)
+    return BandedAdjacency(
+        band=band, far_out=far_out, far_in=far_in, far_w=far_w,
+        deg=deg[:, None], n_dropped=n_dropped,
+    )
+
+
+def _directed_edges(nbr_idx, nbr_w, block: int):
+    """Both directions of every k-NN edge, each with 0.5 w: (out, in, w,
+    near, live) over the 2 N k directed entries, the forward (i <- j)
+    ones first in (i, k) order, then the reverse ones in the same order;
+    near where the two blocks are adjacent."""
+    n, k = nbr_idx.shape
+    i_idx = torch.arange(n, dtype=torch.int64,
+                         device=nbr_idx.device).repeat_interleave(k)
+    j_idx = nbr_idx.reshape(-1).to(torch.int64)
+    w_half = 0.5 * nbr_w.reshape(-1)
+    out_e = torch.cat([i_idx, j_idx])
+    in_e = torch.cat([j_idx, i_idx])
+    w_e = torch.cat([w_half, w_half])
+    near = (out_e // block - in_e // block).abs() <= 1
+    return out_e, in_e, w_e, near, w_e > 0
+
+
+def _far_edges(out_e, in_e, w_e, near, live, far_capacity: int):
+    """The far list of `_directed_edges`: far live entries compacted to
+    the front in their order (stable argsort, as labeling.py:382), cut
+    at `far_capacity`, zero-padded; and the count cut off."""
     is_far = ~near & live
     order = torch.argsort((~is_far).to(torch.int32), stable=True)
     sel = order[:far_capacity]
@@ -236,14 +258,7 @@ def build_banded_adjacency(
     far_in = torch.where(far_live, in_e[sel], 0)
     far_w = torch.where(far_live, w_e[sel], 0.0)
     n_far = is_far.sum().to(torch.int32)
-    n_dropped = torch.clamp_min(n_far - far_capacity, 0)
-
-    deg = band.sum(2).reshape(n)
-    deg = deg.index_add(0, far_out, far_w)
-    return BandedAdjacency(
-        band=band, far_out=far_out, far_in=far_in, far_w=far_w,
-        deg=deg[:, None], n_dropped=n_dropped,
-    )
+    return far_out, far_in, far_w, torch.clamp_min(n_far - far_capacity, 0)
 
 
 def _build_band_far_free(nbr_idx, nbr_w, block: int) -> BandedAdjacency:
@@ -302,6 +317,22 @@ def _far_free(band, n_dropped) -> BandedAdjacency:
     )
 
 
+class PointFar(NamedTuple):
+    """The far edges of a 'pt' rank's own rows (`shard_adjacency`), in
+    the whole far list's order: `out` the own row (local index), `w` the
+    weight, `src` the column's slot in the gathered far columns. `send`
+    (cols,): the own points that some rank's far edges read, padded with
+    0 to the most any rank sends, so that one all_gather of (R, cols)
+    carries every far column. `deg` (n_own, 1): the own points' degree,
+    the far edges' weights included."""
+
+    out: torch.Tensor
+    src: torch.Tensor
+    w: torch.Tensor
+    send: torch.Tensor
+    deg: torch.Tensor
+
+
 class PointShard:
     """A rank's share of the point axis of a 'pt' mesh (parallel/mesh.py):
     the Morton-sorted points' contiguous run of blocks [lo, hi), N / pt
@@ -309,8 +340,11 @@ class PointShard:
     of the fit lives on the rank's own points; a sweep reads them through
     `window`, the own points with the previous and the next rank's edge
     block (mesh.halo_exchange), zeros past the ends. `adj` is the
-    window's far-free band (`build_window_adjacency`), its halo blocks'
-    rows zero."""
+    window's band (`build_window_adjacency`), its halo blocks' rows zero;
+    on the exact graph `far` holds the own rows' far edges, whose columns
+    a sweep gathers (`agree_t`), and None on a far-free band
+    (`shard_adjacency`). `n_dropped` is the whole graph's count of far
+    edges past the capacity."""
 
     def __init__(self, mesh, n: int, block: int):
         npt = mesh.shape["pt"]
@@ -319,6 +353,8 @@ class PointShard:
         self.lo = mesh.axis_index("pt") * self.n_own
         self.hi = self.lo + self.n_own
         self.adj = None
+        self.far: PointFar | None = None
+        self.n_dropped = None
 
     def psum(self, t: torch.Tensor) -> torch.Tensor:
         return self.mesh.psum(t, "pt")
@@ -338,13 +374,23 @@ class PointShard:
         return t_win[..., self.block:self.block + self.n_own]
 
     def agree_t(self, p_t: torch.Tensor) -> torch.Tensor:
-        """The band's agreement of the own points, (L, n_own) ->
-        (L, n_own): the window's agree_t, its own points kept."""
-        return self.inner(self.adj.agree_t(self.window(p_t)))
+        """The agreement of the own points, (R, n_own) -> (R, n_own): the
+        window band's agree_t, its own points kept; on the exact graph
+        plus the far edges' terms, added in the whole far list's order
+        after one all_gather of the far columns."""
+        out = self.inner(self.adj.agree_t(self.window(p_t)))
+        if self.far is None:
+            return out
+        f = self.far
+        cols = self.mesh.all_gather(p_t[:, f.send].contiguous(), "pt")
+        cols = cols.transpose(0, 1).reshape(p_t.shape[0], -1)
+        return out.index_add_(1, f.out, cols[:, f.src] * f.w[None, :])
 
     @property
     def deg(self) -> torch.Tensor:
         """The own points' symmetrized degree, (n_own, 1)."""
+        if self.far is not None:
+            return self.far.deg
         return self.adj.deg[self.block:self.block + self.n_own]
 
 
@@ -377,6 +423,58 @@ def build_window_adjacency(nbr_idx, nbr_w, shard: PointShard,
     if neighbour_list:
         adj = adj._replace(nbr=mrf_kernel.band_list(adj.band))
     return adj
+
+
+def shard_adjacency(nbr_idx, nbr_w, shard: PointShard, windowed: bool,
+                    neighbour_list: bool | None = None) -> BandedAdjacency:
+    """A 'pt' rank's share of the fit's banded adjacency, set on `shard`
+    (adj, far, n_dropped) from its own rows of the k-NN graph. The
+    windowed graph: the far-free window band (`build_window_adjacency`),
+    n_dropped summed over the axis. The exact graph: the same window
+    band (its near blocks), and the far list of `build_banded_adjacency`
+    built on the gathered graph, as the single fit builds it, so that
+    which edges the capacity cuts and n_dropped are the single fit's;
+    the rank keeps the far edges into its own rows and the slots of
+    their columns in one all_gather a sweep (`PointShard.agree_t`)."""
+    if windowed:
+        adj = build_window_adjacency(nbr_idx, nbr_w, shard, neighbour_list)
+        shard.adj, shard.n_dropped = adj, shard.psum(adj.n_dropped)
+        return adj
+    adj = build_window_adjacency(nbr_idx, nbr_w, shard, neighbour_list=False)
+    g_idx = shard.gather(nbr_idx.T).T
+    g_w = shard.gather(nbr_w.T).T
+    n, block = g_idx.shape[0], shard.block
+    far_out, far_in, far_w, n_dropped = _far_edges(
+        *_directed_edges(g_idx, g_w, block), max(block, (3 * n) // 4))
+    shard.adj, shard.n_dropped = adj, n_dropped
+    shard.far = _own_far(far_out, far_in, far_w, shard)
+    return adj
+
+
+def _own_far(far_out, far_in, far_w, shard: PointShard) -> PointFar | None:
+    """The own rows' entries of the whole far list (None when no edge is
+    live): each rank sends the far columns it owns, `cols` a rank, the
+    most any rank owns; column c's slot in the gathered (R, pt * cols)
+    is owner * cols + its rank among the owner's far columns."""
+    npt, n_own, lo = shard.mesh.shape["pt"], shard.n_own, shard.lo
+    live = far_w > 0
+    need = torch.zeros(npt * n_own, dtype=torch.bool, device=far_w.device)
+    need[far_in[live]] = True
+    need = need.reshape(npt, n_own)
+    cols = int(need.sum(1).max())
+    if cols == 0:
+        return None
+    slot = (torch.cumsum(need.to(torch.int64), 1) - 1
+            + cols * torch.arange(npt, device=need.device)[:, None])
+    mine = torch.nonzero(live & (far_out >= lo)
+                         & (far_out < lo + n_own))[:, 0]
+    send = torch.nonzero(need[shard.mesh.axis_index("pt")])[:, 0]
+    send = torch.cat([send, send.new_zeros(cols - send.shape[0])])
+    out, w = far_out[mine] - lo, far_w[mine]
+    deg = shard.adj.deg[shard.block:shard.block + n_own, 0].index_add(
+        0, out, w)
+    return PointFar(out=out, src=slot.reshape(-1)[far_in[mine]], w=w,
+                    send=send, deg=deg[:, None])
 
 
 def _mrf_kernel_ok(adj: BandedAdjacency | None) -> bool:
@@ -491,18 +589,20 @@ def mean_field_t(dct, nbr_idx, nbr_w, spatial_weight: float,
     Over a far-free band all sweeps run in the fused kernel
     (mrf_kernel.mean_field_fused, one call) with `use_kernel`, else in
     its plain version. With a `shard`, dct and q are a 'pt' rank's own
-    points and every sweep exchanges the halo: the kernel or its plain
-    version a call a sweep (mrf_kernel.mean_field_windowed)."""
+    points and every sweep exchanges the halo: on a far-free band the
+    kernel or its plain version a call a sweep
+    (mrf_kernel.mean_field_windowed), on the exact graph's band the plain
+    sweeps, each reading the far columns too (PointShard.agree_t)."""
     q = torch.softmax(-dct, dim=0) if q_init is None else q_init
     temps = _mf_temps(iterations, temp_start, temp_end, dct.dtype,
                       dct.device)
-    if shard is not None:
+    if shard is not None and shard.far is None:
         base = dct + spatial_weight * shard.deg.T
         return mrf_kernel.mean_field_windowed(
             q.contiguous(), base.contiguous(), shard.adj.band, 1.0 / temps,
             spatial_weight, shard.window, nbr=shard.adj.nbr,
             use_kernel=use_kernel)
-    if _mrf_kernel_ok(adj):
+    if shard is None and _mrf_kernel_ok(adj):
         base = dct + spatial_weight * adj.deg.T  # (L, N)
         if not use_kernel:
             return mrf_kernel.mean_field_fused_reference(
@@ -511,7 +611,7 @@ def mean_field_t(dct, nbr_idx, nbr_w, spatial_weight: float,
             q.contiguous(), base.contiguous(), adj.band, 1.0 / temps,
             spatial_weight, nbr=adj.nbr,
         )
-    agree_fn, deg = _agree_and_deg_t(nbr_idx, nbr_w, adj, dct.dtype)
+    agree_fn, deg = _agree_and_deg_t(nbr_idx, nbr_w, adj, dct.dtype, shard)
     for i in range(temps.shape[0]):
         pair = spatial_weight * (deg - agree_fn(q))
         q = torch.softmax(-(dct + pair) / temps[i], dim=0)
@@ -571,21 +671,23 @@ def _icm_batch(starts, dct, spatial_weight: float, iterations: int,
     (labeling.py:702-753). The fori_loop is a Python loop; over a
     far-free band the half-sweeps run in the fused kernel
     (mrf_kernel.icm_fused, one call) with `use_kernel`, else in its plain
-    version. With a `shard` (a 'pt' rank's own points), the kernel or its
-    plain version a call a half-sweep, the halo exchanged before each
-    (mrf_kernel.icm_windowed); the energies are summed over the axis."""
+    version. With a `shard` (a 'pt' rank's own points), on a far-free
+    band the kernel or its plain version a call a half-sweep, the halo
+    exchanged before each (mrf_kernel.icm_windowed), on the exact graph's
+    band the plain half-sweeps through PointShard.agree_t (one gather of
+    the far columns each); the energies are summed over the axis."""
     agree_fn, deg = _agree_and_deg_t(nbr_idx, nbr_w, adj, dct.dtype, shard)
     base = dct + spatial_weight * deg  # (L, N)
-    if shard is not None:
+    if shard is not None and shard.far is None:
         labels = mrf_kernel.icm_windowed(
             starts.to(torch.int32).contiguous(), base.contiguous(),
             shard.adj.band, iterations, spatial_weight, shard.window,
             nbr=shard.adj.nbr, use_kernel=use_kernel).to(starts.dtype)
-    elif _mrf_kernel_ok(adj) and not use_kernel:
+    elif shard is None and _mrf_kernel_ok(adj) and not use_kernel:
         labels = mrf_kernel.icm_fused_reference(
             starts.to(torch.int32), base, adj.band, iterations,
             spatial_weight).to(starts.dtype)
-    elif _mrf_kernel_ok(adj):
+    elif shard is None and _mrf_kernel_ok(adj):
         labels = mrf_kernel.icm_fused(
             starts.to(torch.int32).contiguous(), base.contiguous(),
             adj.band, iterations, spatial_weight, nbr=adj.nbr,

@@ -38,10 +38,14 @@ generation and the verification sweep split over the axis's ranks
 (`_hypothesize_verify_sharded`) and the rest of the fit runs replicated;
 the result equals the single-device fit's. With a 'pt' (point) mesh the
 points split over the ranks in Morton blocks (`check_pt_gate`,
-labeling.PointShard): every sweep exchanges a one-block halo, the
+labeling.PointShard): every sweep exchanges a one-block halo (and on
+the exact graph gathers the columns of the rank's far edges), the
 refits gather their weights and refit as the single-device fit does,
 the other sums over the points are psums (integer counts, float64
-energies), and the result equals the single-device fit's.
+energies and F-model data costs and flow moments), what sorts or draws
+over every point (the F model's quartile cuts, resample subsets and
+trimmed costs) runs on gathered arrays, and the result equals the
+single-device fit's, for both models and both graphs.
 """
 
 from __future__ import annotations
@@ -205,12 +209,28 @@ def _refit(w, x1, x2, cfg: MultiHConfig, basis=None, shard=None):
     labels of points at a tie. The gathered w keeps w's memory layout
     (refit_planes passes a transposed view): on CUDA the layout picks
     the GEMM's kernel and with it the order of the float32 sums."""
-    if shard is not None:
-        x1, x2 = shard.x1, shard.x2
-        w = (shard.gather(w.T, dim=0).T if w.T.is_contiguous()
-             else shard.gather(w))
     if not cfg.refit_moments:
+        if shard is not None:
+            x1, x2, w = shard.x1, shard.x2, _gather_weights(w, shard)
         return _refit_direct(x1, x2, w, cfg)
+    return _moment_refit(w, x1, x2, cfg, basis, shard)
+
+
+def _gather_weights(w, shard):
+    """A 'pt' rank's (C, n_own) weights -> every point's (C, N), in w's
+    memory layout (`_refit`)."""
+    return (shard.gather(w.T, dim=0).T if w.T.is_contiguous()
+            else shard.gather(w))
+
+
+def _moment_refit(w, x1, x2, cfg: MultiHConfig, basis=None, shard=None):
+    """(C, N) weights -> (C, 3, 3) by the batched moment refit whatever
+    cfg.refit_moments (the fundamental model's union, split and refine
+    refits take it, as in the reference). With a `shard`, w is a 'pt'
+    rank's own points' and is gathered as `_refit` gathers it; `basis`
+    is every point's (prepared from them when None)."""
+    if shard is not None:
+        x1, x2, w = shard.x1, shard.x2, _gather_weights(w, shard)
     if basis is None:
         basis = _prepare_refit_basis(x1, x2, cfg)
     return _refit_batch(w, basis, cfg)
@@ -699,38 +719,65 @@ def _pearl_iteration(carry, it: int, x1, x2, valid, nbr_idx, nbr_w,
     if f_model and cfg.f_union_merge:
         with record_function("union_refit_merge"):
             Hs, active = _union_refit_merge(Hs, active, member_k, r_acc, x1,
-                                            x2, thr, cfg)
+                                            x2, thr, cfg, shard, basis)
     return (Hs, active, q), energy
 
 
 def _union_refit_merge(Hs, active, member_k, r_acc, x1, x2, thr,
-                       cfg: MultiHConfig):
+                       cfg: MultiHConfig, shard=None, basis=None):
     """The energy-tested union-refit merge of the fundamental model
     (pipeline.py:990-1059): all K^2 pair refits on the joint members in
     one batched moment refit; the pair whose union F covers >= 80% of
     both member sets and raises their data cost by less than the label
-    cost it saves, lowest increase first, merges (one per iteration)."""
+    cost it saves, lowest increase first, merges (one per iteration;
+    `_union_scores`)."""
+    k = cfg.max_labels
+    Hs_u, score = _union_scores(active, member_k, r_acc, x1, x2, thr, cfg,
+                                shard, basis)
+    best = torch.argmax(score).view(1)
+    a_i, b_i = best // k, best % k
+    do = torch.isfinite(score[best])
+    active = active.clone()
+    active[b_i] = torch.where(do, 0.0, active[b_i])
+    Hs = Hs.clone()
+    Hs[a_i] = torch.where(do[:, None, None], Hs_u[best], Hs[a_i])
+    return Hs, active
+
+
+def _union_scores(active, member_k, r_acc, x1, x2, thr, cfg: MultiHConfig,
+                  shard=None, basis=None):
+    """(Hs_u (K^2, 3, 3), score (K^2,) float64) of `_union_refit_merge`:
+    pair (a, b)'s union refit, and minus the data-cost increase of
+    merging b into a where the pair may merge, else -inf. The data-cost
+    sums over the points run in float64, so that with a `shard` (a 'pt'
+    rank's own points; the refit gathers its weights, `_moment_refit`)
+    the ranks' partial sums add up as one sum does; the coverage counts
+    are integers."""
     k = cfg.max_labels
     member_act = member_k * active[:, None]  # (K, N)
-    sup_act = member_act.sum(1)
+    sup_act = _psum(shard, member_act.sum(1))
     w_u = (member_act[:, None, :] + member_act[None, :, :]).reshape(k * k,
                                                                     -1)
-    Hs_u = _refit_batch(w_u, _prepare_refit_basis(x1, x2, cfg), cfg)
+    Hs_u = _moment_refit(w_u, x1, x2, cfg, basis, shard)
     fin_u = torch.isfinite(Hs_u.reshape(k * k, -1)).all(1).reshape(k, k)
     r_u = model_residual_matrix(Hs_u, x1, x2, cfg.residual,
                                 cfg).reshape(k, k, -1)
     inl_u = (r_u < thr).to(x1.dtype)
-    cov_a = torch.einsum("abn,an->ab", inl_u, member_act) \
-        / torch.clamp_min(sup_act[:, None], 1.0)
-    cov_b = torch.einsum("abn,bn->ab", inl_u, member_act) \
-        / torch.clamp_min(sup_act[None, :], 1.0)
+    cov_a, cov_b = _psum(shard, torch.stack([
+        torch.einsum("abn,an->ab", inl_u, member_act),
+        torch.einsum("abn,bn->ab", inl_u, member_act)]))
+    cov_a = cov_a / torch.clamp_min(sup_act[:, None], 1.0)
+    cov_b = cov_b / torch.clamp_min(sup_act[None, :], 1.0)
     # data-cost increase of both member sets under the union F against
     # their own F (the truncated quadratic of labeling.data_costs_t)
-    d_u = torch.clamp_max(r_u / thr, 8.0) * cfg.outlier_cost
-    d_own = (torch.clamp_max(r_acc / thr, 8.0) * cfg.outlier_cost
-             * member_act).sum(1)
-    delta = (torch.einsum("abn,an->ab", d_u, member_act) - d_own[:, None]
-             + torch.einsum("abn,bn->ab", d_u, member_act) - d_own[None, :])
+    d_u = (torch.clamp_max(r_u / thr, 8.0) * cfg.outlier_cost).double()
+    m64 = member_act.double()
+    d_own = _psum(shard, ((torch.clamp_max(r_acc / thr, 8.0)
+                           * cfg.outlier_cost).double() * m64).sum(1))
+    d_a, d_b = _psum(shard, torch.stack([
+        torch.einsum("abn,an->ab", d_u, m64),
+        torch.einsum("abn,bn->ab", d_u, m64)]))
+    delta = d_a - d_own[:, None] + d_b - d_own[None, :]
     m_min = float(cfg.minimal_points)
     ids = torch.arange(k, device=x1.device)
     ok_pair = (
@@ -741,15 +788,7 @@ def _union_refit_merge(Hs, active, member_k, r_acc, x1, x2, thr,
         & (sup_act[:, None] >= m_min) & (sup_act[None, :] >= m_min)
         & (ids[:, None] != ids[None, :])
     )
-    score = torch.where(ok_pair, -delta, float("-inf")).reshape(-1)
-    best = torch.argmax(score).view(1)
-    a_i, b_i = best // k, best % k
-    do = torch.isfinite(score[best])
-    active = active.clone()
-    active[b_i] = torch.where(do, 0.0, active[b_i])
-    Hs = Hs.clone()
-    Hs[a_i] = torch.where(do[:, None, None], Hs_u[best], Hs[a_i])
-    return Hs, active
+    return Hs_u, torch.where(ok_pair, -delta, float("-inf")).reshape(-1)
 
 
 def _pearl_phase(Hs, active, q, its, x1, x2, valid, nbr_idx, nbr_w,
@@ -767,14 +806,15 @@ def _pearl_phase(Hs, active, q, its, x1, x2, valid, nbr_idx, nbr_w,
 
 
 def _split_refine(Hs, active, q, x1, x2, valid, nbr_idx, nbr_w,
-                  cfg: MultiHConfig, tau, adj):
+                  cfg: MultiHConfig, tau, adj, shard=None, basis=None):
     """The fundamental model's split move (pipeline.py:1306-1435): every
-    active model's members split twelve ways (the Morton-index median,
-    mean cuts of both flow components, quartile cuts of the member
-    flow's principal axis), an F refit on each part in one batched
-    moment refit, the roster re-selected by marginal coverage from
-    {survivors + splits}, then f_split_iterations more PEARL iterations
-    with the label-cost prune on. Returns (Hs, active, q, energies)."""
+    active model's members split twelve ways (`_split_weights`), an F
+    refit on each part in one batched moment refit, the roster
+    re-selected by marginal coverage from {survivors + splits}, then
+    f_split_iterations more PEARL iterations with the label-cost prune
+    on. With a `shard`, the (., N) arrays are a 'pt' rank's own points,
+    the refit gathers its weights and the counts are psums. Returns (Hs,
+    active, q, energies)."""
     thr = _thr(cfg, tau, x1)
     k = cfg.max_labels
     dev = x1.device
@@ -783,54 +823,15 @@ def _split_refine(Hs, active, q, x1, x2, valid, nbr_idx, nbr_w,
     lab_s = labeling.best_labeling_t(
         [torch.argmax(q, dim=0), torch.argmin(dct, dim=0)],
         dct, nbr_idx, nbr_w, cfg.spatial_weight, cfg.icm_iterations,
-        adj=adj, use_kernel=_kernels_enabled(cfg, dev),
+        adj=adj, use_kernel=_kernels_enabled(cfg, dev), shard=shard,
     )
     member = (lab_s[None, :] == torch.arange(k, device=dev)[:, None]).to(
         x1.dtype) * valid[None, :]  # (K, N)
-    cum = torch.cumsum(member, dim=1)
-    half = cum[:, -1:] * 0.5
     rr = torch.clamp(r / thr, 0.0, 1.0)
     tk = (1.0 - rr) ** 2 * (r < thr)
-    flow = x2 - x1  # (N, 2)
-    sup_m = torch.clamp_min(member.sum(1, keepdim=True), 1.0)
-
-    def axis_split(a_kn):  # member-mean cut along one per-point value
-        mean_k = (member * a_kn).sum(1, keepdim=True) / sup_m
-        return member * (a_kn <= mean_k), member * (a_kn > mean_k)
-
-    fx_lo, fx_hi = axis_split(flow[None, :, 0].expand_as(member))
-    fy_lo, fy_hi = axis_split(flow[None, :, 1].expand_as(member))
-    # leading eigenvector of each member set's 2x2 flow covariance,
-    # closed form; a degenerate one falls back to the x axis
-    mf = (member @ flow) / sup_m  # (K, 2)
-    d0 = flow[None, :, 0] - mf[:, 0:1]
-    d1 = flow[None, :, 1] - mf[:, 1:2]
-    ca = (member * d0 * d0).sum(1)
-    cb = (member * d0 * d1).sum(1)
-    cc = (member * d1 * d1).sum(1)
-    lam = 0.5 * (ca + cc) + torch.sqrt(0.25 * (ca - cc) ** 2 + cb * cb)
-    vx, vy = cb, lam - ca
-    degv = (vx.abs() + vy.abs()) < 1e-12
-    vx = torch.where(degv, 1.0, vx)
-    vy = torch.where(degv, 0.0, vy)
-    proj = vx[:, None] * flow[None, :, 0] + vy[:, None] * flow[None, :, 1]
-    # quartile cuts on the principal axis: members first (non-members
-    # sort last as +inf), the cut at floor(support * qf)
-    n_pts = member.shape[1]
-    proj_sorted = torch.sort(torch.where(member > 0, proj, float("inf")),
-                             dim=1).values
-    sup_i = member.sum(1)
-    pca_cuts = []
-    for qf in (0.25, 0.5, 0.75):
-        pos = torch.clamp((sup_i * qf).to(torch.int64), 0, n_pts - 1)
-        cut = torch.gather(proj_sorted, 1, pos[:, None])
-        pca_cuts += [member * (proj <= cut), member * (proj > cut)]
-    w_split = torch.cat(
-        [member * (cum <= half), member * (cum > half),
-         fx_lo, fx_hi, fy_lo, fy_hi] + pca_cuts, dim=0
-    ) * tk.repeat(12, 1)  # (12K, N)
-    Hs_split = _refit_batch(w_split, _prepare_refit_basis(x1, x2, cfg), cfg)
-    n_eff = (w_split > 0).to(x1.dtype).sum(1)
+    w_split = _split_weights(member, x2 - x1, shard) * tk.repeat(12, 1)
+    Hs_split = _moment_refit(w_split, x1, x2, cfg, basis, shard)
+    n_eff = _psum(shard, (w_split > 0).to(x1.dtype).sum(1))
     ok_split = ((n_eff >= float(cfg.minimal_points))
                 & torch.isfinite(Hs_split.reshape(-1, 9)).all(1)).to(x1.dtype)
     cand = torch.cat([Hs, Hs_split], dim=0)  # (13K, 3, 3)
@@ -839,6 +840,7 @@ def _split_refine(Hs, active, q, x1, x2, valid, nbr_idx, nbr_w,
     cand_idx, active = selection.select_candidates_coverage(
         r_cand, valid, thr, cand_ok, cand.shape[0], k,
         min_gain=float(cfg.min_inliers),
+        reduce=None if shard is None else shard.psum,
     )
     Hs = cand[cand_idx]
     d0s = labeling.data_costs_t(r_cand[cand_idx], valid, thr,
@@ -849,8 +851,66 @@ def _split_refine(Hs, active, q, x1, x2, valid, nbr_idx, nbr_w,
         Hs, active, q,
         range(cfg.pearl_iterations,
               cfg.pearl_iterations + cfg.f_split_iterations),
-        x1, x2, valid, nbr_idx, nbr_w, cfg, tau, adj,
+        x1, x2, valid, nbr_idx, nbr_w, cfg, tau, adj, shard, basis,
     )
+
+
+def _split_weights(member, flow, shard=None):
+    """(K, N) member masks and the (N, 2) flow x2 - x1 -> the (12K, N)
+    member masks of the split move's twelve parts: the Morton-index
+    median, mean cuts of both flow components, quartile cuts of the
+    member flow's principal axis, each as a (lower, upper) pair.
+
+    With a `shard`, both are a 'pt' rank's own points: the ranks gather
+    their member counts (exact integers), the Morton index of a member
+    is the local cumulative count plus the members of the ranks before
+    this one, and the quartile cuts sort the gathered projections. The
+    means and the flow covariance sum over the points in float64,
+    rounded to float32, so that the ranks' partial sums give the single
+    fit's values; the single fit sums them the same way."""
+    n_mem = member.sum(1)
+    if shard is None:
+        before, n_all, n_pts = torch.zeros_like(n_mem), n_mem, member.shape[1]
+    else:
+        counts = shard.mesh.all_gather(n_mem, "pt")  # (pt, K)
+        before = counts[:shard.mesh.axis_index("pt")].sum(0)
+        n_all, n_pts = counts.sum(0), shard.x1.shape[0]
+    cum = torch.cumsum(member, dim=1) + before[:, None]
+    half = n_all[:, None] * 0.5
+    sup_m = torch.clamp_min(n_all, 1.0)[:, None]
+
+    def nsum(t):  # (R, K, N) -> (R, K): a sum over the points
+        return _psum(shard, t.double().sum(-1)).to(t.dtype)
+
+    fx, fy = flow[None, :, 0], flow[None, :, 1]
+    mf = nsum(member[None] * flow.T[:, None, :]).T / sup_m  # (K, 2)
+    mean_cuts = [member * (fx <= mf[:, 0:1]), member * (fx > mf[:, 0:1]),
+                 member * (fy <= mf[:, 1:2]), member * (fy > mf[:, 1:2])]
+    # leading eigenvector of each member set's 2x2 flow covariance,
+    # closed form; a degenerate one falls back to the x axis
+    d0 = fx - mf[:, 0:1]
+    d1 = fy - mf[:, 1:2]
+    ca, cb, cc = nsum(torch.stack([member * d0 * d0, member * d0 * d1,
+                                   member * d1 * d1]))
+    lam = 0.5 * (ca + cc) + torch.sqrt(0.25 * (ca - cc) ** 2 + cb * cb)
+    vx, vy = cb, lam - ca
+    degv = (vx.abs() + vy.abs()) < 1e-12
+    vx = torch.where(degv, 1.0, vx)
+    vy = torch.where(degv, 0.0, vy)
+    proj = vx[:, None] * fx + vy[:, None] * fy
+    # quartile cuts on the principal axis: members first (non-members
+    # sort last as +inf), the cut at floor(support * qf)
+    keyed = torch.where(member > 0, proj, float("inf"))
+    if shard is not None:
+        keyed = shard.gather(keyed)
+    proj_sorted = torch.sort(keyed, dim=1).values
+    pca_cuts = []
+    for qf in (0.25, 0.5, 0.75):
+        pos = torch.clamp((n_all * qf).to(torch.int64), 0, n_pts - 1)
+        cut = torch.gather(proj_sorted, 1, pos[:, None])
+        pca_cuts += [member * (proj <= cut), member * (proj > cut)]
+    return torch.cat([member * (cum <= half), member * (cum > half)]
+                     + mean_cuts + pca_cuts, dim=0)
 
 
 def _trimmed_cost(r_like, member_f, t_idx):
@@ -866,20 +926,35 @@ def _trimmed_cost(r_like, member_f, t_idx):
 
 
 def _f_refine_phases(Hs, active, q, draws, x1, x2, valid, nbr_idx, nbr_w,
-                     cfg: MultiHConfig, tau, adj):
+                     cfg: MultiHConfig, tau, adj, shard=None, basis=None):
     """The fundamental model's refinement phases (pipeline.py:1437-1696):
     f_exclusive_iterations exclusive-core refits, then
     f_resample_iterations member-resample LO moves (f_resample_subsets
     uniform 12-point subsets of every model's members, a trimmed member
     cost, one Tukey refit of the winner). Each move is energy-tested by
-    `_accept`. `active` stays fixed. Returns (Hs, q)."""
+    `_accept`. `active` stays fixed. Returns (Hs, q).
+
+    With a `shard`, the (., N) arrays are a 'pt' rank's own points: the
+    labelings and energies run on the axis, the refits gather their
+    weights, the counts are psums, and what needs every point runs
+    replicated on gathered arrays: the resample's Gumbel top-k on the
+    gathered member masks (every rank draws the whole (k, s, N) Gumbel
+    from its generator, in the same state on every rank), the minimal
+    solves on every point, and the trimmed costs on the gathered
+    residuals. `basis` is every point's refit basis."""
     thr = _thr(cfg, tau, x1)
     k = cfg.max_labels
     dev = x1.device
     use_k = _kernels_enabled(cfg, dev)
-    basis = _prepare_refit_basis(x1, x2, cfg)
+    x1_all, x2_all, valid_all = ((x1, x2, valid) if shard is None
+                                 else (shard.x1, shard.x2, shard.valid))
+    if basis is None:
+        basis = _prepare_refit_basis(x1_all, x2_all, cfg)
     m_min = 1.5 * float(cfg.minimal_points)
     ids = torch.arange(k, device=dev)
+
+    def gathered(t):
+        return t if shard is None else shard.gather(t)
 
     def residuals(Ms):
         return model_residual_matrix(Ms, x1, x2, cfg.residual, cfg)
@@ -897,15 +972,16 @@ def _f_refine_phases(Hs, active, q, draws, x1, x2, valid, nbr_idx, nbr_w,
             dct_e, nbr_idx, nbr_w, cfg.spatial_weight,
             cfg.meanfield_iterations, cfg.temperature_start,
             cfg.temperature, q_init=q0, adj=adj, use_kernel=use_k,
+            shard=shard,
         )
         lab_e = labeling.best_labeling_t(
             [torch.argmax(q_e, dim=0), torch.argmin(dct_e, dim=0)],
             dct_e, nbr_idx, nbr_w, cfg.spatial_weight, cfg.icm_iterations,
-            adj=adj, use_kernel=use_k,
+            adj=adj, use_kernel=use_k, shard=shard,
         )
         e = labeling.total_energy_t(lab_e, dct_e, nbr_idx, nbr_w,
                                     cfg.spatial_weight, cfg.label_cost,
-                                    active, adj=adj)
+                                    active, adj=adj, shard=shard)
         return lab_e, q_e, e
 
     def accept(Hs_c, q_c, r_c, lab_c, e_c, Hs_prop, r_prop, ok_prop):
@@ -927,11 +1003,11 @@ def _f_refine_phases(Hs, active, q, draws, x1, x2, valid, nbr_idx, nbr_w,
             lab_n = labeling.best_labeling_t(
                 [lab_s, torch.argmin(dct_n, dim=0)],
                 dct_n, nbr_idx, nbr_w, cfg.spatial_weight,
-                cfg.icm_iterations, adj=adj, use_kernel=use_k,
+                cfg.icm_iterations, adj=adj, use_kernel=use_k, shard=shard,
             )
             e_n = labeling.total_energy_t(
                 lab_n, dct_n, nbr_idx, nbr_w, cfg.spatial_weight,
-                cfg.label_cost, active, adj=adj,
+                cfg.label_cost, active, adj=adj, shard=shard,
             )
             better = e_n < e_s
             Hs_s = Hs_s.clone()
@@ -950,36 +1026,38 @@ def _f_refine_phases(Hs, active, q, draws, x1, x2, valid, nbr_idx, nbr_w,
             rr_c = torch.clamp(r_c / thr, 0.0, 1.0)
             w_x = members(lab_c) * inl * (n_in == 1.0) * (1.0 - rr_c) ** 2
             core = (w_x > 0).to(x1.dtype)
-            n_core = core.sum(1)
-            Hs_prop = _refit_batch(w_x, basis, cfg)
+            Hs_prop = _moment_refit(w_x, x1, x2, cfg, basis, shard)
             r_prop = residuals(Hs_prop)
             # degeneracy guard: the proposal keeps >= 80% of its own core
             # inside tau before it is energy-tested
-            cov_core = ((r_prop < thr).to(x1.dtype) * core).sum(1) \
-                / torch.clamp_min(n_core, 1.0)
+            n_core, n_kept = _psum(shard, torch.stack(
+                [core.sum(1), ((r_prop < thr).to(x1.dtype) * core).sum(1)]))
+            cov_core = n_kept / torch.clamp_min(n_core, 1.0)
             ok_prop = ((n_core >= m_min) & (cov_core >= 0.8)
                        & all_finite(Hs_prop) & (active > 0))
             Hs, q = accept(Hs, q, r_c, lab_c, e_c, Hs_prop, r_prop, ok_prop)
 
     if cfg.f_resample_lo:
-        m_pts, s_sub, n_pts = 12, cfg.f_resample_subsets, x1.shape[0]
+        m_pts, s_sub, n_pts = 12, cfg.f_resample_subsets, x1_all.shape[0]
         for it in range(cfg.f_resample_iterations):
             r_c = residuals(Hs)
             lab_c, q, e_c = label_energy(r_c, q)
             member_c = members(lab_c)
-            n_mem = member_c.sum(1)
+            member_all = gathered(member_c)
+            n_mem = member_all.sum(1)
             # S uniform 12-subsets of each model's members: Gumbel top-k
             # over the members (pipeline.py:1631-1638); jax.lax.top_k's
             # tie order among the -inf non-members
             g = draws.gumbel(("resample", it), (k, s_sub, n_pts), dev)
-            logits = torch.where(member_c[:, None, :] > 0, g.to(x1.dtype),
+            logits = torch.where(member_all[:, None, :] > 0, g.to(x1.dtype),
                                  float("-inf"))
             _, idx = top_k_stable(logits, m_pts)  # (K, S, 12)
             Fs_cand, ok_solve = _solve_minimal_f(
-                x1, x2, valid, idx.reshape(k * s_sub, m_pts), cfg)
-            r_cand = residuals(Fs_cand).reshape(k, s_sub, n_pts)
+                x1_all, x2_all, valid_all, idx.reshape(k * s_sub, m_pts), cfg)
+            r_both = gathered(torch.cat([residuals(Fs_cand), r_c]))
+            r_cand = r_both[:k * s_sub].reshape(k, s_sub, n_pts)
             t_idx = torch.clamp_min((0.8 * n_mem).to(torch.int64) - 1, 0)
-            cost_cand = _trimmed_cost(r_cand, member_c[:, None, :],
+            cost_cand = _trimmed_cost(r_cand, member_all[:, None, :],
                                       t_idx[:, None])  # (K, S)
             cost_cand = torch.where(ok_solve.reshape(k, s_sub) > 0,
                                     cost_cand, float("inf"))
@@ -990,12 +1068,13 @@ def _f_refine_phases(Hs, active, q, draws, x1, x2, valid, nbr_idx, nbr_w,
             r_best = residuals(F_best)
             w_t = member_c * torch.clamp_min(
                 1.0 - torch.clamp(r_best / thr, 0.0, 1.0), 0.0) ** 2
-            F_ref = _refit_batch(w_t, basis, cfg)
+            F_ref = _moment_refit(w_t, x1, x2, cfg, basis, shard)
             r_ref = residuals(F_ref)
-            cost_ref = torch.where(all_finite(F_ref),
-                                   _trimmed_cost(r_ref, member_c, t_idx),
-                                   float("inf"))
-            cost_inc = _trimmed_cost(r_c, member_c, t_idx)
+            cost_ref = torch.where(
+                all_finite(F_ref),
+                _trimmed_cost(gathered(r_ref), member_all, t_idx),
+                float("inf"))
+            cost_inc = _trimmed_cost(r_both[k * s_sub:], member_all, t_idx)
             take_ref = cost_ref < cost_best
             Hs_prop = torch.where(take_ref[:, None, None], F_ref, F_best)
             r_prop = torch.where(take_ref[:, None], r_ref, r_best)
@@ -1058,10 +1137,9 @@ def check_pt_gate(cfg: MultiHConfig, n_pts: int, mesh) -> None:
     axis over `mesh` (a one-axis 'pt' mesh): the reference's gate
     (sharding.py:93-99, an assert there) -- spatial_sort, agree_block >
     0, N a multiple of agree_block * pt and N >= 2 agree_block -- plus
-    what the port's split needs: the windowed graph (knn_window), whose
-    band reaches one block, an even agree_block (a window keeps its
-    points' index parity for the red-black ICM), and the homography
-    model (the F model's split move and refine phases are not split)."""
+    what the port's split needs: an even agree_block (a window keeps its
+    points' index parity for the red-black ICM). Both models and both
+    graphs (windowed; exact, whose far edges a sweep gathers) shard."""
     npt = mesh.shape["pt"]
     b = cfg.agree_block
     if tuple(mesh.shape) != ("pt",):
@@ -1072,11 +1150,8 @@ def check_pt_gate(cfg: MultiHConfig, n_pts: int, mesh) -> None:
     if n_pts % (b * npt) or n_pts < 2 * b:
         raise ValueError(f"max_points={n_pts} must be a multiple of "
                          f"agree_block*npt={b}*{npt} and >= 2*agree_block")
-    if not cfg.knn_window or b % 2:
-        raise ValueError("pt sharding needs knn_window and an even "
-                         "agree_block")
-    if cfg.model != "homography":
-        raise ValueError("pt sharding runs the homography model")
+    if b % 2:
+        raise ValueError("pt sharding needs an even agree_block")
 
 
 def _check_slice(cfg: MultiHConfig, affines, mesh):
@@ -1133,9 +1208,10 @@ def fit(x1, x2, valid, key, cfg: MultiHConfig, affines=None, tau=None,
     > 1, hypothesis generation and verification split over that axis
     (pipeline.py:1202-1212) and every rank of the axis returns the
     single-device fit's result. A 'pt' mesh (sharding.make_pt_mesh)
-    splits the point axis (`check_pt_gate`): each rank takes a contiguous
-    run of Morton blocks, hypothesis generation runs replicated, the
-    sweeps exchange a one-block halo, the refits gather their weights,
+    splits the point axis (`check_pt_gate`; either model, either graph):
+    each rank takes a contiguous run of Morton blocks, hypothesis
+    generation runs replicated, the sweeps exchange a one-block halo, the
+    refits gather their weights,
     the other sums over the points run over the axis, and every rank
     returns the whole labeling (the reference's
     `_pt_constrain` points, pipeline.py:531). Every rank passes the same
@@ -1172,8 +1248,9 @@ def fit(x1, x2, valid, key, cfg: MultiHConfig, affines=None, tau=None,
     # holds and cfg.knn_window, for both graphs; its band is far-free.
     # Without the gate the labeling takes the gather path (adj None).
     windowed = graph_path(cfg, n_pts) == "windowed"
-    # a 'pt' rank builds its own points' rows (the windowed graph's, the
-    # gate's) and gathers the sampling graph, which generation reads whole
+    # a 'pt' rank builds its own points' rows (of the windowed or the
+    # exact graph) and gathers the sampling graph, which generation reads
+    # whole
     rows = None if shard is None else (shard.lo, shard.hi)
 
     def graph_of(feats):
@@ -1181,7 +1258,7 @@ def fit(x1, x2, valid, key, cfg: MultiHConfig, affines=None, tau=None,
             return labeling.knn_graph_windowed(feats, valid, cfg.knn_k,
                                                cfg.agree_block, rows)
         return labeling.knn_graph(feats, valid, cfg.knn_k,
-                                  cfg.knn_row_block, cfg.knn_approx)
+                                  cfg.knn_row_block, cfg.knn_approx, rows)
 
     def gathered(nbr):
         return nbr if shard is None else shard.gather(nbr.T).T.contiguous()
@@ -1191,8 +1268,8 @@ def fit(x1, x2, valid, key, cfg: MultiHConfig, affines=None, tau=None,
     adj = None
     if shard is not None:
         with record_function("banded_adjacency"):
-            adj = shard.adj = labeling.build_window_adjacency(
-                nbr_idx, nbr_w, shard,
+            adj = labeling.shard_adjacency(
+                nbr_idx, nbr_w, shard, windowed,
                 neighbour_list=_kernels_enabled(cfg, dev))
     elif banded_gate(cfg, n_pts):
         with record_function("banded_adjacency"):
@@ -1249,8 +1326,8 @@ def fit(x1, x2, valid, key, cfg: MultiHConfig, affines=None, tau=None,
     if shard is not None:
         # from here on a 'pt' rank holds its own points only
         own = slice(shard.lo, shard.hi)
-        shard.x1, shard.x2 = x1, x2
-        if cfg.refit_moments:
+        shard.x1, shard.x2, shard.valid = x1, x2, valid
+        if cfg.refit_moments or cfg.model == "fundamental":
             basis = _prepare_refit_basis(x1, x2, cfg)
         x1, x2, valid = x1[own], x2[own], valid[own]
 
@@ -1266,6 +1343,7 @@ def fit(x1, x2, valid, key, cfg: MultiHConfig, affines=None, tau=None,
             cand_idx, cand_active = selection.select_candidates_coverage(
                 r_top, valid, thr, torch.ones_like(grown_counts),
                 cfg.n_candidates, k, min_gain=float(cfg.min_inliers),
+                reduce=None if shard is None else shard.psum,
             )
         else:
             cand_idx, cand_active = selection.select_candidates(
@@ -1290,14 +1368,16 @@ def fit(x1, x2, valid, key, cfg: MultiHConfig, affines=None, tau=None,
     if f_model and cfg.f_split_refine:
         with record_function("split_refine"):
             Hs, active, q, en2 = _split_refine(
-                Hs, active, q, x1, x2, valid, nbr_idx, nbr_w, cfg, tau, adj)
+                Hs, active, q, x1, x2, valid, nbr_idx, nbr_w, cfg, tau, adj,
+                shard, basis)
         energies += en2
     if f_model and (
             (cfg.f_exclusive_refine and cfg.f_exclusive_iterations > 0)
             or (cfg.f_resample_lo and cfg.f_resample_iterations > 0)):
         with record_function("f_refine_phases"):
             Hs, q = _f_refine_phases(Hs, active, q, draws, x1, x2, valid,
-                                     nbr_idx, nbr_w, cfg, tau, adj)
+                                     nbr_idx, nbr_w, cfg, tau, adj, shard,
+                                     basis)
 
     with record_function("finalize"):
         r = model_residual_matrix(Hs, x1, x2, cfg.residual, cfg)
@@ -1328,7 +1408,8 @@ def fit(x1, x2, valid, key, cfg: MultiHConfig, affines=None, tau=None,
         energy=trace[-1],
         energy_trace=trace,
         n_hypotheses_ok=n_hyp_ok,
-        n_far_dropped=(_psum(shard, adj.n_dropped) if adj is not None
+        n_far_dropped=(shard.n_dropped if shard is not None
+                       else adj.n_dropped if adj is not None
                        else torch.zeros((), dtype=torch.int32, device=dev)),
     )
 

@@ -69,6 +69,7 @@ def select_candidates_coverage(
     n_candidates: int,
     max_labels: int,
     min_gain: float = 4.0,
+    reduce=None,
 ):
     """Greedy marginal-coverage selection of K candidates among the top-M
     by count: each round picks the hypothesis covering the most
@@ -78,9 +79,14 @@ def select_candidates_coverage(
     The fundamental model's rule (selection.py:98-153): one F often
     bridges two motions and outcounts every pure model, so count + NMS
     would fill the roster with bridges; once a bridge is taken its points
-    stop counting. Returns (cand_idx (K,), cand_active (K,) float)."""
+    stop counting. Returns (cand_idx (K,), cand_active (K,) float).
+    `reduce` sums the counts and each round's gains over a 'pt' mesh's
+    ranks, each holding its points' residuals."""
+    if reduce is None:
+        def reduce(t):
+            return t
     masks = inlier_mask(residuals, threshold_sq, valid)  # (S, N)
-    counts = masks.sum(1) * hypothesis_ok
+    counts = reduce(masks.sum(1)) * hypothesis_ok
     top_counts, top_idx = top_k_stable(counts, n_candidates)
     top_masks = masks[top_idx] * (top_counts > 0).to(masks.dtype)[:, None]
 
@@ -89,7 +95,7 @@ def select_candidates_coverage(
     picked = torch.zeros(max_labels, dtype=torch.int64, device=dev)
     picked_ok = torch.zeros(max_labels, dtype=torch.float32, device=dev)
     for k in range(max_labels):
-        gain = top_masks @ uncovered  # exact: integer sums < 2^24
+        gain = reduce(top_masks @ uncovered)  # exact: integer sums < 2^24
         best = torch.argmax(gain).view(1)
         ok = gain[best] >= min_gain  # (1,)
         picked[k:k + 1] = best

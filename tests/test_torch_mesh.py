@@ -306,9 +306,11 @@ def pt_single():
 def test_pt_sharded_fit_equals_fit(ranks_dir, pt_single, ranks, case):
     """pt_sharded_fit on 4 and 2 gloo ranks (2 and 4 Morton blocks a
     rank) against the port's unsharded fit with the same generator seed
-    (tests/test_sharding.py:338-377 at a cut-down N): labels and active
-    exact on every rank, energy within rtol 1e-3, misclassification
-    under 2%; also with the direct refit (refit_moments=False)."""
+    (tests/test_sharding.py:338-377 at a cut-down N): labels, active,
+    n_hypotheses_ok and n_far_dropped exact on every rank, energy within
+    rtol 1e-3, misclassification under 2%; also with the direct refit
+    (refit_moments=False), the fundamental model and the exact graph
+    (with and without far edges past the far list's capacity)."""
     ref, cs = pt_single[case]
     k = R.PT["max_labels"]
     for rank in ranks:
@@ -318,11 +320,49 @@ def test_pt_sharded_fit_equals_fit(ranks_dir, pt_single, ranks, case):
         np.testing.assert_array_equal(got["active"], ref.active.numpy())
         np.testing.assert_array_equal(got["n_hypotheses_ok"],
                                       ref.n_hypotheses_ok.numpy())
+        np.testing.assert_array_equal(got["n_far_dropped"],
+                                      ref.n_far_dropped.numpy())
         np.testing.assert_allclose(got["energy"], ref.energy.numpy(),
                                    rtol=1e-3)
         err = evaluation.misclassification_error(
             got["labels"][:cs.n_points], cs.gt_labels, k)
         assert err < 2.0, err
+
+
+def test_pt_exact_cut_drops_far_edges(pt_single):
+    """The "exact_cut" case's far list overflows its capacity, so the
+    sharded fits above hold the capacity cut; "exact" has far edges but
+    none dropped."""
+    assert int(pt_single["exact_cut"][0].n_far_dropped) > 0
+    assert int(pt_single["exact"][0].n_far_dropped) == 0
+
+
+def test_pt_f_pieces_equal_unsharded(ranks_dir):
+    """The F model's split weights (`_split_weights`: the Morton median
+    from the local cumulative count and the members of the ranks before,
+    the flow means and covariance summed over the axis, the quartile cuts
+    on the gathered projections) and a union merge that fires (motion
+    1's members split between two slots) on each rank of the 4-rank
+    mesh, against the same functions without a shard: the rank's columns
+    of the split weights, the merged F's and active bit-equal, and the
+    merge's float64 scores (minus each pair's data-cost increase, under a
+    label cost that lets every covering pair through) within rtol
+    1e-12."""
+    cfg = mt.MultiHConfig(**R.PT_CASES["fmodel"][0])
+    ref = R.pt_f_pieces(None, cfg)
+    assert ref["active"].sum() == 3  # slot 3 merged into slot 0
+    n_own = cfg.max_points // WORLD
+    for rank in range(WORLD):
+        got = load(ranks_dir, "pt4_f_pieces", rank)
+        own = slice(rank * n_own, (rank + 1) * n_own)
+        np.testing.assert_array_equal(got["split"], ref["split"][:, own])
+        np.testing.assert_array_equal(got["Hs"], ref["Hs"])
+        np.testing.assert_array_equal(got["active"], ref["active"])
+        finite = np.isfinite(ref["score"])
+        assert finite.any()
+        np.testing.assert_array_equal(np.isfinite(got["score"]), finite)
+        np.testing.assert_allclose(got["score"][finite],
+                                   ref["score"][finite], rtol=1e-12)
 
 
 def test_pt_gate_refused(ranks_dir):

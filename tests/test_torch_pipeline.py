@@ -343,24 +343,38 @@ def test_out_of_slice_raises(kw):
 
 @pytest.mark.parametrize("model", ["homography", "fundamental"])
 def test_out_of_slice_arguments_raise(model):
-    """A 'pt' (point) mesh runs the homography model on the windowed graph
-    (tests/test_torch_mesh.py); without knn_window, or for the
-    fundamental model, the fit raises the port's gate's ValueError
-    (pipeline.check_pt_gate). Affine hypotheses run for homographies
-    (tests/test_torch_affine.py holds them to the reference) and raise
-    the reference's ValueError for the fundamental model; seed
-    homographies are in the port (tests/test_torch_stream.py)."""
+    """A 'pt' (point) mesh runs both models on both graphs: on a one-rank
+    'pt' mesh the exact graph (knn_window=False) with this model equals
+    `fit` without a mesh, every output bit for bit
+    (tests/test_torch_mesh.py holds 2 and 4 ranks), and a block that does
+    not divide N or is odd raises the gate's ValueError
+    (pipeline.check_pt_gate).
+    Affine hypotheses run for homographies (tests/test_torch_affine.py
+    holds them to the reference) and raise the reference's ValueError for
+    the fundamental model; seed homographies are in the port
+    (tests/test_torch_stream.py)."""
     cfg = mt.MultiHConfig(max_points=512, knn_window=False, model=model)
     z = torch.zeros((512, 2))
     pt_mesh = Mesh([0], ("pt",), device="cpu")
-    with pytest.raises(ValueError, match="pt sharding needs knn_window"):
-        mt.fit(z, z, torch.ones(512), torch.Generator(), cfg, mesh=pt_mesh)
-    with pytest.raises(ValueError, match="pt sharding runs the homography"
-                       if model == "fundamental" else "multiple of"):
+    if model == "fundamental":
+        cs, _ = tdata.synthetic_motion_scene(300, 2, 0.1, 0.5, seed=3)
+        cfg_pt = dataclasses.replace(cfg, residual="sampson",
+                                     n_hypotheses=256, max_labels=8)
+    else:
+        cs, _ = tdata.synthetic_scene(300, 2, 0.1, 0.5, seed=21)
+        cfg_pt = dataclasses.replace(cfg, n_hypotheses=256)
+    args = mt.pad_points(cs.x1, cs.x2, None, 512)
+    got, ref = (mt.fit(*args, torch.Generator().manual_seed(0), cfg_pt,
+                       mesh=m, device="cpu") for m in (pt_mesh, None))
+    assert int(ref.active.sum()) == 2
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="multiple of"):
         mt.fit(z, z, torch.ones(512), torch.Generator(), dataclasses.replace(
-            cfg, knn_window=True,
-            agree_block=256 if model == "fundamental" else 384),
-            mesh=pt_mesh)
+            cfg, agree_block=384), mesh=pt_mesh)
+    with pytest.raises(ValueError, match="even agree_block"):
+        mt.fit(z, z, torch.ones(512), torch.Generator(), dataclasses.replace(
+            cfg, agree_block=1), mesh=pt_mesh)
     if model == "fundamental":
         with pytest.raises(ValueError, match="affine"):
             mt.fit(z, z, torch.ones(512), torch.Generator(), cfg,

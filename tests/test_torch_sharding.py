@@ -166,8 +166,9 @@ def test_mesh_raises(tcfg, mixed_cfgs, pairs, fn):
     """With a mesh of one rank (no process group) each surface equals the
     call without a mesh, bit for bit, its arrays on the mesh's device;
     the multi-rank meshes are tests/test_torch_mesh.py's. A 'pt' (point)
-    mesh reaches the fit, whose gate (pipeline.check_pt_gate) refuses
-    the tiny config's 128 points under agree_block 256 with a
+    mesh reaches the fit, whose gate (pipeline.check_pt_gate) admits
+    either model on either graph but refuses the tiny config's 128
+    points under agree_block 256 (N not a multiple of the block) with a
     ValueError."""
     m1 = tshard.make_mesh(device="cpu")
     x1, x2, valid = (np.stack(a) for a in zip(*(

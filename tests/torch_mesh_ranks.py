@@ -53,18 +53,31 @@ HYP2_ROWS = (("tiny_vs1", "fundamental"), ("tiny_vs4", "window"),
              ("seeded", "affine"))
 
 # 'pt' (point) axis cases: name -> (config, scene seed, key seed); 8
-# Morton blocks of 64, 2 a rank on the 4-rank mesh, 4 on the 2-rank ones
+# Morton blocks of 64, 2 a rank on the 4-rank mesh, 4 on the 2-rank ones.
+# The homography cases fit a 3-plane scene, "fmodel" a 3-motion scene
+# (the split move, the exclusive refine, resample-LO and the union merge
+# all run). "exact" takes the exact graph, whose far edges a sweep
+# gathers; "exact_cut" the same with 16 blocks of 32 and 8 neighbours, so
+# that the far list's capacity cuts 214 edges
 PT = dict(max_points=512, agree_block=64, n_hypotheses=512, n_candidates=64,
           max_labels=8)
+EXACT = dict(PT, knn_window=False, knn_approx=False)
 PT_CASES = {
     "plain": (PT, 5, 0),
     "window_vs4": (dict(PT, window_sampling=True, verify_subsample=4), 8, 3),
     "direct": (dict(PT, refit_moments=False), 9, 1),
+    "fmodel": (dict(PT, model="fundamental", residual="sampson",
+                    inlier_threshold=3.0), 7, 2),
+    "exact": (EXACT, 6, 4),
+    "exact_cut": (dict(EXACT, agree_block=32, knn_k=8), 6, 4),
 }
 # (mesh ranks, case) of every 'pt' fit: all four ranks, then the two
 # 2-rank meshes at once
 PT_RUNS = (((0, 1, 2, 3), "plain"), ((0, 1, 2, 3), "direct"),
-           ((0, 1), "plain"), ((2, 3), "window_vs4"))
+           ((0, 1, 2, 3), "fmodel"), ((0, 1, 2, 3), "exact"),
+           ((0, 1, 2, 3), "exact_cut"),
+           ((0, 1), "plain"), ((2, 3), "window_vs4"),
+           ((0, 1), "fmodel"), ((2, 3), "exact"), ((0, 1), "exact_cut"))
 # the windowed sweeps' check: N, B, labels, starts, sweeps
 PT_SWEEPS = dict(n=512, block=64, labels=9, starts=2, sweeps=4)
 
@@ -74,10 +87,16 @@ BATCH_TAUS = [3.0, 4.5, 3.0, 3.5, 4.0]
 
 
 def pt_inputs(case):
-    """(x1, x2, valid) numpy, the config and the key seed of a 'pt'
-    case: a 3-plane scene of 470 points padded to 512."""
+    """(x1, x2, valid) numpy, the config, the key seed and the scene of a
+    'pt' case: a 3-plane scene of 470 points padded to 512 (30% outliers
+    on the exact graph), or a 3-motion one for the F model."""
     cfg, seed, key = PT_CASES[case]
-    cs, _ = tdata.synthetic_scene(470, 3, 0.1, 0.5, seed=seed)
+    if cfg.get("model") == "fundamental":
+        cs, _ = tdata.synthetic_motion_scene(470, 3, 0.1, 0.5, seed=seed)
+    else:
+        cs, _ = tdata.synthetic_scene(
+            470, 3, 0.1 if cfg.get("knn_window", True) else 0.3, 0.5,
+            seed=seed)
     return (mt.pad_points(cs.x1, cs.x2, None, cfg["max_points"]),
             mt.MultiHConfig(**cfg), key, cs)
 
@@ -122,6 +141,64 @@ def pt_sweeps(shard, spatial_weight=0.7):
         spatial_weight, shard.window, use_kernel=False)
     return {"band": adj.band.numpy(), "deg": adj.deg.numpy(),
             "q": q.numpy(), "labels": lab.numpy()}
+
+
+def pt_f_inputs():
+    """The F model's split and union-merge pieces on the "fmodel" case's
+    Morton-sorted scene, numpy: x1, x2, valid; the split's (K, N) member
+    masks (random labels) and (K, N) residual-like weights; and a union
+    merge that fires: the three true F's, motion 1's F again in slot 3,
+    motion 1's members split between slots 0 and 3 (members (K, N),
+    active (K,), Hs (K, 3, 3))."""
+    (x1, x2, valid), cfg, _, cs = pt_inputs("fmodel")
+    _, Fs = tdata.synthetic_motion_scene(470, 3, 0.1, 0.5,
+                                         seed=PT_CASES["fmodel"][1])
+    gt = np.pad(cs.gt_labels, (0, cfg.max_points - cs.n_points))
+    perm = pipeline.morton_order(torch.from_numpy(x1),
+                                 torch.from_numpy(valid)).numpy()
+    x1, x2, valid, gt = x1[perm], x2[perm], valid[perm], gt[perm]
+    k, n = cfg.max_labels, cfg.max_points
+    rng = np.random.default_rng(13)
+    lab = rng.integers(0, k + 1, n)
+    member = ((lab[None, :] == np.arange(k)[:, None]) * valid).astype(
+        np.float32)
+    tk = rng.uniform(0.0, 1.0, (k, n)).astype(np.float32)
+    Hs = np.tile(np.eye(3, dtype=np.float32), (k, 1, 1))
+    Hs[:3] = Fs
+    Hs[3] = Fs[0]
+    m_gt = ((gt[None, :] == np.arange(1, k + 1)[:, None]) * valid)
+    split = np.arange(n) % 2 == 1
+    m_gt[3] = m_gt[0] * split
+    m_gt[0] = m_gt[0] * ~split
+    active = np.zeros(k, np.float32)
+    active[:4] = 1.0
+    return dict(x1=x1, x2=x2, valid=valid, member=member, tk=tk, Hs=Hs,
+                union_members=m_gt.astype(np.float32), active=active)
+
+
+def pt_f_pieces(shard, cfg):
+    """`_split_weights` and `_union_refit_merge` on pt_f_inputs, with
+    `shard` (a 'pt' rank's own points, shard.x1 / x2 / valid every
+    point's) or without (every point)."""
+    a = {k: torch.from_numpy(v) for k, v in pt_f_inputs().items()}
+    thr = torch.tensor(cfg.inlier_threshold ** 2)
+    if shard is not None:
+        shard.x1, shard.x2, shard.valid = a["x1"], a["x2"], a["valid"]
+        own = slice(shard.lo, shard.hi)
+        a = {k: (v[..., own] if v.ndim == 2 and v.shape[-1] > 2 else
+                 v[own] if k in ("x1", "x2", "valid") else v)
+             for k, v in a.items()}
+    w = pipeline._split_weights(a["member"], a["x2"] - a["x1"], shard)
+    r = pipeline.model_residual_matrix(a["Hs"], a["x1"], a["x2"],
+                                       cfg.residual, cfg)
+    Hs, active = pipeline._union_refit_merge(
+        a["Hs"], a["active"], a["union_members"], r, a["x1"], a["x2"], thr,
+        cfg, shard)
+    _, score = pipeline._union_scores(
+        a["active"], a["union_members"], r, a["x1"], a["x2"], thr,
+        dataclasses.replace(cfg, label_cost=1e9), shard)
+    return {"split": (w * a["tk"].repeat(12, 1)).numpy(), "Hs": Hs.numpy(),
+            "active": active.numpy(), "score": score.numpy()}
 
 
 def fit_config(case):
@@ -292,6 +369,9 @@ def mesh_rank(rank, device, out_dir):
     pt4 = pt_meshes[(0, 1, 2, 3)]
     shard = labeling.PointShard(pt4, PT_SWEEPS["n"], PT_SWEEPS["block"])
     _save(out_dir, "pt4_sweeps", rank, pt_sweeps(shard))
+    cfg_f = mt.MultiHConfig(**PT_CASES["fmodel"][0])
+    _save(out_dir, "pt4_f_pieces", rank, pt_f_pieces(
+        labeling.PointShard(pt4, cfg_f.max_points, cfg_f.agree_block), cfg_f))
     try:  # 512 points are not a multiple of 256 * 4
         sharding.pt_sharded_fit(mt.MultiHConfig(max_points=512), pt4)
         refused = ""
