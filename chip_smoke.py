@@ -137,7 +137,25 @@ Phases, each raising on failure:
      sharded verification, the hyp-sharded F fit, the 'pt' homography
      and F fits and the pair-sharded mixed fit at the reference's tiny
      shapes, each asserted on known labels, each rank's launches
-     counted.
+     counted;
+ 14. the homography fit's four kinds captured as CUDA graphs
+     (utils/aot.cached_fit): fit at the default config on easy2_a (N=512)
+     and on BASELINE config 2 (N=1024, exact from the replay), fit on the
+     fused-front route (K6) and at the stress cell (K7, N=10240),
+     fit_tau, fit_seeded (the stream's seeds) and fit_adaptive. On each:
+     no synchronizing call in the eager fit (sync debug mode), eager
+     equal to eager, the first call (warm-up, capture, replay) and a
+     second seed's replay equal to their eager twins bit for bit with the
+     generator left in the same state, the launches a replay by kernel
+     (the wrappers' counts during the capture), the capture's seconds
+     and graph pool bytes; at N=512, N=1024 and the stress cell the warm
+     median of replay and eager in turns, the device busy time of each
+     and the profiler's kernels in a replay (where the profile came back
+     whole). Then `python -m
+     multih_tpu_torch.cli synth --aot --json` in a fresh process on an
+     empty and on a filled cache root, beside the run without --aot (the
+     same results), and a truncated library under a temporary cache root
+     rebuilt once.
 Then one JSON line of per-kernel results, the card line, and the last
 line {"ok": true, "device": {...}}. Without a CUDA device, or outside
 the repository, it exits nonzero and prints no result.
@@ -2672,6 +2690,355 @@ def phase_dryrun():
     return dict(res[0], seconds=seconds), launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the homography fit's kinds captured as CUDA graphs (utils/aot.py)
+# ---------------------------------------------------------------------------
+
+# the kernels' symbols in a profile of a replay -> their wrappers' names
+AOT_SYMBOLS = (("count_kernel", "inlier_counts"), ("dlt_gt", "dlt_4pt"),
+               ("eig_kernel", "eig9_smallest"), ("band_list", "band_list"),
+               ("mf_grid", "mean_field_fused"), ("icm_grid", "icm_fused"),
+               ("mf_front_grid", "mean_field_fused_front"),
+               ("window_gather_kernel", "window_gather"))
+K15 = ("inlier_counts", "dlt_4pt", "eig9_smallest", "mean_field_fused",
+       "icm_fused", "band_list")
+
+
+def _aot_cases(dev):
+    """Phase 14's cells: (label, cfg, kind, (x1, x2, valid), extra,
+    kernels the replay must launch, timed)."""
+    import torch
+
+    import multih_tpu_torch as mt
+    from multih_tpu_torch import MultiHConfig
+    from multih_tpu_torch.utils import data, streaming
+
+    easy = _suite_points(data.suite_scene("easy2_a"), 512, dev)
+    tau = float(np.load(os.path.join(ROOT, "tests", "goldens",
+                                     "easy2_a.npz"))["inlier_threshold"])
+    cs, _ = data.synthetic_scene(1000, 2, 0.0, 0.0)
+    base2 = _to(dev, *mt.pad_points(cs.x1, cs.x2, None, 1024))
+    cs, _ = data.synthetic_scene(10000, 8, 0.7, 0.5, seed=42)
+    stress = _to(dev, *mt.pad_points(cs.x1, cs.x2, None, 10240))
+    cs, _ = data.synthetic_scene(400, 3, 0.15, 1.0, seed=117)
+    noisy = _to(dev, *mt.pad_points(cs.x1, cs.x2, None, 512))
+    # the stream's second frame, seeded with the first frame's planes
+    scfg = MultiHConfig(max_points=512, n_hypotheses=1024)
+    frames = [_suite_points(f, 512, dev) for f in streaming.SyntheticStream(
+        n_frames=2, n_points=480, n_planes=3, seed=0)]
+    prev = mt.make_fit_seeded(scfg)(
+        *frames[0], torch.Generator(device=dev).manual_seed(0),
+        torch.eye(3, device=dev).expand(scfg.max_labels, 3, 3),
+        torch.zeros((scfg.max_labels,), device=dev))
+    k7 = ("inlier_counts", "dlt_4pt", "eig9_smallest", "mean_field_fused",
+          "icm_fused", "band_list", "window_gather")
+    return [
+        ("fit N=512", MultiHConfig(max_points=512), "fit", easy, (), K15,
+         True),
+        ("fit N=1024 BASELINE 2", MultiHConfig(max_points=1024), "fit",
+         base2, (), K15, True),
+        ("fit fused front", MultiHConfig(max_points=512,
+                                         mrf_fused_front=True), "fit", easy,
+         (), ("inlier_counts", "dlt_4pt", "eig9_smallest",
+              "mean_field_fused_front", "icm_fused", "band_list"), False),
+        ("fit stress", stress_cfg(), "fit", stress, (), k7, True),
+        ("fit_tau", MultiHConfig(max_points=512), "fit_tau", easy, (tau,),
+         K15, False),
+        ("fit_seeded", scfg, "fit_seeded", frames[1],
+         (prev.homographies, prev.active), K15, False),
+        ("fit_adaptive", MultiHConfig(max_points=512), "fit_adaptive",
+         noisy, (), K15, False),
+    ]
+
+
+def _fit_diff(a, b) -> list:
+    """The leaves in which two fit results (a FitResult, or (FitResult,
+    tau)) differ, bit for bit."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return [] if torch.equal(a, b) else ["tau"]
+    if not hasattr(a, "_fields"):
+        return _fit_diff(a[0], b[0]) + _fit_diff(a[1], b[1])
+    return [n for n in a._fields
+            if not torch.equal(getattr(a, n), getattr(b, n))]
+
+
+def _sync_sites(fn) -> dict:
+    """{file:line: count} of every synchronizing CUDA call fn() makes
+    (torch.cuda.set_sync_debug_mode("warn")): host reads of device
+    values and host-to-device copies from pageable memory, which a CUDA
+    graph cannot capture."""
+    import collections
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return dict(collections.Counter(
+        f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message)))
+
+
+def _profile_replays(fn, calls: int = 3):
+    """(device busy ms a call, {kernel: launches a call} of the port's
+    kernels, device events a call) of `calls` warm calls of fn in one
+    torch.profiler session (the counts None where some event name did
+    not come back a multiple of `calls` times: a profile can lose
+    events)."""
+    import collections
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        busy = busy_us(prof.key_averages()) / calls / 1e3
+        if busy > 0:
+            break
+    check(busy > 0, "the profiler saw no device time")
+    names = collections.Counter(
+        e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+        and not getattr(e, "is_user_annotation", False))
+    if not all(c % calls == 0 for c in names.values()):
+        return busy, None, None
+    kernels = {}
+    for name, c in names.items():
+        for sym, kernel in AOT_SYMBOLS:
+            if sym in name:
+                kernels[kernel] = kernels.get(kernel, 0) + c // calls
+    return busy, kernels, sum(names.values()) // calls
+
+
+def _aot_cold_starts() -> dict:
+    """Host seconds of `python -m multih_tpu_torch.cli synth --json` in a
+    fresh process: with --aot on an empty cache root (the kernel build +
+    the captures), again on the filled root (load + captures), and
+    without --aot on the default build (load, eager fits); the --aot
+    runs' results equal the plain run's (a replay is the eager fit)."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="aot_cold_", dir=os.path.join(ROOT,
+                                                                 "build"))
+    out = {}
+    try:
+        for label, extra, env in (
+                ("aot_empty", ["--aot"], {"MULTIH_AOT_CACHE": root}),
+                ("aot_filled", ["--aot"], {"MULTIH_AOT_CACHE": root}),
+                ("plain", [], {})):
+            env = dict({k: v for k, v in os.environ.items()
+                        if k != "MULTIH_AOT_CACHE"}, MULTIH_AOT="", **env)
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "multih_tpu_torch.cli", "synth",
+                 "--json", *extra], cwd=ROOT, env=env, capture_output=True,
+                text=True, timeout=600)
+            wall = time.perf_counter() - t0
+            check(proc.returncode == 0,
+                  f"cli synth {extra}: {proc.stderr[-2000:]}")
+            res = json.loads(proc.stdout.strip().splitlines()[-1])
+            out[label] = dict(seconds=wall, first_fit_s=res["time_total_s"],
+                              warm_fit_s=res["time_warm_s"], result=res)
+            print(f"cli synth --json {' '.join(extra)} ({label}): "
+                  f"{wall:.2f} s in all, first fit {res['time_total_s']} s,"
+                  f" warm fit {res['time_warm_s']} s, planes "
+                  f"{res['n_planes_found']}, misclassification "
+                  f"{res['misclassification_pct']:.3f}%")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for label in ("aot_empty", "aot_filled"):
+        for key in ("n_planes_found", "support", "homographies", "energy",
+                    "misclassification_pct"):
+            check(out[label]["result"][key] == out["plain"]["result"][key],
+                  f"cli synth --aot ({label}) {key} differs from the plain "
+                  f"run's")
+    return {k: {kk: vv for kk, vv in v.items() if kk != "result"}
+            for k, v in out.items()}
+
+
+def _aot_rebuild() -> dict:
+    """A copy of the library under a temporary cache root, truncated:
+    _build.open_library rebuilds it once, with a warning, and the rebuilt
+    library answers."""
+    import ctypes
+    import logging
+    import shutil
+    import tempfile
+
+    from multih_tpu_torch.ops.kernels import _build
+
+    root = tempfile.mkdtemp(prefix="aot_rebuild_",
+                            dir=os.path.join(ROOT, "build"))
+    try:
+        src = _build.library_path()
+        dst = _build.library_path(root)
+        dst.parent.mkdir(parents=True)
+        shutil.copy2(src, dst)
+        with open(dst, "r+b") as fh:
+            fh.truncate(4096)  # dlopen would map it and fault past 4096
+        records = []
+        handler = logging.Handler()
+        handler.emit = records.append
+        _build.log.addHandler(handler)
+        try:
+            lib, path, seconds, rebuilt = _build.open_library(root)
+        finally:
+            _build.log.removeHandler(handler)
+        buf = (ctypes.c_int * 3)()
+        rc = lib.multih_inlier_counts_limits(buf)
+        warned = [r.getMessage() for r in records
+                  if r.levelno >= logging.WARNING]
+        print(f"library truncated to 4096 bytes under a temporary cache "
+              f"root: rebuilt {rebuilt} in {seconds:.2f} s, warning "
+              f"{warned[0][:160] if warned else None!r}, limits rc {rc} "
+              f"{list(buf)}")
+        check(rebuilt and path == dst and warned and rc == 0
+              and os.path.getsize(dst) > 4096,
+              "a truncated library was not rebuilt once, with a warning")
+        return dict(rebuilt=rebuilt, seconds=seconds)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_aot(dev):
+    """Phase 14: utils/aot.cached_fit on each of _aot_cases' cells. On
+    each: the eager fit makes no synchronizing call; eager equals eager
+    and the first call (warm-up, capture, replay) equals the eager fit
+    given equal generator states, every leaf bit for bit and the
+    generator's final state; a replay on a second seed equals its eager
+    twin and differs from the first; the replay launches every kernel of
+    the path (the wrappers' counts during the capture, and the profiler's
+    device events of a replay); the capture's seconds and pool bytes; at
+    N=512, N=1024 and the stress cell, the warm median of replay and
+    eager in turns and the device busy time of each. Then the CLI's cold
+    start with and without --aot, and the rebuild of a truncated
+    library."""
+    import torch
+
+    from multih_tpu_torch.models import pipeline
+    from multih_tpu_torch.utils import aot, data, evaluation
+
+    print("== 14. the homography fit's kinds captured as CUDA graphs "
+          "(utils/aot.py)")
+    t_start = time.perf_counter()
+    out, launches = {}, {}
+    for label, cfg, kind, pts, extra, expect, timed in _aot_cases(dev):
+        t_cell = time.perf_counter()
+        maker = {"fit": pipeline.make_fit, "fit_tau": pipeline.make_fit_tau,
+                 "fit_seeded": pipeline.make_fit_seeded,
+                 "fit_adaptive": pipeline.make_fit_adaptive}[kind](cfg)
+
+        def run(fn, seed):
+            g = torch.Generator(device=dev).manual_seed(seed)
+            res = fn(*pts, g, *extra)
+            torch.cuda.synchronize()
+            return res, g.get_state()
+
+        if not out:  # the detector sees a host read
+            probe = _sync_sites(lambda: torch.zeros(1, device=dev).item())
+            check(probe, "the sync debug mode saw no .item()")
+            print(f"sync debug mode on .item(): {probe}")
+        sites = _sync_sites(lambda: run(maker, 0))
+        check(not sites, f"{label}: synchronizing calls in the eager fit: "
+              f"{sites}")
+        e0, s0 = run(maker, 0)
+        e0b, s0b = run(maker, 0)
+        diff = _fit_diff(e0, e0b)
+        check(not diff and torch.equal(s0, s0b),
+              f"{label}: eager differs from eager in {diff}")
+        fn = aot.cached_fit(cfg, kind, device=dev)
+        (r0, g0), launches[f"aot {label}"] = count_launches(
+            f"aot {label} (warm-up, capture, replay)", expect,
+            lambda: run(fn, 0), quiet=True)
+        diff = _fit_diff(r0, e0)
+        check(not diff and torch.equal(g0, s0),
+              f"{label}: the replay differs from the eager fit in {diff} "
+              f"(generator state equal: {torch.equal(g0, s0)})")
+        r1, g1 = run(fn, 1)
+        e1, s1 = run(maker, 1)
+        diff = _fit_diff(r1, e1)
+        check(not diff and torch.equal(g1, s1),
+              f"{label}: the seed-1 replay differs from its eager twin in "
+              f"{diff}")
+        check(_fit_diff(r0, r1), f"{label}: two seeds, one result")
+        per_replay = {k: v for k, v in fn.launches.items() if v}
+        for k in expect:
+            check(fn.launches[k] > 0, f"{label}: {k} not in the graph")
+        res0 = r0[0] if kind == "fit_adaptive" else r0
+        row = dict(kind=kind, max_points=cfg.max_points,
+                   warmup_s=fn.warmup_s, capture_s=fn.capture_s,
+                   pool_bytes=fn.pool_bytes, launches_per_replay=per_replay,
+                   planes=int(res0.active.sum()))
+        if label.endswith("BASELINE 2"):
+            cs, _ = data.synthetic_scene(1000, 2, 0.0, 0.0)
+            err = evaluation.misclassification_error(
+                res0.labels.cpu().numpy()[:1000], cs.gt_labels,
+                cfg.max_labels)
+            row["misclassification"] = err
+            check(err == 0.0 and row["planes"] == 2,
+                  f"{label}: not recovered exactly from the replay "
+                  f"({row['planes']} planes, {err}%)")
+        if timed:
+            reps = 3 if cfg.max_points > 1024 else 10
+            t = {"replay": [], "eager": []}
+            for _ in range(reps):
+                t["replay"] += host_ms(lambda: fn(*pts, torch.Generator(
+                    device=dev).manual_seed(5), *extra), reps=1)
+                t["eager"] += host_ms(lambda: maker(*pts, torch.Generator(
+                    device=dev).manual_seed(5), *extra), reps=1)
+            for how in ("replay", "eager"):
+                row[f"{how}_ms"] = t[how]
+                row[f"{how}_median_ms"] = statistics.median(t[how])
+            # the replay's device busy time and, where the profile came
+            # back whole, its kernels by name and its device events
+            (row["replay_busy_ms"], row["profiler_per_replay"],
+             row["device_events_per_replay"]) = _profile_replays(
+                lambda: fn(*pts, torch.Generator(device=dev).manual_seed(5),
+                           *extra), calls=2)
+            check(row["profiler_per_replay"] in (None, per_replay),
+                  f"{label}: the profiler saw "
+                  f"{row['profiler_per_replay']} in a replay, the capture "
+                  f"{per_replay}")
+            row["eager_busy_ms"] = device_ms(
+                lambda: maker(*pts, torch.Generator(device=dev).manual_seed(
+                    5), *extra), reps=2)
+        row["seconds"] = time.perf_counter() - t_cell
+        out[label] = row
+        print(f"aot {label}: replay = eager bit for bit on seeds 0 and 1 "
+              f"(and the generator's state); warm-up {fn.warmup_s:.3f} s, "
+              f"capture {fn.capture_s:.3f} s, graph pool "
+              f"{fn.pool_bytes} bytes; launches a replay {per_replay}; "
+              f"planes {row['planes']}; {row['seconds']:.1f} s"
+              + (f"; the profiler's kernels a replay "
+                 f"{row['profiler_per_replay']}, device events a replay "
+                 f"{row['device_events_per_replay']}; warm median replay "
+                 f"{row['replay_median_ms']:.2f} ms (device busy "
+                 f"{row['replay_busy_ms']:.3f}) against eager "
+                 f"{row['eager_median_ms']:.2f} ms (busy "
+                 f"{row['eager_busy_ms']:.3f}), {len(row['replay_ms'])} "
+                 f"each in turns [{card_line()}]" if timed else ""))
+    out["cold_start"] = _aot_cold_starts()
+    out["rebuild"] = _aot_rebuild()
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"phase 14: {out['seconds']:.1f} s")
+    return out, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2706,6 +3073,8 @@ def main(argv=None) -> int:
     launches.update(pt_launches)
     dryrun_out, dryrun_launches = phase_dryrun()
     launches.update(dryrun_launches)
+    aot_out, aot_launches = phase_aot(dev)
+    launches.update(aot_launches)
     if args.profile:
         profile_fit()
         profile_stress()
@@ -2732,7 +3101,7 @@ def main(argv=None) -> int:
                       "adaptive": adaptive, "stream": stream,
                       "mixed": mixed, "surfaces": surfaces,
                       "mesh": mesh_out, "pt": pt_out,
-                      "dryrun": dryrun_out}))
+                      "dryrun": dryrun_out, "aot": aot_out}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

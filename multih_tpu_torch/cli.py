@@ -6,8 +6,14 @@ Counterpart of ``multih_tpu/cli.py`` with the same subcommands and
 arguments, run on a CUDA card by default (``--device``, in place of the
 JAX CLI's ``--platform``); without a card it raises unless given
 ``--device cpu``. ``fit-images`` needs OpenCV on the host (exit 2
-without it). Not ported yet, and refused with a nonzero exit: ``--aot``
-and ``--save-viz``.
+without it). ``--aot`` (or MULTIH_AOT=1) takes the homography fits of
+``fit``, ``synth`` and ``fit-images`` through ``utils/aot.cached_fit``:
+each fit kind captured once as a CUDA graph and replayed, the kernel
+library from the MULTIH_AOT_CACHE root (by default the build directory);
+on ``--device cpu`` it is the plain fit. As in the JAX CLI, ``stream``,
+``bench-adelaide`` and ``fit-images --use-affines`` fit eagerly with it.
+Not ported yet, and refused with a nonzero exit:
+``--aot`` with ``--model fundamental`` or ``mixed``, and ``--save-viz``.
 
 Example:
     multih-torch fit data/johnsona.mat --threshold 3.0 --lambda 0.3
@@ -22,6 +28,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
@@ -79,7 +86,12 @@ def _add_common(p: argparse.ArgumentParser):
                    help="torch device of the fit (default: the CUDA card; "
                         "'cpu' runs the plain PyTorch paths)")
     p.add_argument("--aot", action="store_true",
-                   help="not ported yet (exits nonzero)")
+                   default=os.environ.get("MULTIH_AOT", "") == "1",
+                   help="capture each homography fit kind once as a CUDA "
+                        "graph and replay it (utils/aot.py; the kernel "
+                        "library under MULTIH_AOT_CACHE); also via "
+                        "MULTIH_AOT=1. Not ported for --model fundamental "
+                        "or mixed (exits nonzero)")
     p.add_argument("--json", action="store_true",
                    help="emit machine-readable JSON on stdout")
     p.add_argument("--save-labels", default=None,
@@ -106,8 +118,8 @@ def _reject_mixed(args, what: str):
 def _device(args) -> torch.device:
     """The fit's device; the card unless --device says otherwise, and
     never a quiet fallback to the CPU."""
-    if args.aot:
-        _not_ported("--aot")
+    if args.aot and getattr(args, "model", "homography") != "homography":
+        _not_ported(f"--aot with --model {args.model}")
     if args.save_viz:
         _not_ported("--save-viz")
     dev = torch.device(args.device)
@@ -248,14 +260,25 @@ def _fit_one(cs, args):
     cfg = _build_config(args)
     x1, x2, valid, gt = _padded(cs, cfg.max_points)
 
+    if args.aot:
+        from multih_tpu_torch.utils import aot
+
+        def maker(kind):
+            return aot.cached_fit(cfg, kind, device=dev)
+    else:
+        def maker(kind):
+            return {"fit": mt.make_fit, "fit_tau": mt.make_fit_tau,
+                    "fit_adaptive": mt.make_fit_adaptive}[kind](
+                        cfg, device=dev)
+
     adaptive = args.adaptive_tau
     if adaptive:
-        f_ad = mt.make_fit_adaptive(cfg, device=dev)
+        f_ad = maker("fit_adaptive")
 
         def f(k):
             return f_ad(x1, x2, valid, k)
     else:
-        f_fix = mt.make_fit(cfg, device=dev)
+        f_fix = maker("fit")
 
         def f(k):
             return f_fix(x1, x2, valid, k), None
@@ -270,7 +293,7 @@ def _fit_one(cs, args):
     # timed run's threshold is frozen for every restart, so the energies
     # share one data-cost scale
     if args.restarts > 1 and adaptive:
-        f_tau = mt.make_fit_tau(cfg, device=dev)
+        f_tau = maker("fit_tau")
 
         def f_restart(k):
             return f_tau(x1, x2, valid, k, tau)

@@ -126,11 +126,16 @@ def morton_order(pts: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
 
 
 def _thr(cfg: MultiHConfig, tau, ref: torch.Tensor) -> torch.Tensor:
-    """Squared inlier threshold as a 0-dim tensor on ref's device."""
+    """Squared inlier threshold as a 0-dim tensor on ref's device. A
+    number is filled in on the device (no host-to-device copy, so a CUDA
+    graph can capture it); a tensor is taken as it is."""
     if tau is None:
         return torch.full((), cfg.inlier_threshold ** 2, dtype=ref.dtype,
                           device=ref.device)
-    t = torch.as_tensor(tau, dtype=ref.dtype, device=ref.device)
+    if isinstance(tau, (int, float, np.number)):
+        t = torch.full((), float(tau), dtype=ref.dtype, device=ref.device)
+    else:
+        t = torch.as_tensor(tau, dtype=ref.dtype, device=ref.device)
     return t * t
 
 

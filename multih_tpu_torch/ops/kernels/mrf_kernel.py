@@ -311,8 +311,11 @@ def mean_field_fused_front(q0_t: torch.Tensor, x1: torch.Tensor,
                          f"active {tuple(active.shape)}, inv_temps "
                          f"{tuple(inv_temps.shape)}")
     _check_band(band, n, l)
-    if not (torch.is_tensor(thr) and thr.numel() == 1
-            and thr.dtype == torch.float32 and thr.device == q0_t.device):
+    if not torch.is_tensor(thr):  # filled on the card: no host copy
+        thr = torch.full((), float(thr), dtype=torch.float32,
+                         device=q0_t.device)
+    elif not (thr.numel() == 1 and thr.dtype == torch.float32
+              and thr.device == q0_t.device):
         thr = torch.as_tensor(thr, dtype=torch.float32, device=q0_t.device)
     ins = (x1, x2, valid, deg, Hs, active, band, inv_temps, thr)
     if any(t.device != q0_t.device for t in ins):

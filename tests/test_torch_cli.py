@@ -134,8 +134,34 @@ def test_stream_synth(capsys):
     assert out["budget_ms"] == 33.3
 
 
+@pytest.mark.parametrize("how", ["flag", "env"])
+def test_synth_aot_cpu_equals_plain(capsys, tmp_path, monkeypatch, how):
+    """--aot (or MULTIH_AOT=1) on --device cpu is the plain fit
+    (aot.cached_fit returns the maker there): the same planes, labels,
+    homographies and misclassification as the run without it."""
+    def run(aot, path):
+        argv = ["synth", "--points", "200", "--json", "--save-labels",
+                str(path), *SMALL]
+        if aot and how == "flag":
+            argv.append("--aot")
+        if aot and how == "env":
+            monkeypatch.setenv("MULTIH_AOT", "1")
+        else:
+            monkeypatch.delenv("MULTIH_AOT", raising=False)
+        cli.main(argv)
+        return last_json(capsys), np.loadtxt(path, dtype=int)
+
+    (plain, lab_plain), (aot, lab_aot) = (
+        run(False, tmp_path / "plain.txt"), run(True, tmp_path / "aot.txt"))
+    for key in ("n_planes_found", "support", "homographies", "energy",
+                "misclassification_pct"):
+        assert aot[key] == plain[key], key
+    np.testing.assert_array_equal(lab_aot, lab_plain)
+    assert plain["n_planes_found"] == 2
+
+
 @pytest.mark.parametrize("argv", [
-    ["synth", "--aot"],
+    ["synth", "--aot", "--model", "fundamental"],
     ["synth", "--save-viz", "out.png"],
     ["fit-images", "a.png", "b.png", "--save-viz", "out.png"],
     ["stream", "synth", "--model", "mixed"],

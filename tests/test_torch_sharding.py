@@ -159,6 +159,38 @@ def test_mixed_adaptive_with_taus_raises(mixed_cfgs):
     tshard.batched_fit_mixed(*mixed_cfgs, tau_h=4.0)
 
 
+@pytest.mark.slow
+@pytest.mark.xfail(strict=True, reason=(
+    "the reference's own fault, matched by the port: pair 3 (noise 1.0, "
+    "scene seed 43) comes back (2 H, 0 F); ROADMAP.md section 3, 'Known "
+    "defects of the reference'"))
+def test_adaptive_mixed_batch_pair3():
+    """tests/test_sharding.py::TestMixedSharding::test_adaptive_mixed_batch_runs
+    on the port: its 8 scenes and configs through
+    batched_fit_mixed(adaptive=True), one generator a pair. Every pair
+    should find one plane and one motion; pair 3 does not, as in the
+    reference, so this records the fault and speaks up once it is
+    fixed."""
+    cfg_h = mt.MultiHConfig(max_points=256, n_hypotheses=512,
+                            n_candidates=64, max_labels=4)
+    cfg_f = dataclasses.replace(cfg_h, model="fundamental",
+                                residual="sampson", inlier_threshold=3.0)
+    noises = [0.3, 0.5, 0.8, 1.0, 0.3, 0.5, 0.8, 1.0]
+    padded = [mt.pad_points(cs.x1, cs.x2, None, cfg_h.max_points)
+              for cs in (tdata.synthetic_mixed_scene(220, 1, 1, 0.1, nz,
+                                                     seed=40 + b)[0]
+                         for b, nz in enumerate(noises))]
+    x1, x2, valid = (np.stack([p[j] for p in padded]) for j in range(3))
+    res = tshard.batched_fit_mixed(cfg_h, cfg_f, adaptive=True,
+                                   device="cpu")(
+        x1, x2, valid, [torch.Generator().manual_seed(7 + b)
+                        for b in range(len(noises))])
+    act, is_f = res.active.numpy(), res.is_f.numpy()
+    counts = [(int(act[b][is_f[b] == 0].sum()),
+               int(act[b][is_f[b] == 1].sum())) for b in range(len(noises))]
+    assert counts[3] == (1, 1), counts
+
+
 @pytest.mark.parametrize("fn", ["batched_fit", "batched_fit_mixed",
                                 "prepare_benchmark_batch",
                                 "run_benchmark_batch"])

@@ -354,7 +354,7 @@ def dltlanes_part(cs, dev, timed, out):
     from multih_tpu_torch.ops.kernels import _build, dlt_kernel
 
     src = os.path.join(REPO, "tools", "dlt_lanes.cu")
-    so = os.path.join(str(_build.BUILD_DIR), "libdlt_lanes.so")
+    so = os.path.join(str(_build.library_dir()), "libdlt_lanes.so")
     subprocess.run([_build._nvcc(), *_build.FLAGS, "-shared", src, "-o", so],
                    check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(so)
