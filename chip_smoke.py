@@ -138,24 +138,35 @@ Phases, each raising on failure:
      and F fits and the pair-sharded mixed fit at the reference's tiny
      shapes, each asserted on known labels, each rank's launches
      counted;
- 14. the homography fit's four kinds captured as CUDA graphs
-     (utils/aot.cached_fit): fit at the default config on easy2_a (N=512)
-     and on BASELINE config 2 (N=1024, exact from the replay), fit on the
-     fused-front route (K6) and at the stress cell (K7, N=10240),
-     fit_tau, fit_seeded (the stream's seeds) and fit_adaptive. On each:
-     no synchronizing call in the eager fit (sync debug mode), eager
-     equal to eager, the first call (warm-up, capture, replay) and a
-     second seed's replay equal to their eager twins bit for bit with the
-     generator left in the same state, the launches a replay by kernel
-     (the wrappers' counts during the capture), the capture's seconds
-     and graph pool bytes; at N=512, N=1024 and the stress cell the warm
-     median of replay and eager in turns, the device busy time of each
-     and the profiler's kernels in a replay (where the profile came back
-     whole). Then `python -m
+ 14. the fits' kinds captured as CUDA graphs (utils/aot.py): the
+     homography fit's (cached_fit) at the default config on easy2_a
+     (N=512) and on BASELINE config 2 (N=1024, exact from the replay),
+     on the fused-front route (K6) and at the stress cell (K7, N=10240),
+     fit_tau, fit_seeded (the stream's seeds) and fit_adaptive; the
+     motion fit's fit, fit_tau (the golden tau) and fit_adaptive at the
+     motion suite's config on fm4_a (K1 f_sampson, K3, K4, K5, the
+     list; no K2); the mixed fit's (cached_fit_mixed) fit, fit_tau (the
+     golden taus) and fit_adaptive at the mixed goldens' configs on
+     mx21_a at N=1024, and its fit at N=640 (the gather path: K1-K3
+     only). On each: no synchronizing call in the eager fit (sync debug
+     mode), eager equal to eager, the first call (warm-up, capture,
+     replay) and a second seed's replay equal to their eager twins bit
+     for bit with the generator left in the same state (where eager
+     does not equal eager, the replays held to the mixed goldens'
+     contract instead), the launches a replay by kernel (the wrappers'
+     counts during the capture) equal to an eager fit's, the capture's
+     seconds and graph pool bytes; at N=512, N=1024, the stress cell,
+     the motion fit and the mixed fit at N=1024 the warm median of
+     replay and eager in turns (10; 3 at the stress cell, 5 for the
+     mixed fit), and a replay's device busy time and the profiler's
+     kernels in it (an eager fit's busy time: phase 9 for the mixed
+     fit, --profile and tools/torch_kernel_ab.py --parts fits).
+     Then `python -m
      multih_tpu_torch.cli synth --aot --json` in a fresh process on an
      empty and on a filled cache root, beside the run without --aot (the
-     same results), and a truncated library under a temporary cache root
-     rebuilt once.
+     same results), `synth --model fundamental` and `--model mixed`
+     with and without --aot (the same JSON but the timings), and a
+     truncated library under a temporary cache root rebuilt once.
 Then one JSON line of per-kernel results, the card line, and the last
 line {"ok": true, "device": {...}}. Without a CUDA device, or outside
 the repository, it exits nonzero and prints no result.
@@ -1803,7 +1814,7 @@ def phase_mixed(dev):
           f"{lat['median_ms']:.2f} ms (min {lat['min_ms']:.2f}, max "
           f"{lat['max_ms']:.2f}, {len(times)} fits)")
     busy, stages = _profile("N=1024 mx21_a, mixed fit",
-                            lambda: f(*args, gen), reps=3)
+                            lambda: f(*args, gen), reps=1)
     out = dict(scenes=results, n640=out_640, adaptive=adaptive,
                latency_mx21_a=lat, busy_ms=busy,
                idle_share=1.0 - busy / lat["median_ms"],
@@ -2704,9 +2715,40 @@ K15 = ("inlier_counts", "dlt_4pt", "eig9_smallest", "mean_field_fused",
        "icm_fused", "band_list")
 
 
+def _aot_cell(label, cfg, kind, pts, extra, expect, reps=0, mixed=None,
+              forbid=(), golden=None):
+    """One cell of phase 14: the eager maker and the captured fit of
+    `kind` at cfg (with `mixed`, the mixed fit's cfg_f, cfg being cfg_h),
+    on pts with the kind's other arguments `extra`; the kernels a replay
+    must launch (`expect`) and must not (`forbid`); `reps` timed turns
+    of replay and eager (0: not timed); a mixed cell's golden scene."""
+    from multih_tpu_torch.models import mixed as mixed_fit
+    from multih_tpu_torch.models import pipeline
+    from multih_tpu_torch.utils import aot
+
+    if mixed is None:
+        maker = {"fit": pipeline.make_fit, "fit_tau": pipeline.make_fit_tau,
+                 "fit_seeded": pipeline.make_fit_seeded,
+                 "fit_adaptive": pipeline.make_fit_adaptive}[kind](cfg)
+
+        def cached(dev):
+            return aot.cached_fit(cfg, kind, device=dev)
+    else:
+        maker = {"fit": mixed_fit.make_fit_mixed,
+                 "fit_tau": mixed_fit.make_fit_mixed_tau,
+                 "fit_adaptive": mixed_fit.make_fit_mixed_adaptive}[kind](
+                     cfg, mixed)
+
+        def cached(dev):
+            return aot.cached_fit_mixed(cfg, mixed, kind=kind, device=dev)
+    return dict(label=label, cfg=cfg, kind=kind, pts=pts, extra=extra,
+                expect=expect, forbid=forbid, reps=reps, maker=maker,
+                cached=cached, mixed=mixed is not None, golden=golden)
+
+
 def _aot_cases(dev):
-    """Phase 14's cells: (label, cfg, kind, (x1, x2, valid), extra,
-    kernels the replay must launch, timed)."""
+    """Phase 14's cells (`_aot_cell`): the homography fit's, then the
+    motion fit's and the mixed fit's."""
     import torch
 
     import multih_tpu_torch as mt
@@ -2732,36 +2774,100 @@ def _aot_cases(dev):
         torch.zeros((scfg.max_labels,), device=dev))
     k7 = ("inlier_counts", "dlt_4pt", "eig9_smallest", "mean_field_fused",
           "icm_fused", "band_list", "window_gather")
+    # the motion fit at the motion suite's config on fm4_a (K1 at
+    # f_sampson, K3, K4, K5, the list; no K2), and the mixed fit at the
+    # mixed goldens' configs on mx21_a: N=1024 (banded stages) and N=640
+    # (the gather-path labeling: K1-K3 only)
+    mcfg = motion_cfg(512)
+    fm4 = _motion_points("fm4_a", 512, dev)
+    fm_tau = float(np.load(os.path.join(ROOT, "tests", "goldens",
+                                        "fm4_a.npz"))["inlier_threshold"])
+    f_only = ("inlier_counts_f", "eig9_smallest", "mean_field_fused",
+              "icm_fused", "band_list")
+    mx = data.mixed_suite_scene("mx21_a")
+    mx_tau = float(np.load(os.path.join(ROOT, "tests", "goldens",
+                                        "mx21_a.npz"))["inlier_threshold"])
+    mx1024 = _to(dev, *mt.pad_points(mx.x1, mx.x2, None, 1024))
+    mx640 = _to(dev, *mt.pad_points(mx.x1, mx.x2, None, 640))
+    banded = ("inlier_counts", "inlier_counts_f", "dlt_4pt", "eig9_smallest",
+              "mean_field_fused", "icm_fused", "band_list")
+    no_band = ("mean_field_fused", "icm_fused", "band_list",
+               "mean_field_fused_front", "window_gather")
+    h1024, f1024 = mixed_cfgs(1024)
+    h640, f640 = mixed_cfgs(640)
+    cell = _aot_cell
     return [
-        ("fit N=512", MultiHConfig(max_points=512), "fit", easy, (), K15,
-         True),
-        ("fit N=1024 BASELINE 2", MultiHConfig(max_points=1024), "fit",
-         base2, (), K15, True),
-        ("fit fused front", MultiHConfig(max_points=512,
-                                         mrf_fused_front=True), "fit", easy,
-         (), ("inlier_counts", "dlt_4pt", "eig9_smallest",
-              "mean_field_fused_front", "icm_fused", "band_list"), False),
-        ("fit stress", stress_cfg(), "fit", stress, (), k7, True),
-        ("fit_tau", MultiHConfig(max_points=512), "fit_tau", easy, (tau,),
-         K15, False),
-        ("fit_seeded", scfg, "fit_seeded", frames[1],
-         (prev.homographies, prev.active), K15, False),
-        ("fit_adaptive", MultiHConfig(max_points=512), "fit_adaptive",
-         noisy, (), K15, False),
+        cell("fit N=512", MultiHConfig(max_points=512), "fit", easy, (), K15,
+             reps=10),
+        cell("fit N=1024 BASELINE 2", MultiHConfig(max_points=1024), "fit",
+             base2, (), K15, reps=10),
+        cell("fit fused front", MultiHConfig(max_points=512,
+                                             mrf_fused_front=True), "fit",
+             easy, (), ("inlier_counts", "dlt_4pt", "eig9_smallest",
+                        "mean_field_fused_front", "icm_fused",
+                        "band_list")),
+        cell("fit stress", stress_cfg(), "fit", stress, (), k7, reps=3),
+        cell("fit_tau", MultiHConfig(max_points=512), "fit_tau", easy,
+             (tau,), K15),
+        cell("fit_seeded", scfg, "fit_seeded", frames[1],
+             (prev.homographies, prev.active), K15),
+        cell("fit_adaptive", MultiHConfig(max_points=512), "fit_adaptive",
+             noisy, (), K15),
+        cell("motion fit fm4_a", mcfg, "fit", fm4, (), f_only, reps=10,
+             forbid=("dlt_4pt", "window_gather")),
+        cell("motion fit_tau fm4_a", mcfg, "fit_tau", fm4, (fm_tau,),
+             f_only, forbid=("dlt_4pt", "window_gather")),
+        cell("motion fit_adaptive fm4_a", mcfg, "fit_adaptive", fm4, (),
+             f_only, forbid=("dlt_4pt", "window_gather")),
+        cell("mixed fit mx21_a N=1024", h1024, "fit", mx1024, (), banded,
+             reps=5, mixed=f1024, golden="mx21_a"),
+        cell("mixed fit_tau mx21_a N=1024", h1024, "fit_tau", mx1024,
+             (mx_tau, mx_tau), banded, mixed=f1024, golden="mx21_a"),
+        cell("mixed fit_adaptive mx21_a N=1024", h1024, "fit_adaptive",
+             mx1024, (), banded, mixed=f1024, golden="mx21_a"),
+        cell("mixed fit mx21_a N=640 (gather path)", h640, "fit", mx640, (),
+             ("inlier_counts", "inlier_counts_f", "dlt_4pt",
+              "eig9_smallest"), mixed=f640, forbid=no_band,
+             golden="mx21_a"),
     ]
 
 
-def _fit_diff(a, b) -> list:
-    """The leaves in which two fit results (a FitResult, or (FitResult,
-    tau)) differ, bit for bit."""
+def _fit_diff(a, b, name: str = "") -> list:
+    """The leaves in which two fit results (a FitResult or MixedFitResult,
+    or a tuple of results and taus) differ, bit for bit."""
     import torch
 
     if isinstance(a, torch.Tensor):
-        return [] if torch.equal(a, b) else ["tau"]
-    if not hasattr(a, "_fields"):
-        return _fit_diff(a[0], b[0]) + _fit_diff(a[1], b[1])
-    return [n for n in a._fields
-            if not torch.equal(getattr(a, n), getattr(b, n))]
+        return [] if torch.equal(a, b) else [name or "tensor"]
+    if hasattr(a, "_fields"):
+        return [d for n in a._fields for d in _fit_diff(
+            getattr(a, n), getattr(b, n), f"{name}.{n}" if name else n)]
+    return [d for i, (x, y) in enumerate(zip(a, b))
+            for d in _fit_diff(x, y, f"{name}[{i}]")]
+
+
+def _mixed_contract(results, golden: str) -> dict:
+    """The mixed goldens' contract on fit results (MixedFitResult, or the
+    adaptive fit's tuples) of `golden`'s scene: class counts exact on
+    every result, the mean misclassification within 3.5 pp."""
+    from multih_tpu_torch.utils import data, evaluation
+
+    g = np.load(os.path.join(ROOT, "tests", "goldens", f"{golden}.npz"))
+    cs = data.mixed_suite_scene(golden)
+    g_f = int(g["n_fundamental"])
+    want = (int(g["n_planes"]) - g_f, g_f)
+    counts, errs = [], []
+    for res in results:
+        res = res if hasattr(res, "_fields") else res[0]
+        k_union = res.models.shape[0]
+        counts.append(_class_counts(res))
+        errs.append(evaluation.misclassification_error(
+            res.labels.cpu().numpy()[:cs.n_points], cs.gt_labels, k_union))
+    delta = float(np.mean(errs)) - float(g["misclassification"])
+    check(all(c == want for c in counts) and abs(delta) <= 3.5,
+          f"{golden}: replays' class counts {counts} (golden {want}), "
+          f"delta {delta:+.3f} pp")
+    return dict(counts=counts, misclassification=errs, delta=delta)
 
 
 def _sync_sites(fn) -> dict:
@@ -2871,6 +2977,55 @@ def _aot_cold_starts() -> dict:
             for k, v in out.items()}
 
 
+def _aot_cli_models() -> dict:
+    """`python -m multih_tpu_torch.cli synth --model fundamental|mixed
+    --json --aot` in a fresh process, and the same command without --aot
+    through `cli.main` in this one: the same JSON but for the
+    timings."""
+    import contextlib
+    import io
+
+    from multih_tpu_torch import cli
+
+    out = {}
+    for model in ("fundamental", "mixed"):
+        res = {}
+        argv = ["synth", "--model", model, "--json"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "multih_tpu_torch.cli", *argv, "--aot"],
+            cwd=ROOT, env=dict(os.environ, MULTIH_AOT=""),
+            capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0, f"cli synth --model {model} --aot: "
+              f"{proc.stderr[-2000:]}")
+        res["aot"] = (proc.stdout, time.perf_counter() - t0)
+        aot_env = os.environ.pop("MULTIH_AOT", None)
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(io.StringIO()) as buf:
+                cli.main(argv)
+        finally:
+            if aot_env is not None:
+                os.environ["MULTIH_AOT"] = aot_env
+        res["plain"] = (buf.getvalue(), time.perf_counter() - t0)
+        for label, (stdout, wall) in res.items():
+            res[label] = json.loads(stdout.strip().splitlines()[-1])
+            out[f"{model}_{label}"] = dict(
+                seconds=wall, first_fit_s=res[label]["time_total_s"],
+                warm_fit_s=res[label]["time_warm_s"])
+            print(f"cli synth --model {model} --json"
+                  f"{' --aot (a process)' if label == 'aot' else ''}: "
+                  f"{wall:.2f} s in all, first fit "
+                  f"{res[label]['time_total_s']} s, warm fit "
+                  f"{res[label]['time_warm_s']} s")
+        diff = [k for k in res["plain"] if not k.startswith("time_")
+                and res["aot"].get(k) != res["plain"][k]]
+        check(not diff and res["aot"].keys() == res["plain"].keys(),
+              f"cli synth --model {model} --aot differs from the plain run "
+              f"in {diff}")
+    return out
+
+
 def _aot_rebuild() -> dict:
     """A copy of the library under a temporary cache root, truncated:
     _build.open_library rebuilds it once, with a warning, and the rebuilt
@@ -2916,32 +3071,34 @@ def _aot_rebuild() -> dict:
 
 
 def phase_aot(dev):
-    """Phase 14: utils/aot.cached_fit on each of _aot_cases' cells. On
-    each: the eager fit makes no synchronizing call; eager equals eager
-    and the first call (warm-up, capture, replay) equals the eager fit
-    given equal generator states, every leaf bit for bit and the
-    generator's final state; a replay on a second seed equals its eager
-    twin and differs from the first; the replay launches every kernel of
-    the path (the wrappers' counts during the capture, and the profiler's
-    device events of a replay); the capture's seconds and pool bytes; at
-    N=512, N=1024 and the stress cell, the warm median of replay and
-    eager in turns and the device busy time of each. Then the CLI's cold
-    start with and without --aot, and the rebuild of a truncated
-    library."""
+    """Phase 14: utils/aot.cached_fit and cached_fit_mixed on each of
+    _aot_cases' cells. On each: the eager fit makes no synchronizing
+    call; eager equals eager and the first call (warm-up, capture,
+    replay) equals the eager fit given equal generator states, every
+    leaf bit for bit and the generator's final state; a replay on a
+    second seed equals its eager twin and differs from the first (where
+    eager does not equal eager, the replays are held to the mixed
+    goldens' contract instead, the generator's state still exact); the
+    replay launches every kernel of the path, as many times as the eager
+    fit, and none of `forbid` (the wrappers' counts during the capture
+    and around an eager fit, and the profiler's device events of a
+    replay); the capture's seconds and pool bytes; on the timed cells,
+    the warm median of replay and eager in turns and a replay's device
+    busy time. Then the CLI's cold start with and without --aot, the
+    CLI's F and mixed synth with and without --aot, and the rebuild of a
+    truncated library."""
     import torch
 
-    from multih_tpu_torch.models import pipeline
-    from multih_tpu_torch.utils import aot, data, evaluation
+    from multih_tpu_torch.utils import data, evaluation
 
-    print("== 14. the homography fit's kinds captured as CUDA graphs "
-          "(utils/aot.py)")
+    print("== 14. the fits' kinds captured as CUDA graphs (utils/aot.py)")
     t_start = time.perf_counter()
     out, launches = {}, {}
-    for label, cfg, kind, pts, extra, expect, timed in _aot_cases(dev):
+    for c in _aot_cases(dev):
+        label, cfg, kind, pts, extra = (c["label"], c["cfg"], c["kind"],
+                                        c["pts"], c["extra"])
+        maker, expect = c["maker"], c["expect"]
         t_cell = time.perf_counter()
-        maker = {"fit": pipeline.make_fit, "fit_tau": pipeline.make_fit_tau,
-                 "fit_seeded": pipeline.make_fit_seeded,
-                 "fit_adaptive": pipeline.make_fit_adaptive}[kind](cfg)
 
         def run(fn, seed):
             g = torch.Generator(device=dev).manual_seed(seed)
@@ -2953,50 +3110,68 @@ def phase_aot(dev):
             probe = _sync_sites(lambda: torch.zeros(1, device=dev).item())
             check(probe, "the sync debug mode saw no .item()")
             print(f"sync debug mode on .item(): {probe}")
+        run(maker, 0)  # first uses (the F model's constants on the card)
         sites = _sync_sites(lambda: run(maker, 0))
         check(not sites, f"{label}: synchronizing calls in the eager fit: "
               f"{sites}")
-        e0, s0 = run(maker, 0)
+        (e0, s0), eager_launches = count_launches(
+            f"eager {label}", expect, lambda: run(maker, 0), quiet=True)
         e0b, s0b = run(maker, 0)
-        diff = _fit_diff(e0, e0b)
-        check(not diff and torch.equal(s0, s0b),
-              f"{label}: eager differs from eager in {diff}")
-        fn = aot.cached_fit(cfg, kind, device=dev)
+        deterministic = not _fit_diff(e0, e0b)
+        check(torch.equal(s0, s0b), f"{label}: eager twice, two generator "
+              f"states")
+        if not deterministic:
+            print(f"aot {label}: eager differs from eager in "
+                  f"{_fit_diff(e0, e0b)}; the replays are held to the "
+                  f"mixed goldens' contract")
+            check(c["golden"], f"{label}: eager differs from eager in "
+                  f"{_fit_diff(e0, e0b)}")
+        fn = c["cached"](dev)
         (r0, g0), launches[f"aot {label}"] = count_launches(
             f"aot {label} (warm-up, capture, replay)", expect,
             lambda: run(fn, 0), quiet=True)
-        diff = _fit_diff(r0, e0)
-        check(not diff and torch.equal(g0, s0),
-              f"{label}: the replay differs from the eager fit in {diff} "
-              f"(generator state equal: {torch.equal(g0, s0)})")
+        captured = fn.launches
+        per_replay = {k: v for k, v in captured.items() if v}
+        check(torch.equal(g0, s0), f"{label}: the replay leaves the "
+              f"generator in another state than the eager fit")
         r1, g1 = run(fn, 1)
         e1, s1 = run(maker, 1)
-        diff = _fit_diff(r1, e1)
-        check(not diff and torch.equal(g1, s1),
-              f"{label}: the seed-1 replay differs from its eager twin in "
-              f"{diff}")
+        check(torch.equal(g1, s1), f"{label}: the seed-1 replay leaves the "
+              f"generator in another state than its eager twin")
         check(_fit_diff(r0, r1), f"{label}: two seeds, one result")
-        per_replay = {k: v for k, v in fn.launches.items() if v}
-        for k in expect:
-            check(fn.launches[k] > 0, f"{label}: {k} not in the graph")
-        res0 = r0[0] if kind == "fit_adaptive" else r0
         row = dict(kind=kind, max_points=cfg.max_points,
                    warmup_s=fn.warmup_s, capture_s=fn.capture_s,
                    pool_bytes=fn.pool_bytes, launches_per_replay=per_replay,
-                   planes=int(res0.active.sum()))
+                   eager_deterministic=deterministic)
+        if deterministic:
+            for a, b, what in ((r0, e0, "the replay"),
+                               (r1, e1, "the seed-1 replay")):
+                diff = _fit_diff(a, b)
+                check(not diff, f"{label}: {what} differs from its eager "
+                      f"twin in {diff}")
+        else:
+            row["contract"] = _mixed_contract([r0, r1], c["golden"])
+        eager_fit = {k: v for k, v in eager_launches.items() if v}
+        check(per_replay == eager_fit, f"{label}: launches a replay "
+              f"{per_replay}, an eager fit {eager_fit}")
+        for k in expect:
+            check(captured[k] > 0, f"{label}: {k} not in the graph")
+        for k in c["forbid"]:
+            check(captured[k] == 0, f"{label}: {k} in the graph")
+        res0 = r0[0] if kind == "fit_adaptive" else r0
+        row["models"] = int(res0.active.sum())
         if label.endswith("BASELINE 2"):
             cs, _ = data.synthetic_scene(1000, 2, 0.0, 0.0)
             err = evaluation.misclassification_error(
                 res0.labels.cpu().numpy()[:1000], cs.gt_labels,
                 cfg.max_labels)
             row["misclassification"] = err
-            check(err == 0.0 and row["planes"] == 2,
+            check(err == 0.0 and row["models"] == 2,
                   f"{label}: not recovered exactly from the replay "
-                  f"({row['planes']} planes, {err}%)")
-        if timed:
-            reps = 3 if cfg.max_points > 1024 else 10
+                  f"({row['models']} planes, {err}%)")
+        if c["reps"]:
             t = {"replay": [], "eager": []}
-            for _ in range(reps):
+            for _ in range(c["reps"]):
                 t["replay"] += host_ms(lambda: fn(*pts, torch.Generator(
                     device=dev).manual_seed(5), *extra), reps=1)
                 t["eager"] += host_ms(lambda: maker(*pts, torch.Generator(
@@ -3005,34 +3180,42 @@ def phase_aot(dev):
                 row[f"{how}_ms"] = t[how]
                 row[f"{how}_median_ms"] = statistics.median(t[how])
             # the replay's device busy time and, where the profile came
-            # back whole, its kernels by name and its device events
+            # back whole, its kernels by name and its device events (one
+            # replay: a profile of the eager motion or mixed fit, ~60k
+            # device events and as many host ops, takes half a minute to
+            # read; phase 9 and --profile give the eager fits' busy time)
             (row["replay_busy_ms"], row["profiler_per_replay"],
              row["device_events_per_replay"]) = _profile_replays(
                 lambda: fn(*pts, torch.Generator(device=dev).manual_seed(5),
-                           *extra), calls=2)
-            check(row["profiler_per_replay"] in (None, per_replay),
+                           *extra), calls=1)
+            k1 = dict(per_replay)  # the profiler sees K1's kinds as one
+            if k1.get("inlier_counts_f"):
+                k1["inlier_counts"] = (k1.get("inlier_counts", 0)
+                                       + k1.pop("inlier_counts_f"))
+            check(row["profiler_per_replay"] in (None, k1),
                   f"{label}: the profiler saw "
                   f"{row['profiler_per_replay']} in a replay, the capture "
-                  f"{per_replay}")
-            row["eager_busy_ms"] = device_ms(
-                lambda: maker(*pts, torch.Generator(device=dev).manual_seed(
-                    5), *extra), reps=2)
+                  f"{k1}")
         row["seconds"] = time.perf_counter() - t_cell
         out[label] = row
-        print(f"aot {label}: replay = eager bit for bit on seeds 0 and 1 "
-              f"(and the generator's state); warm-up {fn.warmup_s:.3f} s, "
+        same = ("replay = eager bit for bit on seeds 0 and 1 (and the "
+                "generator's state)" if deterministic else
+                f"eager != eager; replays held to the contract "
+                f"{row['contract']}")
+        print(f"aot {label}: {same}; warm-up {fn.warmup_s:.3f} s, "
               f"capture {fn.capture_s:.3f} s, graph pool "
-              f"{fn.pool_bytes} bytes; launches a replay {per_replay}; "
-              f"planes {row['planes']}; {row['seconds']:.1f} s"
+              f"{fn.pool_bytes} bytes; launches a replay {per_replay} "
+              f"(= an eager fit's); models {row['models']}; "
+              f"{row['seconds']:.1f} s"
               + (f"; the profiler's kernels a replay "
                  f"{row['profiler_per_replay']}, device events a replay "
                  f"{row['device_events_per_replay']}; warm median replay "
                  f"{row['replay_median_ms']:.2f} ms (device busy "
                  f"{row['replay_busy_ms']:.3f}) against eager "
-                 f"{row['eager_median_ms']:.2f} ms (busy "
-                 f"{row['eager_busy_ms']:.3f}), {len(row['replay_ms'])} "
-                 f"each in turns [{card_line()}]" if timed else ""))
+                 f"{row['eager_median_ms']:.2f} ms, {len(row['replay_ms'])} "
+                 f"each in turns [{card_line()}]" if c["reps"] else ""))
     out["cold_start"] = _aot_cold_starts()
+    out["cli_models"] = _aot_cli_models()
     out["rebuild"] = _aot_rebuild()
     out["seconds"] = time.perf_counter() - t_start
     print(f"phase 14: {out['seconds']:.1f} s")

@@ -6,14 +6,16 @@ Counterpart of ``multih_tpu/cli.py`` with the same subcommands and
 arguments, run on a CUDA card by default (``--device``, in place of the
 JAX CLI's ``--platform``); without a card it raises unless given
 ``--device cpu``. ``fit-images`` needs OpenCV on the host (exit 2
-without it). ``--aot`` (or MULTIH_AOT=1) takes the homography fits of
-``fit``, ``synth`` and ``fit-images`` through ``utils/aot.cached_fit``:
-each fit kind captured once as a CUDA graph and replayed, the kernel
-library from the MULTIH_AOT_CACHE root (by default the build directory);
-on ``--device cpu`` it is the plain fit. As in the JAX CLI, ``stream``,
-``bench-adelaide`` and ``fit-images --use-affines`` fit eagerly with it.
-Not ported yet, and refused with a nonzero exit:
-``--aot`` with ``--model fundamental`` or ``mixed``, and ``--save-viz``.
+without it). ``--aot`` (or MULTIH_AOT=1) takes the fits of ``fit``,
+``synth`` and ``fit-images`` through ``utils/aot.cached_fit`` (``--model
+homography`` or ``fundamental``) or ``utils/aot.cached_fit_mixed``
+(``--model mixed``): each fit kind captured once as a CUDA graph and
+replayed, the kernel library from the MULTIH_AOT_CACHE root (by default
+the build directory); on ``--device cpu`` it is the plain fit. As in the
+JAX CLI, ``stream``, ``bench-adelaide`` and ``fit-images
+--use-affines`` fit eagerly with it. ``--save-viz FILE`` writes the
+points coloured by label (``utils/viz.py``; needs OpenCV, exit 2
+without it); ``fit-images --use-affines`` draws them on the two images.
 
 Example:
     multih-torch fit data/johnsona.mat --threshold 3.0 --lambda 0.3
@@ -87,23 +89,16 @@ def _add_common(p: argparse.ArgumentParser):
                         "'cpu' runs the plain PyTorch paths)")
     p.add_argument("--aot", action="store_true",
                    default=os.environ.get("MULTIH_AOT", "") == "1",
-                   help="capture each homography fit kind once as a CUDA "
-                        "graph and replay it (utils/aot.py; the kernel "
-                        "library under MULTIH_AOT_CACHE); also via "
-                        "MULTIH_AOT=1. Not ported for --model fundamental "
-                        "or mixed (exits nonzero)")
+                   help="capture each fit kind once as a CUDA graph and "
+                        "replay it (utils/aot.py; the kernel library under "
+                        "MULTIH_AOT_CACHE); also via MULTIH_AOT=1")
     p.add_argument("--json", action="store_true",
                    help="emit machine-readable JSON on stdout")
     p.add_argument("--save-labels", default=None,
                    help="write per-point labels to this file")
     p.add_argument("--save-viz", default=None,
-                   help="not ported yet (exits nonzero)")
-
-
-def _not_ported(what: str):
-    print(f"{what} is not ported to multih_tpu_torch yet; use the JAX CLI "
-          f"(multih)", file=sys.stderr)
-    sys.exit(2)
+                   help="write a label visualization (PNG) here (needs "
+                        "OpenCV)")
 
 
 def _reject_mixed(args, what: str):
@@ -118,10 +113,13 @@ def _reject_mixed(args, what: str):
 def _device(args) -> torch.device:
     """The fit's device; the card unless --device says otherwise, and
     never a quiet fallback to the CPU."""
-    if args.aot and getattr(args, "model", "homography") != "homography":
-        _not_ported(f"--aot with --model {args.model}")
     if args.save_viz:
-        _not_ported("--save-viz")
+        try:
+            import cv2  # noqa: F401
+        except ImportError:
+            print("--save-viz needs OpenCV (cv2), which does not import "
+                  "here", file=sys.stderr)
+            sys.exit(2)
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu to run on the "
@@ -166,15 +164,27 @@ def _fit_one_mixed(cs, args):
     args.model = "mixed"
 
     x1, x2, valid, gt = _padded(cs, cfg_h.max_points)
+    if args.aot:
+        from multih_tpu_torch.utils import aot
+
+        def maker(kind):
+            return aot.cached_fit_mixed(cfg_h, cfg_f, kind=kind, device=dev)
+    else:
+        def maker(kind):
+            return {"fit": mixed.make_fit_mixed,
+                    "fit_tau": mixed.make_fit_mixed_tau,
+                    "fit_adaptive": mixed.make_fit_mixed_adaptive}[kind](
+                        cfg_h, cfg_f, device=dev)
+
     adaptive = args.adaptive_tau
     if adaptive:
-        f_ad = mixed.make_fit_mixed_adaptive(cfg_h, cfg_f, device=dev)
+        f_ad = maker("fit_adaptive")
 
         def f(k):
             r_, th_, tf_ = f_ad(x1, x2, valid, k)
             return r_, (th_, tf_)
     else:
-        f_fix = mixed.make_fit_mixed(cfg_h, cfg_f, device=dev)
+        f_fix = maker("fit")
 
         def f(k):
             return f_fix(x1, x2, valid, k), None
@@ -186,7 +196,7 @@ def _fit_one_mixed(cs, args):
     (res, taus), t_warm = _timed(dev, lambda: f(gen(args.seed + 1)))
     # restarts under the frozen per-class taus: energies stay comparable
     if args.restarts > 1 and adaptive:
-        f_tau = mixed.make_fit_mixed_tau(cfg_h, cfg_f, device=dev)
+        f_tau = maker("fit_tau")
 
         def f_restart(k):
             return f_tau(x1, x2, valid, k, *taus)
@@ -246,6 +256,10 @@ def _fit_one_mixed(cs, args):
                 print("   ", " ".join(f"{v:+.6e}" for v in row))
     if args.save_labels:
         np.savetxt(args.save_labels, labels, fmt="%d")
+    if args.save_viz:
+        from multih_tpu_torch.utils import viz
+
+        viz.save_labels_figure(args.save_viz, cs.x1, cs.x2, labels, k_union)
     return out
 
 
@@ -345,6 +359,11 @@ def _fit_one(cs, args):
                 print("   ", " ".join(f"{v:+.6e}" for v in row))
     if args.save_labels:
         np.savetxt(args.save_labels, labels, fmt="%d")
+    if args.save_viz:
+        from multih_tpu_torch.utils import viz
+
+        viz.save_labels_figure(args.save_viz, cs.x1, cs.x2, labels,
+                               cfg.max_labels)
     return out
 
 
@@ -410,6 +429,11 @@ def cmd_fit_images(args):
           "\n".join(f"{k}: {v}" for k, v in out.items()))
     if args.save_labels:
         np.savetxt(args.save_labels, labels, fmt="%d")
+    if args.save_viz:
+        from multih_tpu_torch.utils import viz
+
+        viz.save_labels_figure(args.save_viz, cs.x1, cs.x2, labels,
+                               cfg.max_labels, img1, img2)
 
 
 def cmd_synth(args):

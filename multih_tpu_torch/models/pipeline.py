@@ -286,16 +286,20 @@ def _round_sample_indices(draws, stream, avail, nbr_idx, nbr_ok,
 
 def _solve_minimal_f(x1, x2, avail, idx, cfg: MultiHConfig):
     """Fundamental solves for (S, m) sample indices, m = 8 by the
-    Givens-QR nullspace, m = 12 by normal equations + 9x9 eigensolve
-    (plain PyTorch on every device, as the reference solves them outside
-    any Pallas kernel). Returns (Fs (S, 3, 3), ok (S,)): ok is 0 where a
-    sample uses an unavailable point or the solve is not finite."""
+    Givens-QR nullspace, m = 12 by normal equations + 9x9 eigensolve.
+    The reference solves both outside any Pallas kernel; the port's
+    12-point eigensolves run in K3 where the kernels run, since
+    torch.linalg.eigh reads its error flags back to the host, which a
+    CUDA graph cannot capture (plain eigh elsewhere). Returns (Fs (S, 3,
+    3), ok (S,)): ok is 0 where a sample uses an unavailable point or the
+    solve is not finite."""
     p1, p2 = x1[idx], x2[idx]  # (S, m, 2)
     if idx.shape[1] == 8:
         Fs = fmodel.fundamental_8pt_batch_qr(p1, p2)
     else:
-        Fs = fmodel.fundamental_npt_batch(p1, p2, cfg.eig_iterations,
-                                          cfg.eig_method)
+        Fs = fmodel.fundamental_npt_batch(
+            p1, p2, cfg.eig_iterations, cfg.eig_method,
+            eig_kernel=_kernels_enabled(cfg, x1.device))
     uses_pad = (avail[idx] == 0).any(1)
     finite = torch.isfinite(Fs.reshape(-1, 9)).all(1)
     return Fs, (~uses_pad & finite).to(x1.dtype)
@@ -930,6 +934,46 @@ def _trimmed_cost(r_like, member_f, t_idx):
     return torch.gather(csum, -1, idx)[..., 0]
 
 
+def _f_accept(Hs_c, q_c, r_c, lab_c, e_c, Hs_prop, r_prop, ok_prop,
+              label_energy, relabel_energy, residuals, on_device=None):
+    """The accept of `_f_refine_phases` (the lax.cond at pipeline.py:1556):
+    the joint move (every ok proposal at once, scored under a full
+    relabel) if it lowers the energy e_c of the carried (Hs_c, q_c, r_c,
+    lab_c), else one model at a time under an ICM relabel from the
+    carried labeling, each kept iff the energy drops. label_energy(r,
+    q0) -> (labels, q, e), relabel_energy(r, labels0) -> (labels, e) and
+    residuals(Ms) -> r are the phase's. Returns (Hs, q).
+
+    On the CPU the branch is a host read, and the fallback runs only
+    where the joint move is refused. On the card (on_device, by default
+    where e_c lies) both run and each output is picked with torch.where,
+    so that nothing is read back and a CUDA graph can capture the
+    accept. Both routes give the same result bit for bit."""
+    if on_device is None:
+        on_device = e_c.device.type != "cpu"
+    r_j = torch.where(ok_prop[:, None], r_prop, r_c)
+    _, q_j, e_j = label_energy(r_j, q_c)
+    Hs_j = torch.where(ok_prop[:, None, None], Hs_prop, Hs_c)
+    if not on_device and bool(e_j < e_c):
+        return Hs_j, q_j
+    Hs_s, r_s, lab_s, e_s = Hs_c, r_c, lab_c, e_c
+    for i in range(Hs_c.shape[0]):  # the lax.scan over models
+        Hn = torch.where(ok_prop[i], Hs_prop[i], Hs_s[i])
+        r_n = r_s.clone()
+        r_n[i] = residuals(Hn[None])[0]
+        lab_n, e_n = relabel_energy(r_n, lab_s)
+        better = e_n < e_s
+        Hs_s = Hs_s.clone()
+        Hs_s[i] = torch.where(better, Hn, Hs_s[i])
+        r_s = torch.where(better, r_n, r_s)
+        lab_s = torch.where(better, lab_n, lab_s)
+        e_s = torch.where(better, e_n, e_s)
+    if not on_device:
+        return Hs_s, q_c
+    joint = e_j < e_c
+    return torch.where(joint, Hs_j, Hs_s), torch.where(joint, q_j, q_c)
+
+
 def _f_refine_phases(Hs, active, q, draws, x1, x2, valid, nbr_idx, nbr_w,
                      cfg: MultiHConfig, tau, adj, shard=None, basis=None):
     """The fundamental model's refinement phases (pipeline.py:1437-1696):
@@ -937,7 +981,7 @@ def _f_refine_phases(Hs, active, q, draws, x1, x2, valid, nbr_idx, nbr_w,
     f_resample_iterations member-resample LO moves (f_resample_subsets
     uniform 12-point subsets of every model's members, a trimmed member
     cost, one Tukey refit of the winner). Each move is energy-tested by
-    `_accept`. `active` stays fixed. Returns (Hs, q).
+    `_f_accept`. `active` stays fixed. Returns (Hs, q).
 
     With a `shard`, the (., N) arrays are a 'pt' rank's own points: the
     labelings and energies run on the axis, the refits gather their
@@ -989,38 +1033,19 @@ def _f_refine_phases(Hs, active, q, draws, x1, x2, valid, nbr_idx, nbr_w,
                                     active, adj=adj, shard=shard)
         return lab_e, q_e, e
 
-    def accept(Hs_c, q_c, r_c, lab_c, e_c, Hs_prop, r_prop, ok_prop):
-        """The joint move (every ok proposal at once, scored under a full
-        relabel) if it lowers the energy, else one model at a time under
-        an ICM relabel from the carried labeling, each kept iff the
-        energy drops. The lax.cond at pipeline.py:1556 is a host branch."""
-        r_j = torch.where(ok_prop[:, None], r_prop, r_c)
-        _, q_j, e_j = label_energy(r_j, q_c)
-        if bool(e_j < e_c):
-            return torch.where(ok_prop[:, None, None], Hs_prop, Hs_c), q_j
-        Hs_s, r_s, lab_s, e_s = Hs_c, r_c, lab_c, e_c
-        for i in range(k):  # the lax.scan over models
-            Hn = torch.where(ok_prop[i], Hs_prop[i], Hs_s[i])
-            r_n = r_s.clone()
-            r_n[i] = residuals(Hn[None])[0]
-            dct_n = labeling.data_costs_t(r_n, valid, thr, cfg.outlier_cost,
-                                          active)
-            lab_n = labeling.best_labeling_t(
-                [lab_s, torch.argmin(dct_n, dim=0)],
-                dct_n, nbr_idx, nbr_w, cfg.spatial_weight,
-                cfg.icm_iterations, adj=adj, use_kernel=use_k, shard=shard,
-            )
-            e_n = labeling.total_energy_t(
-                lab_n, dct_n, nbr_idx, nbr_w, cfg.spatial_weight,
-                cfg.label_cost, active, adj=adj, shard=shard,
-            )
-            better = e_n < e_s
-            Hs_s = Hs_s.clone()
-            Hs_s[i] = torch.where(better, Hn, Hs_s[i])
-            r_s = torch.where(better, r_n, r_s)
-            lab_s = torch.where(better, lab_n, lab_s)
-            e_s = torch.where(better, e_n, e_s)
-        return Hs_s, q_c
+    def relabel_energy(r_n, lab0):
+        dct_n = labeling.data_costs_t(r_n, valid, thr, cfg.outlier_cost,
+                                      active)
+        lab_n = labeling.best_labeling_t(
+            [lab0, torch.argmin(dct_n, dim=0)],
+            dct_n, nbr_idx, nbr_w, cfg.spatial_weight,
+            cfg.icm_iterations, adj=adj, use_kernel=use_k, shard=shard,
+        )
+        e_n = labeling.total_energy_t(
+            lab_n, dct_n, nbr_idx, nbr_w, cfg.spatial_weight,
+            cfg.label_cost, active, adj=adj, shard=shard,
+        )
+        return lab_n, e_n
 
     if cfg.f_exclusive_refine:
         for _ in range(cfg.f_exclusive_iterations):
@@ -1040,7 +1065,9 @@ def _f_refine_phases(Hs, active, q, draws, x1, x2, valid, nbr_idx, nbr_w,
             cov_core = n_kept / torch.clamp_min(n_core, 1.0)
             ok_prop = ((n_core >= m_min) & (cov_core >= 0.8)
                        & all_finite(Hs_prop) & (active > 0))
-            Hs, q = accept(Hs, q, r_c, lab_c, e_c, Hs_prop, r_prop, ok_prop)
+            Hs, q = _f_accept(Hs, q, r_c, lab_c, e_c, Hs_prop, r_prop,
+                              ok_prop, label_energy, relabel_energy,
+                              residuals)
 
     if cfg.f_resample_lo:
         m_pts, s_sub, n_pts = 12, cfg.f_resample_subsets, x1_all.shape[0]
@@ -1087,7 +1114,9 @@ def _f_refine_phases(Hs, active, q, draws, x1, x2, valid, nbr_idx, nbr_w,
             ok_prop = ((n_mem >= max(float(m_pts), m_min))
                        & (cost_prop < cost_inc) & (active > 0)
                        & all_finite(Hs_prop))
-            Hs, q = accept(Hs, q, r_c, lab_c, e_c, Hs_prop, r_prop, ok_prop)
+            Hs, q = _f_accept(Hs, q, r_c, lab_c, e_c, Hs_prop, r_prop,
+                              ok_prop, label_energy, relabel_energy,
+                              residuals)
     return Hs, q
 
 

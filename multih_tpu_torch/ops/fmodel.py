@@ -39,6 +39,22 @@ _Q0 = np.linalg.qr(
     np.random.default_rng(20260818).normal(size=(9, 9))
 )[0].astype(np.float32)
 
+# the device copies of this module's numpy constants, one a (name,
+# device, dtype): a fit copies nothing from the host, which a CUDA graph
+# could not capture
+_ON_DEVICE: dict = {}
+
+
+def _on_device(name: str, arr: np.ndarray, device,
+               dtype=None) -> torch.Tensor:
+    key = (name, torch.device(device), dtype)
+    t = _ON_DEVICE.get(key)
+    if t is None:
+        with torch.inference_mode(False):
+            t = _ON_DEVICE[key] = torch.as_tensor(arr, dtype=dtype,
+                                                  device=device)
+    return t
+
 
 # ---------------------------------------------------------------------------
 # residuals
@@ -135,7 +151,7 @@ def _denormalize_f(Fn, T1, T2):
 def fundamental_8pt_minimal(p1: torch.Tensor, p2: torch.Tensor):
     """Minimal 8-point fundamental matrices via Givens-QR nullspace:
     (..., 8, 2) x2 -> (..., 3, 3), ||F|| = 1, rank 2."""
-    q0 = torch.as_tensor(_Q0, dtype=p1.dtype, device=p1.device)
+    q0 = _on_device("Q0", _Q0, p1.device, p1.dtype)
     x1n, T1 = geometry.hartley_normalize(p1)
     x2n, T2 = geometry.hartley_normalize(p2)
     rows = _epipolar_rows(x1n, x2n)  # (..., 8, 9)
@@ -149,16 +165,19 @@ fundamental_8pt_batch_qr = fundamental_8pt_minimal
 
 def fundamental_npt_minimal(p1: torch.Tensor, p2: torch.Tensor,
                             eig_iterations: int = 6,
-                            eig_method: str = "eigh"):
+                            eig_method: str = "eigh",
+                            eig_kernel: bool = False):
     """Overdetermined small-sample solve: (..., m, 2) x2 with m > 8 ->
     (..., 3, 3), through the normal equations and the smallest
-    eigenvector of the 9x9 A^T A."""
+    eigenvector of the 9x9 A^T A; with `eig_kernel` in the Jacobi kernel
+    (K3), else by `eig_method`."""
     x1n, T1 = geometry.hartley_normalize(p1)
     x2n, T2 = geometry.hartley_normalize(p2)
     rows = _epipolar_rows(x1n, x2n)  # (..., m, 9)
     ata = rows.transpose(-1, -2) @ rows
-    fv = geometry.smallest_eigvec_9x9(ata, eig_iterations, eig_method)
-    return _denormalize_f(fv.reshape(*fv.shape[:-1], 3, 3), T1, T2)
+    fv = geometry.smallest_eigvecs(ata.reshape(-1, 9, 9), eig_method,
+                                   eig_iterations, eig_kernel)
+    return _denormalize_f(fv.reshape(*ata.shape[:-2], 3, 3), T1, T2)
 
 
 # the JAX package's vmapped name: (S, m, 2) x (S, m, 2) -> (S, 3, 3)
@@ -219,7 +238,7 @@ def _moments_to_ata_f(mom: torch.Tensor):
     ))
     s2 = torch.full_like(rms2, geometry._SQRT2) / rms2
 
-    idx = torch.as_tensor(_SYM_IDX, device=mom.device)
+    idx = _on_device("SYM_IDX", _SYM_IDX, mom.device)
     # ata4[c, i, j, k, l] = mom[c, sym2(i, j), sym1(k, l)]
     ata4 = mom[:, idx[:, :, None, None], idx[None, None, :, :]]
     ata = ata4.permute(0, 1, 3, 2, 4).reshape(-1, 9, 9)  # [3i+k, 3j+l]

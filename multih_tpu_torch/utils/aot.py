@@ -1,5 +1,5 @@
-"""The homography fit captured once as a CUDA graph, and the kernel library
-that outlives a process.
+"""The fits captured once as CUDA graphs, and the kernel library that
+outlives a process.
 
 Counterpart of ``multih_tpu/utils/aot.py``. The reference exports the
 jitted fit (``jax.export``) so that a later process skips Python tracing;
@@ -23,11 +23,16 @@ Usage (the CLI wires this behind ``--aot`` / MULTIH_AOT=1):
     fn = aot.cached_fit(cfg, kind="fit")   # captured on the first call
     res = fn(x1, x2, valid, torch.Generator("cuda").manual_seed(0))
 
-The homography model's four kinds are captured: ``fit``, ``fit_tau``,
-``fit_seeded`` and ``fit_adaptive``. The fundamental model is not: its
-fit branches on the host (``models/pipeline.py:999``, the accept of
-``_f_refine_phases``). A capture that
-fails raises, naming the operation; it never falls back to the eager fit.
+Both single models' four kinds are captured: ``fit``, ``fit_tau``,
+``fit_seeded`` and ``fit_adaptive``; so are the mixed plane + motion
+fit's three (`cached_fit_mixed`: ``fit``, ``fit_tau``, ``fit_adaptive``):
+
+    fn = aot.cached_fit_mixed(cfg_h, cfg_f, kind="fit_tau")
+    res = fn(x1, x2, valid, torch.Generator("cuda").manual_seed(0),
+             tau_h, tau_f)
+
+A capture that fails raises, naming the operation; it never falls back
+to the eager fit.
 """
 
 from __future__ import annotations
@@ -47,10 +52,13 @@ from multih_tpu_torch.ops.kernels import _build
 _STAMP = "aot-torch-v1"
 
 KINDS = ("fit", "fit_tau", "fit_seeded", "fit_adaptive")
+MIXED_KINDS = ("fit", "fit_tau", "fit_adaptive")
 # the arguments after (x1, x2, valid, key) of each kind
 _EXTRA = {"fit": (), "fit_tau": ("tau",), "fit_seeded": ("seed_Hs",
                                                          "seed_ok"),
           "fit_adaptive": ()}
+_EXTRA_MIXED = {"fit": (), "fit_tau": ("tau_h", "tau_f"),
+                "fit_adaptive": ()}
 
 # one capture per (key, card) in a process
 _CAPTURED: dict = {}
@@ -59,15 +67,27 @@ _CAPTURED: dict = {}
 def _check(cfg, kind: str) -> None:
     if kind not in KINDS:
         raise ValueError(f"kind {kind!r} not in {KINDS}")
-    if cfg.model != "homography":
-        raise NotImplementedError(
-            f"cached_fit captures the homography model only: the "
-            f"{cfg.model} fit branches on the host (models/pipeline.py:999, "
-            f"`if bool(e_j < e_c)` in _f_refine_phases' accept), which a "
-            f"CUDA graph cannot capture")
 
 
-def _maker(cfg, kind: str, device=None):
+def _check_mixed(cfg_h, cfg_f, kind: str) -> None:
+    if kind not in MIXED_KINDS:
+        raise ValueError(f"kind {kind!r} not in {MIXED_KINDS}")
+    if cfg_h.model != "homography" or cfg_f.model != "fundamental":
+        raise ValueError("the mixed fit takes cfg_h with model="
+                         "'homography' and cfg_f with model='fundamental'")
+
+
+def _maker(cfg, kind: str, device=None, mixed=None):
+    """The eager fit of `kind`; with `mixed` (the mixed fit's arguments
+    after cfg_h: cfg_f, f_bias, ...) the mixed fit's, cfg being cfg_h."""
+    if mixed is not None:
+        from multih_tpu_torch.models import mixed as mixed_fit
+
+        return {
+            "fit": mixed_fit.make_fit_mixed,
+            "fit_tau": mixed_fit.make_fit_mixed_tau,
+            "fit_adaptive": mixed_fit.make_fit_mixed_adaptive,
+        }[kind](cfg, **mixed, device=device)
     from multih_tpu_torch.models import pipeline
 
     return {
@@ -105,6 +125,27 @@ def cache_key(cfg, kind: str, device=None) -> str:
     return hashlib.sha256(sig.encode()).hexdigest()[:24]
 
 
+def _mixed_kind_name(kind: str) -> str:
+    """The reference's name of a mixed kind: fit_mixed, fit_mixed_tau,
+    fit_mixed_adaptive."""
+    return "fit_mixed" if kind == "fit" else f"fit_mixed_{kind[4:]}"
+
+
+def cache_key_mixed(cfg_h, cfg_f, f_bias, polish_meanfield, polish_icm,
+                    f_scope="all", kind="fit", device=None,
+                    polish_refits=2) -> str:
+    """24-hex-char key of one captured mixed program: as `cache_key`, with
+    both configs and the mixed fit's options (the port's polish_refits
+    among them) in place of the one config."""
+    sig = "|".join([
+        _STAMP, torch.__version__, str(torch.version.cuda),
+        _device_kind(_device(device)), _mixed_kind_name(kind),
+        repr(cfg_h), repr(cfg_f),
+        repr((f_bias, polish_meanfield, polish_icm, f_scope,
+              polish_refits))])
+    return hashlib.sha256(sig.encode()).hexdigest()[:24]
+
+
 def default_cache_dir() -> str:
     """The cache root of the kernel library: MULTIH_AOT_CACHE, else the
     one the kernels build into by default (build/multih_tpu_torch at the
@@ -122,6 +163,14 @@ def export_fit(cfg, kind: str = "fit", cache_dir: str | None = None) -> str:
     return str(_build.build_report()[2])
 
 
+def _load_library(cache_dir, save_on_miss: bool) -> None:
+    root = cache_dir or default_cache_dir()
+    if save_on_miss:
+        _build.load(root)
+    else:
+        _build.load(root if _build.library_path(root).exists() else None)
+
+
 def cached_fit(cfg, kind: str = "fit", cache_dir: str | None = None,
                save_on_miss: bool = True, device=None):
     """The fit of `kind` with cfg bound, on the card captured as one CUDA
@@ -132,31 +181,62 @@ def cached_fit(cfg, kind: str = "fit", cache_dir: str | None = None,
     library comes from `cache_dir` (`default_cache_dir()`), built there
     first with `save_on_miss`, else taken from there only if it is
     built and otherwise from the default root. device="cpu" returns the
-    plain maker (the CPU has no graphs). cfg.model="fundamental" raises
-    NotImplementedError."""
+    plain maker (the CPU has no graphs). Either model, homography or
+    fundamental."""
     _check(cfg, kind)
     dev = _device(device)
     if dev.type != "cuda":
         return _maker(cfg, kind, device=dev)
-    root = cache_dir or default_cache_dir()
-    if save_on_miss:
-        export_fit(cfg, kind, root)
-    else:
-        _build.load(root if _build.library_path(root).exists() else None)
+    _load_library(cache_dir, save_on_miss)
     key = (cache_key(cfg, kind, dev), dev.index)
     if key not in _CAPTURED:
         _CAPTURED[key] = CapturedFit(cfg, kind, dev)
     return _CAPTURED[key]
 
 
+def cached_fit_mixed(cfg_h, cfg_f, f_bias: float = 0.5,
+                     polish_meanfield: int = 4, polish_icm: int = 2,
+                     cache_dir: str | None = None,
+                     save_on_miss: bool = True, f_scope: str = "all",
+                     kind: str = "fit", device=None,
+                     polish_refits: int = 2):
+    """The mixed plane + motion fit of `kind` (models/mixed.py: "fit",
+    "fit_tau", "fit_adaptive") with its configs and options bound, on the
+    card captured as one CUDA graph as `cached_fit` captures a single
+    model's fit: f(x1, x2, valid, key[, tau_h, tau_f]) -> MixedFitResult,
+    or (MixedFitResult, tau_h, tau_f) for fit_adaptive, the graph's
+    outputs cloned. `key` is one CUDA generator, which both stages (and
+    the adaptive fit's probes) draw from in turn, as in the eager fit.
+    device="cpu" returns the plain maker."""
+    _check_mixed(cfg_h, cfg_f, kind)
+    mixed = dict(cfg_f=cfg_f, f_bias=f_bias,
+                 polish_meanfield=polish_meanfield, polish_icm=polish_icm,
+                 f_scope=f_scope, polish_refits=polish_refits)
+    dev = _device(device)
+    if dev.type != "cuda":
+        return _maker(cfg_h, kind, device=dev, mixed=mixed)
+    _load_library(cache_dir, save_on_miss)
+    key = (cache_key_mixed(cfg_h, cfg_f, f_bias, polish_meanfield,
+                           polish_icm, f_scope, kind, dev, polish_refits),
+           dev.index)
+    if key not in _CAPTURED:
+        _CAPTURED[key] = CapturedFit(cfg_h, kind, dev, mixed=mixed)
+    return _CAPTURED[key]
+
+
 def _launches() -> dict:
-    """Every kernel wrapper's launch count, by kernel name."""
+    """Every kernel wrapper's launch count, by kernel name; K1's
+    homography kinds (`inlier_counts`) apart from its epipolar ones
+    (`inlier_counts_f`)."""
     from multih_tpu_torch.ops.kernels import (dlt_kernel, eig_kernel,
                                               gather_kernel, mrf_kernel,
                                               residual_kernel)
 
+    k1 = residual_kernel.inlier_counts_padded
+    k1_f = sum(v for k, v in k1.kind_launches.items() if k.startswith("f_"))
     return {
-        "inlier_counts": residual_kernel.inlier_counts_padded.launches,
+        "inlier_counts": k1.launches - k1_f,
+        "inlier_counts_f": k1_f,
         "dlt_4pt": dlt_kernel.homography_4pt_gt.launches,
         "eig9_smallest": eig_kernel.smallest_eigvec_9x9_batch.launches,
         "mean_field_fused": mrf_kernel.mean_field_fused.launches,
@@ -195,13 +275,18 @@ def _where(e: BaseException) -> str:
 
 
 class CapturedFit:
-    """One fit kind at one config, captured as a CUDA graph on a card.
+    """One fit kind at one config, captured as a CUDA graph on a card;
+    with `mixed` (the mixed fit's arguments after cfg_h, as
+    `cached_fit_mixed` passes them) the mixed fit's kind, cfg being
+    cfg_h.
 
     Static inputs, allocated once: x1, x2 (max_points, 2) float32, valid
-    (max_points,), a 0-dim tau, seed_Hs (max_labels, 3, 3) and seed_ok
-    (max_labels,). A call copies its arguments in (`copy_`, outside the
-    capture: numpy, CPU or CUDA input; a number for tau) and raises
-    ValueError on any other shape. The first call warms the fit up
+    (max_points,), and the kind's others: a 0-dim tau (fit_tau),
+    seed_Hs (max_labels, 3, 3) and seed_ok (max_labels,) (fit_seeded),
+    0-dim tau_h and tau_f (the mixed fit_tau). A call copies its
+    arguments in (`copy_`, outside the capture: numpy, CPU or CUDA
+    input; a number for a 0-dim one) and raises ValueError on any other
+    shape. The first call warms the fit up
     eagerly on a side stream (the kernel library, the kernels' occupancy
     queries, the cuBLAS workspace) and captures it with
     ``torch.cuda.graph`` on that stream; every call then replays it.
@@ -219,34 +304,38 @@ class CapturedFit:
     allocator's snapshot does not say), `launches` (each kernel's
     launches captured, which every replay makes)."""
 
-    def __init__(self, cfg, kind: str, device: torch.device):
+    def __init__(self, cfg, kind: str, device: torch.device, mixed=None):
         self.cfg, self.kind, self.device = cfg, kind, device
+        self.extra = (_EXTRA if mixed is None else _EXTRA_MIXED)[kind]
+        self.what = kind if mixed is None else f"mixed {kind}"
         n, k = cfg.max_points, cfg.max_labels
         f32 = dict(dtype=torch.float32, device=device)
-        self.x1 = torch.zeros((n, 2), **f32)
-        self.x2 = torch.zeros((n, 2), **f32)
-        self.valid = torch.zeros((n,), **f32)
-        self.tau = torch.full((), cfg.inlier_threshold, **f32)
-        self.seed_Hs = torch.zeros((k, 3, 3), **f32)
-        self.seed_ok = torch.zeros((k,), **f32)
+        shapes = {"x1": (n, 2), "x2": (n, 2), "valid": (n,),
+                  "seed_Hs": (k, 3, 3), "seed_ok": (k,)}
+        fills = {"tau": cfg.inlier_threshold, "tau_h": cfg.inlier_threshold}
+        if mixed is not None:
+            fills["tau_f"] = mixed["cfg_f"].inlier_threshold
+        for name in ("x1", "x2", "valid") + self.extra:
+            setattr(self, name, torch.zeros(shapes[name], **f32)
+                    if name in shapes else torch.full((), fills[name], **f32))
         self.generator = torch.Generator(device=device)
         self.graph = None
         self.out = None
         self.warmup_s = self.capture_s = None
         self.pool_bytes = None
         self.launches = None
-        self._fn = _maker(cfg, kind, device=device)
+        self._fn = _maker(cfg, kind, device=device, mixed=mixed)
 
     def _static(self):
-        return [self.x1, self.x2, self.valid] + [
-            getattr(self, name) for name in _EXTRA[self.kind]]
+        return [getattr(self, name)
+                for name in ("x1", "x2", "valid") + self.extra]
 
     def _args(self):
         s = self._static()
         return (*s[:3], self.generator, *s[3:])
 
     def _load(self, args) -> None:
-        names = ("x1", "x2", "valid") + _EXTRA[self.kind]
+        names = ("x1", "x2", "valid") + self.extra
         for name, dst, src in zip(names, self._static(), args):
             if dst.dim() == 0 and isinstance(src, (int, float, np.number)):
                 dst.fill_(float(src))
@@ -254,7 +343,7 @@ class CapturedFit:
             src = torch.as_tensor(src)
             if tuple(src.shape) != tuple(dst.shape):
                 raise ValueError(
-                    f"{name} of shape {tuple(src.shape)}: the {self.kind} "
+                    f"{name} of shape {tuple(src.shape)}: the {self.what} "
                     f"captured at max_points={self.cfg.max_points}, "
                     f"max_labels={self.cfg.max_labels} takes "
                     f"{tuple(dst.shape)}")
@@ -278,7 +367,7 @@ class CapturedFit:
                 out = self._fn(*self._args())
         except Exception as e:
             raise RuntimeError(
-                f"capturing {self.kind} (max_points={self.cfg.max_points}) "
+                f"capturing {self.what} (max_points={self.cfg.max_points}) "
                 f"as a CUDA graph failed at {_where(e)}") from e
         torch.cuda.synchronize(dev)
         self.capture_s = time.perf_counter() - t1
@@ -288,10 +377,9 @@ class CapturedFit:
         self.graph, self.out = graph, out
 
     def __call__(self, x1, x2, valid, key, *extra):
-        if len(extra) != len(_EXTRA[self.kind]):
-            raise TypeError(f"{self.kind} takes (x1, x2, valid, key"
-                            + "".join(f", {n}" for n in _EXTRA[self.kind])
-                            + ")")
+        if len(extra) != len(self.extra):
+            raise TypeError(f"{self.what} takes (x1, x2, valid, key"
+                            + "".join(f", {n}" for n in self.extra) + ")")
         if not (isinstance(key, torch.Generator)
                 and key.device.type == "cuda"):
             raise ValueError("a captured fit draws from one CUDA "

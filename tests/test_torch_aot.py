@@ -2,13 +2,16 @@
 key and rebuild (ops/kernels/_build.py), on the CPU.
 
 The CUDA graph itself runs only on a card (chip_smoke.py phase 14). Here:
-the host fingerprint equals the JAX package's, the program key tells
-configs and kinds apart (tests/test_aot.py's contract), `cached_fit` on
-the CPU is the port's plain maker bit for bit (tests/test_torch_pipeline.py
-holds that maker against the JAX fit), the captured fit's static inputs
-refuse other shapes, and `_build` keys its library by the toolchain,
-refuses a card of another architecture and rebuilds a library that does
-not load. No JAX compile.
+the host fingerprint equals the JAX package's, the program keys tell
+configs, options and kinds apart (tests/test_aot.py's contract),
+`cached_fit` (both models) and `cached_fit_mixed` on the CPU are the
+port's plain makers bit for bit (tests/test_torch_pipeline.py,
+test_torch_fmodel.py and test_torch_mixed.py hold those against the JAX
+fits), the captured fits' static inputs refuse other shapes, the F fit's
+accept gives the same result on its device route as on its host route,
+and `_build` keys its library by the toolchain, refuses a card of
+another architecture and rebuilds a library that does not load. No JAX
+compile.
 """
 
 import dataclasses
@@ -19,7 +22,9 @@ import pytest
 import torch
 
 import multih_tpu_torch as mt
+import torch_mesh_ranks
 from multih_tpu.utils import cache as jcache
+from multih_tpu_torch.models import mixed, pipeline
 from multih_tpu_torch.ops.kernels import _build
 from multih_tpu_torch.utils import aot, cache
 from multih_tpu_torch.utils import data as tdata
@@ -27,6 +32,9 @@ from multih_tpu_torch.utils import data as tdata
 torch.set_num_threads(1)
 
 KINDS = ("fit", "fit_tau", "fit_seeded", "fit_adaptive")
+MIXED_MAKERS = {"fit": mixed.make_fit_mixed,
+                "fit_tau": mixed.make_fit_mixed_tau,
+                "fit_adaptive": mixed.make_fit_mixed_adaptive}
 
 
 @pytest.fixture(scope="module")
@@ -39,6 +47,45 @@ def scene(small_cfg):
     """tests/test_aot.py's scene, padded."""
     cs, _ = tdata.synthetic_scene(100, 2, 0.1, 0.5, seed=5)
     return mt.pad_points(cs.x1, cs.x2, None, small_cfg.max_points)
+
+
+@pytest.fixture(scope="module")
+def f_cfg(small_cfg):
+    return dataclasses.replace(small_cfg, model="fundamental",
+                               residual="sampson")
+
+
+@pytest.fixture(scope="module")
+def motion_scene(small_cfg):
+    """A 2-motion scene, padded: a fit whose accept takes the joint move
+    once and refuses it four times (test_f_accept_routes_agree)."""
+    cs, _ = tdata.synthetic_motion_scene(100, 2, 0.1, 0.5, seed=5)
+    return mt.pad_points(cs.x1, cs.x2, None, small_cfg.max_points)
+
+
+@pytest.fixture(scope="module")
+def mixed_scene():
+    """A 2-plane, 1-motion scene padded to tests/torch_mesh_ranks.py's
+    MIXED_H (N=320, the gather path)."""
+    cs, _, _ = tdata.synthetic_mixed_scene(300, 2, 1, 0.1, 0.5, seed=3)
+    return mt.pad_points(cs.x1, cs.x2, None,
+                         torch_mesh_ranks.MIXED_H["max_points"])
+
+
+def assert_same(got, want):
+    """Two results (NamedTuples of tensors, nested, or tuples of them and
+    taus) equal bit for bit."""
+    if isinstance(want, torch.Tensor):
+        assert torch.equal(got, want)
+        return
+    if hasattr(want, "_fields"):
+        assert got._fields == want._fields
+        for name in want._fields:
+            assert_same(getattr(got, name), getattr(want, name))
+        return
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert_same(a, b)
 
 
 def test_host_fingerprint_matches_reference():
@@ -88,21 +135,110 @@ def test_cpu_cached_fit_is_the_maker(small_cfg, scene, kind):
     assert int(got.active.sum()) >= 1
 
 
-@pytest.mark.parametrize("device", ["cpu", None])
-def test_fundamental_not_captured(small_cfg, device):
-    """The F model raises NotImplementedError naming the line of its host
-    branch."""
-    import inspect
+@pytest.mark.parametrize("kind", ("fit", "fit_tau", "fit_adaptive"))
+def test_cpu_cached_fit_fundamental_is_the_maker(f_cfg, motion_scene, kind):
+    """cached_fit takes the F model: on the CPU its plain maker, the same
+    results bit for bit and the generator left in the same state."""
+    f = aot.cached_fit(f_cfg, kind, device="cpu")
+    maker = {"fit": mt.make_fit, "fit_tau": mt.make_fit_tau,
+             "fit_adaptive": mt.make_fit_adaptive}[kind]
+    g_a, g_b = (torch.Generator().manual_seed(3) for _ in range(2))
+    extra = (2.5,) if kind == "fit_tau" else ()
+    got = f(*motion_scene, g_a, *extra)
+    assert_same(got, maker(f_cfg, device="cpu")(*motion_scene, g_b, *extra))
+    assert torch.equal(g_a.get_state(), g_b.get_state())
+    res = got[0] if kind == "fit_adaptive" else got
+    assert int(res.active.sum()) >= 1
 
-    from multih_tpu_torch.models import pipeline
 
-    src = inspect.getsource(pipeline).splitlines()
-    line = 1 + next(i for i, s in enumerate(src)
-                    if "if bool(e_j < e_c):" in s)
-    cfg = dataclasses.replace(small_cfg, model="fundamental",
-                              residual="sampson")
-    with pytest.raises(NotImplementedError, match=f"pipeline.py:{line}"):
-        aot.cached_fit(cfg, "fit", device=device)
+@pytest.mark.parametrize("kind", aot.MIXED_KINDS)
+def test_cpu_cached_fit_mixed_is_the_maker(mixed_scene, kind):
+    """cached_fit_mixed on the CPU is the plain mixed maker: the same
+    MixedFitResult (and taus) bit for bit, the generator in the same
+    state."""
+    cfg_h, cfg_f = torch_mesh_ranks.mixed_configs()
+    f = aot.cached_fit_mixed(cfg_h, cfg_f, kind=kind, device="cpu")
+    g_a, g_b = (torch.Generator().manual_seed(2) for _ in range(2))
+    extra = (3.5, 2.5) if kind == "fit_tau" else ()
+    got = f(*mixed_scene, g_a, *extra)
+    want = MIXED_MAKERS[kind](cfg_h, cfg_f, device="cpu")(
+        *mixed_scene, g_b, *extra)
+    assert_same(got, want)
+    assert torch.equal(g_a.get_state(), g_b.get_state())
+    res = got[0] if kind == "fit_adaptive" else got
+    assert int(res.active.sum()) >= 2
+
+
+def test_mixed_key_stable_and_differs_by_each_argument_and_kind():
+    cfg_h, cfg_f = torch_mesh_ranks.mixed_configs()
+    base = dict(cfg_h=cfg_h, cfg_f=cfg_f, f_bias=0.5, polish_meanfield=4,
+                polish_icm=2, f_scope="all", kind="fit", device="cpu",
+                polish_refits=2)
+    key = aot.cache_key_mixed(**base)
+    assert key == aot.cache_key_mixed(**base) and len(key) == 24
+    others = dict(
+        cfg_h=dataclasses.replace(cfg_h, inlier_threshold=4.0),
+        cfg_f=dataclasses.replace(cfg_f, inlier_threshold=2.0),
+        f_bias=0.25, polish_meanfield=2, polish_icm=1, f_scope="remainder",
+        kind="fit_tau", polish_refits=1)
+    keys = [aot.cache_key_mixed(**dict(base, **{name: v}))
+            for name, v in others.items()]
+    keys.append(aot.cache_key_mixed(**dict(base, kind="fit_adaptive")))
+    assert len(set(keys)) == len(keys) and key not in keys
+    assert key != aot.cache_key(cfg_h, "fit", device="cpu")
+
+
+def test_mixed_refuses_other_kinds_and_models():
+    cfg_h, cfg_f = torch_mesh_ranks.mixed_configs()
+    with pytest.raises(ValueError, match="fit_seeded"):
+        aot.cached_fit_mixed(cfg_h, cfg_f, kind="fit_seeded", device="cpu")
+    with pytest.raises(ValueError, match="model='fundamental'"):
+        aot.cached_fit_mixed(cfg_h, cfg_h, device="cpu")
+
+
+def test_mixed_static_inputs_refuse_other_shapes(mixed_scene):
+    """The captured mixed fit_tau's static buffers (made on the CPU) take
+    the points and two thresholds, numbers or tensors, and refuse other
+    shapes; without the thresholds the call names them."""
+    cfg_h, cfg_f = torch_mesh_ranks.mixed_configs()
+    f = aot.CapturedFit(cfg_h, "fit_tau", torch.device("cpu"),
+                        mixed=dict(cfg_f=cfg_f))
+    x1, x2, valid = mixed_scene
+    assert float(f.tau_h) == cfg_h.inlier_threshold
+    assert float(f.tau_f) == cfg_f.inlier_threshold
+    f._load((x1, x2, torch.from_numpy(valid), 3.5, torch.tensor(2.5)))
+    assert torch.equal(f.valid, torch.from_numpy(valid))
+    assert (float(f.tau_h), float(f.tau_f)) == (3.5, 2.5)
+    with pytest.raises(ValueError, match="x2 of shape.*mixed fit_tau"):
+        f._load((x1, x2[:128], valid, 3.5, 2.5))
+    with pytest.raises(ValueError, match="tau_f of shape"):
+        f._load((x1, x2, valid, 3.5, np.ones(2, np.float32)))
+    with pytest.raises(TypeError, match="tau_h, tau_f"):
+        f(x1, x2, valid, torch.Generator())
+    adaptive = aot.CapturedFit(cfg_h, "fit_adaptive", torch.device("cpu"),
+                               mixed=dict(cfg_f=cfg_f))
+    assert adaptive.extra == () and not hasattr(adaptive, "tau_h")
+
+
+def test_f_accept_routes_agree(f_cfg, motion_scene, monkeypatch):
+    """pipeline._f_accept on its device route (both moves computed, each
+    output picked with torch.where) equals its host route bit for bit,
+    call by call through an F fit, on calls where the joint move is taken
+    and on calls where it is refused."""
+    accept = pipeline._f_accept
+    joint = []
+
+    def both(Hs_c, q_c, *args):
+        host = accept(Hs_c, q_c, *args, on_device=False)
+        device = accept(Hs_c, q_c, *args, on_device=True)
+        assert_same(device, host)
+        joint.append(host[1] is not q_c)  # the fallback keeps q_c
+        return host
+
+    monkeypatch.setattr(pipeline, "_f_accept", both)
+    mt.fit(*motion_scene, torch.Generator().manual_seed(0), f_cfg,
+           device="cpu")
+    assert True in joint and False in joint, joint
 
 
 def test_unknown_kind(small_cfg):

@@ -189,6 +189,35 @@ def test_eig_plain_on_f_normal_matrices():
     assert (err <= eigvec_floor(atas)).all()
 
 
+def test_eig_plain_on_12pt_normal_matrices():
+    """The resample-LO's 12-point minimal solves, whose 9x9 eigensolves
+    run in K3 on the card (`fundamental_npt_minimal(eig_kernel=True)`:
+    torch.linalg.eigh reads its error flags back to the host): K3's plain
+    version on the normal matrices of 12-point member subsets of a
+    2-motion scene, C=256, within the first-order float32 floor of
+    float64 eigh on every matrix; on the CPU the K3 route is that plain
+    version, and eig_kernel=False is the eigh route bit for bit."""
+    from multih_tpu_torch.ops import geometry
+
+    cs, _ = tdata.synthetic_motion_scene(400, 2, 0.0, 0.5, seed=3)
+    rng = np.random.default_rng(0)
+    idx = np.array([rng.choice(np.flatnonzero(cs.gt_labels == m), 12,
+                               replace=False)
+                    for m in (1, 2) for _ in range(128)])
+    p1, p2 = t(cs.x1[idx]), t(cs.x2[idx])
+    x1n, _ = geometry.hartley_normalize(p1)
+    x2n, _ = geometry.hartley_normalize(p2)
+    rows = tfm._epipolar_rows(x1n, x2n)
+    atas = rows.transpose(-1, -2) @ rows
+    err = eigvec_err64(atas, teig.smallest_eigvec_9x9_batch_reference(atas))
+    assert (err <= eigvec_floor(atas)).all()
+    assert torch.equal(
+        tfm.fundamental_npt_minimal(p1, p2, 6, "eigh", eig_kernel=False),
+        tfm.fundamental_npt_minimal(p1, p2, 6, "eigh"))
+    via_k3 = tfm.fundamental_npt_minimal(p1, p2, 6, "eigh", eig_kernel=True)
+    assert torch.isfinite(via_k3).all()
+
+
 # ---------------------------------------------------------------------------
 # K1's epipolar kinds, coverage selection, scenes
 # ---------------------------------------------------------------------------

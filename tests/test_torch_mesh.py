@@ -45,6 +45,13 @@ from test_torch_windowed import (KeyWindowDraws, _knn_windowed,
 torch.set_num_threads(1)
 
 WORLD = 4
+# The reference's mean misclassification (pp) over keys 0-31 on the
+# "fmodel" 'pt' case's scene and config (`python3
+# tools/torch_golden_keys.py --scenes pt_fmodel`: the reference 2.0213,
+# s.e. 0.0382; the port 2.0213, s.e. 0.0394). The scene's own error sits
+# at 2%, so that case is held to the motion suite's contract, |delta| <=
+# 2.0 pp a scene, against this mean.
+REF_MEAN_FMODEL = 2.0213
 SPAWN_DEADLINE_S = 90.0
 
 
@@ -308,9 +315,11 @@ def test_pt_sharded_fit_equals_fit(ranks_dir, pt_single, ranks, case):
     rank) against the port's unsharded fit with the same generator seed
     (tests/test_sharding.py:338-377 at a cut-down N): labels, active,
     n_hypotheses_ok and n_far_dropped exact on every rank, energy within
-    rtol 1e-3, misclassification under 2%; also with the direct refit
-    (refit_moments=False), the fundamental model and the exact graph
-    (with and without far edges past the far list's capacity)."""
+    rtol 1e-3, misclassification under 2% (the fundamental model: within
+    2.0 pp of the reference's 32-key mean, REF_MEAN_FMODEL); also with the
+    direct refit (refit_moments=False), the fundamental model and the
+    exact graph (with and without far edges past the far list's
+    capacity)."""
     ref, cs = pt_single[case]
     k = R.PT["max_labels"]
     for rank in ranks:
@@ -326,7 +335,10 @@ def test_pt_sharded_fit_equals_fit(ranks_dir, pt_single, ranks, case):
                                    rtol=1e-3)
         err = evaluation.misclassification_error(
             got["labels"][:cs.n_points], cs.gt_labels, k)
-        assert err < 2.0, err
+        if case == "fmodel":
+            assert err <= REF_MEAN_FMODEL + 2.0, err
+        else:
+            assert err < 2.0, err
 
 
 def test_pt_exact_cut_drops_far_edges(pt_single):
