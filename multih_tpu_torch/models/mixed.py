@@ -10,8 +10,9 @@ the exact k-NN graph of the caller's points, unsorted and unbanded (the
 gather-path labeling): mean-field from the sequential composition, ICM
 from two starts, four label-cost prune rounds, `polish_refits` rounds of
 Tukey-weighted F refits, the min-support prune and the energy. Each
-stage is a ``torch.profiler.record_function`` of the JAX
-``named_scope``'s name. Nothing in the polish reads a device value back
+stage is a ``utils.tracing.stage`` of the JAX ``named_scope``'s name (a
+``torch.profiler.record_function`` range, and a span while captured).
+Nothing in the polish reads a device value back
 to the host.
 
 Draws: the reference splits its key in two for `fit_mixed` (plane stage,
@@ -25,11 +26,11 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-from torch.profiler import record_function
 
 from multih_tpu_torch.config import MultiHConfig
 from multih_tpu_torch.models import labeling, pipeline
 from multih_tpu_torch.ops import fmodel, geometry
+from multih_tpu_torch.utils.tracing import stage
 
 
 class MixedFitResult(NamedTuple):
@@ -99,12 +100,12 @@ def fit_mixed(x1, x2, valid, key, cfg_h: MultiHConfig, cfg_f: MultiHConfig,
     k_union = kh + kf
 
     # stage 1: planes on everything (the stricter, codim-2 model first)
-    with record_function("mixed_fit_h"):
+    with stage("mixed_fit_h"):
         res_h = pipeline.fit(x1, x2, valid, key_h, cfg_h, tau=tau_h)
     explained_h = (res_h.labels < kh).to(dt)
 
     # stage 2: motions, on everything or on the planes' remainder
-    with record_function("mixed_fit_f"):
+    with stage("mixed_fit_f"):
         valid_f = valid if f_scope == "all" else valid * (1.0 - explained_h)
         res_f = pipeline.fit(x1, x2, valid_f, key_f, cfg_f, tau=tau_f)
 
@@ -119,7 +120,7 @@ def fit_mixed(x1, x2, valid, key, cfg_h: MultiHConfig, cfg_f: MultiHConfig,
         torch.where(res_f.labels < kf, kh + res_f.labels, k_union),
     ).to(torch.int32)
 
-    with record_function("mixed_polish"):
+    with stage("mixed_polish"):
         r = _joint_residual_units(res_h, res_f, x1, x2, cfg_h, cfg_f,
                                   tau_h, tau_f)
         one = torch.ones((), dtype=dt, device=dev)
@@ -279,9 +280,9 @@ def fit_mixed_adaptive(x1, x2, valid, key, cfg_h: MultiHConfig,
     (MixedFitResult, tau_h, tau_f)."""
     x1, x2, valid = pipeline._inputs(x1, x2, valid, device)
     key_h, key_f, key_fit = _stage_draws(key, 3)
-    with record_function("mixed_probe_h"):
+    with stage("mixed_probe_h"):
         res_h0 = pipeline.fit(x1, x2, valid, key_h, cfg_h, tau=probe_tau_h)
-    with record_function("mixed_probe_f"):
+    with stage("mixed_probe_f"):
         res_f0 = pipeline.fit(x1, x2, valid, key_f, cfg_f, tau=probe_tau_f)
     tau_h, tau_f = estimate_tau_mixed(res_h0, res_f0, x1, x2, valid, cfg_h,
                                       cfg_f)

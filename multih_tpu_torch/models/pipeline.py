@@ -9,8 +9,10 @@ the labeling takes the gather path) -> progressive hypothesis generation
 (sampling + minimal 4-pt DLT, or 8/12-point F solves) -> verification
 counts + top-M -> LO refine (moment refit + 9x9 eigensolve) -> NMS select (coverage
 select for F) -> PEARL iterations -> for F the split move and the
-refinement phases -> finalize. Each stage is wrapped in a
-``torch.profiler.record_function`` of the JAX ``named_scope``'s name.
+refinement phases -> finalize. Each stage is wrapped in
+``utils.tracing.stage`` of the JAX ``named_scope``'s name: a
+``torch.profiler.record_function`` range, and a span of the capture's
+stage table while the fit is captured as a CUDA graph (utils/aot.py).
 
 The fit runs eagerly and forward-only, on the card unless the caller
 asks for the CPU (`fit`'s `device`). With ``cfg.use_pallas`` and CUDA
@@ -55,13 +57,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from multih_tpu_torch.config import MultiHConfig
 from multih_tpu_torch.models import labeling, selection
 from multih_tpu_torch.ops import epipolar, fmodel, geometry, sampling
 from multih_tpu_torch.ops.kernels import dlt_kernel, residual_kernel
 from multih_tpu_torch.ops.topk import top_k_stable
+from multih_tpu_torch.utils.tracing import stage
 
 # Precision.HIGHEST in the reference: geometry contractions in full fp32
 # (reduced-precision products lost whole planes; docs/ARCHITECTURE.md).
@@ -493,7 +495,7 @@ def _hypothesize_verify_sharded(draws, x1, x2, valid, nbr_sample,
     s_total = cfg.n_hypotheses + (rounds - 1) * max(1, cfg.claims_per_round)
     dev = x1.device
     n_extra = 0 if extra_Hs is None else extra_Hs.shape[0]
-    with record_function("hypothesize"):
+    with stage("hypothesize"):
         Hs_loc, ok_loc, slot_loc = generate_hypotheses(
             draws, x1, x2, valid, nbr_sample, cfg, tau,
             window_block=window_block, shard=mesh,
@@ -517,7 +519,7 @@ def _hypothesize_verify_sharded(draws, x1, x2, valid, nbr_sample,
     # M past the sampled pool it rescores fewer candidates than its own
     # single-device fit
     m_sel = min(cfg.verify_rescore * m, s_total + n_extra) if vs > 1 else m
-    with record_function("verify"):
+    with stage("verify"):
         # rank_residual only when a full-resolution rescore follows
         counts = count_inliers(
             Hs_loc, x1[::vs], x2[::vs], valid[::vs], cfg, tau,
@@ -532,7 +534,7 @@ def _hypothesize_verify_sharded(draws, x1, x2, valid, nbr_sample,
             o_all = mesh.all_gather(ok_loc[i_loc], "hyp").reshape(-1)
             order = _claim_order(c_all, s_all, m_sel)
             h_pre = h_all[order]
-            with record_function("verify_rescore"):
+            with stage("verify_rescore"):
                 counts_full = count_inliers(h_pre, x1, x2, valid, cfg,
                                             tau) * o_all[order]
             c_fin, sel = top_k_stable(counts_full, m)
@@ -726,7 +728,7 @@ def _pearl_iteration(carry, it: int, x1, x2, valid, nbr_idx, nbr_w,
         active, adj=adj, shard=shard,
     )
     if f_model and cfg.f_union_merge:
-        with record_function("union_refit_merge"):
+        with stage("union_refit_merge"):
             Hs, active = _union_refit_merge(Hs, active, member_k, r_acc, x1,
                                             x2, thr, cfg, shard, basis)
     return (Hs, active, q), energy
@@ -951,27 +953,28 @@ def _f_accept(Hs_c, q_c, r_c, lab_c, e_c, Hs_prop, r_prop, ok_prop,
     accept. Both routes give the same result bit for bit."""
     if on_device is None:
         on_device = e_c.device.type != "cpu"
-    r_j = torch.where(ok_prop[:, None], r_prop, r_c)
-    _, q_j, e_j = label_energy(r_j, q_c)
-    Hs_j = torch.where(ok_prop[:, None, None], Hs_prop, Hs_c)
-    if not on_device and bool(e_j < e_c):
-        return Hs_j, q_j
-    Hs_s, r_s, lab_s, e_s = Hs_c, r_c, lab_c, e_c
-    for i in range(Hs_c.shape[0]):  # the lax.scan over models
-        Hn = torch.where(ok_prop[i], Hs_prop[i], Hs_s[i])
-        r_n = r_s.clone()
-        r_n[i] = residuals(Hn[None])[0]
-        lab_n, e_n = relabel_energy(r_n, lab_s)
-        better = e_n < e_s
-        Hs_s = Hs_s.clone()
-        Hs_s[i] = torch.where(better, Hn, Hs_s[i])
-        r_s = torch.where(better, r_n, r_s)
-        lab_s = torch.where(better, lab_n, lab_s)
-        e_s = torch.where(better, e_n, e_s)
-    if not on_device:
-        return Hs_s, q_c
-    joint = e_j < e_c
-    return torch.where(joint, Hs_j, Hs_s), torch.where(joint, q_j, q_c)
+    with stage("f_accept"):
+        r_j = torch.where(ok_prop[:, None], r_prop, r_c)
+        _, q_j, e_j = label_energy(r_j, q_c)
+        Hs_j = torch.where(ok_prop[:, None, None], Hs_prop, Hs_c)
+        if not on_device and bool(e_j < e_c):
+            return Hs_j, q_j
+        Hs_s, r_s, lab_s, e_s = Hs_c, r_c, lab_c, e_c
+        for i in range(Hs_c.shape[0]):  # the lax.scan over models
+            Hn = torch.where(ok_prop[i], Hs_prop[i], Hs_s[i])
+            r_n = r_s.clone()
+            r_n[i] = residuals(Hn[None])[0]
+            lab_n, e_n = relabel_energy(r_n, lab_s)
+            better = e_n < e_s
+            Hs_s = Hs_s.clone()
+            Hs_s[i] = torch.where(better, Hn, Hs_s[i])
+            r_s = torch.where(better, r_n, r_s)
+            lab_s = torch.where(better, lab_n, lab_s)
+            e_s = torch.where(better, e_n, e_s)
+        if not on_device:
+            return Hs_s, q_c
+        joint = e_j < e_c
+        return torch.where(joint, Hs_j, Hs_s), torch.where(joint, q_j, q_c)
 
 
 def _f_refine_phases(Hs, active, q, draws, x1, x2, valid, nbr_idx, nbr_w,
@@ -1131,7 +1134,7 @@ def _hypothesize_verify(draws, x1, x2, valid, nbr_sample,
     whole point set and each rank counts its own points' share of each
     sweep (the same stride positions), the integer counts summed over
     the axis. Returns (Hs_cand (M, 3, 3), n_hyp_ok)."""
-    with record_function("hypothesize"):
+    with stage("hypothesize"):
         Hs_all, ok = generate_hypotheses(
             draws, x1, x2, valid, nbr_sample, cfg, tau,
             window_block=window_block,
@@ -1147,7 +1150,7 @@ def _hypothesize_verify(draws, x1, x2, valid, nbr_sample,
         return _psum(shard, count_inliers(Hs, x1[sub], x2[sub], valid[sub],
                                           cfg, tau, kind=kind))
 
-    with record_function("verify"):
+    with stage("verify"):
         # rank_residual only when a full-resolution rescore follows
         counts = counted(
             Hs_all, vs, (cfg.rank_residual or None) if vs > 1 else None,
@@ -1297,16 +1300,16 @@ def fit(x1, x2, valid, key, cfg: MultiHConfig, affines=None, tau=None,
     def gathered(nbr):
         return nbr if shard is None else shard.gather(nbr.T).T.contiguous()
 
-    with record_function("knn_graph"):
+    with stage("knn_graph"):
         nbr_idx, nbr_w = graph_of(x1)
     adj = None
     if shard is not None:
-        with record_function("banded_adjacency"):
+        with stage("banded_adjacency"):
             adj = labeling.shard_adjacency(
                 nbr_idx, nbr_w, shard, windowed,
                 neighbour_list=_kernels_enabled(cfg, dev))
     elif banded_gate(cfg, n_pts):
-        with record_function("banded_adjacency"):
+        with stage("banded_adjacency"):
             adj = labeling.build_banded_adjacency(
                 nbr_idx, nbr_w, cfg.agree_block,
                 far_capacity=0 if windowed else None,
@@ -1314,7 +1317,7 @@ def fit(x1, x2, valid, key, cfg: MultiHConfig, affines=None, tau=None,
             )
     if cfg.sampling_motion_weight > 0.0:
         feat = torch.cat([x1, cfg.sampling_motion_weight * (x2 - x1)], dim=1)
-        with record_function("sampling_knn"):
+        with stage("sampling_knn"):
             nbr_sample = gathered(graph_of(feat)[0])
     else:
         nbr_sample = gathered(nbr_idx)
@@ -1324,7 +1327,7 @@ def fit(x1, x2, valid, key, cfg: MultiHConfig, affines=None, tau=None,
     # tie order sees the same indices
     extra_Hs, extra_ok = [], []
     if affines is not None:
-        with record_function("affine_pool"):
+        with stage("affine_pool"):
             F_est = epipolar.estimate_fundamental(
                 draws, x1, x2, valid, n_samples=min(512, cfg.n_hypotheses),
                 threshold=max(1.0, cfg.inlier_threshold / 3.0),
@@ -1365,10 +1368,10 @@ def fit(x1, x2, valid, key, cfg: MultiHConfig, affines=None, tau=None,
             basis = _prepare_refit_basis(x1, x2, cfg)
         x1, x2, valid = x1[own], x2[own], valid[own]
 
-    with record_function("lo_refine"):
+    with stage("lo_refine"):
         Hs_top = lo_refine_candidates(Hs_cand, x1, x2, valid, cfg,
                                       cfg.lo_rounds, tau, shard, basis)
-    with record_function("select"):
+    with stage("select"):
         r_top = model_residual_matrix(Hs_top, x1, x2, cfg.residual, cfg)
         grown_counts = _psum(shard, ((r_top < thr) * valid[None, :]).sum(1))
         if cfg.model == "fundamental":
@@ -1393,14 +1396,14 @@ def fit(x1, x2, valid, key, cfg: MultiHConfig, affines=None, tau=None,
     r0 = model_residual_matrix(Hs, x1, x2, cfg.residual, cfg)
     d0 = labeling.data_costs_t(r0, valid, thr, cfg.outlier_cost, active)
     q = torch.softmax(-d0 / cfg.temperature_start, dim=0)  # (L, N)
-    with record_function("pearl"):
+    with stage("pearl"):
         Hs, active, q, energies = _pearl_phase(
             Hs, active, q, range(cfg.pearl_iterations), x1, x2, valid,
             nbr_idx, nbr_w, cfg, tau, adj, shard, basis,
         )
     f_model = cfg.model == "fundamental"
     if f_model and cfg.f_split_refine:
-        with record_function("split_refine"):
+        with stage("split_refine"):
             Hs, active, q, en2 = _split_refine(
                 Hs, active, q, x1, x2, valid, nbr_idx, nbr_w, cfg, tau, adj,
                 shard, basis)
@@ -1408,12 +1411,12 @@ def fit(x1, x2, valid, key, cfg: MultiHConfig, affines=None, tau=None,
     if f_model and (
             (cfg.f_exclusive_refine and cfg.f_exclusive_iterations > 0)
             or (cfg.f_resample_lo and cfg.f_resample_iterations > 0)):
-        with record_function("f_refine_phases"):
+        with stage("f_refine_phases"):
             Hs, q = _f_refine_phases(Hs, active, q, draws, x1, x2, valid,
                                      nbr_idx, nbr_w, cfg, tau, adj, shard,
                                      basis)
 
-    with record_function("finalize"):
+    with stage("finalize"):
         r = model_residual_matrix(Hs, x1, x2, cfg.residual, cfg)
         dct = labeling.data_costs_t(r, valid, thr, cfg.outlier_cost, active)
         labels = labeling.best_labeling_t(

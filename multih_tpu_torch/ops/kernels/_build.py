@@ -72,6 +72,8 @@ _SIGNATURES = {
                                + [_P] * 5,
     "multih_icm": [_P] * 5 + [_I] * 6 + [_F] + [_P] * 3,
     "multih_window_gather": [_P, _P] + [_I] * 7 + [_P, _P],
+    # the capturing stream; the count of device ops captured (long long)
+    "multih_graph_ops": [_P, _P],
 }
 
 

@@ -33,10 +33,19 @@ fit's three (`cached_fit_mixed`: ``fit``, ``fit_tau``, ``fit_adaptive``):
 
 A capture that fails raises, naming the operation; it never falls back
 to the eager fit.
+
+A replay runs no Python, so the fit's stages (utils/tracing.stage) are
+recorded while it is captured: each `CapturedFit.stages` maps the graph's
+device ops, by their index in capture order, onto the stage spans
+(`stage_tables()` gives every capture's). While a profiler records, a
+call names its host steps with record_function ranges: ``aot.copy_in``,
+``aot.replay`` and ``aot.clone``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
 import hashlib
 import os
 import time
@@ -44,8 +53,10 @@ import traceback
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from multih_tpu_torch.ops.kernels import _build
+from multih_tpu_torch.utils import tracing
 
 # bump when the captured program's meaning changes without a config or
 # torch change
@@ -247,6 +258,32 @@ def _launches() -> dict:
     }
 
 
+def _graph_ops(stream: torch.cuda.Stream) -> int:
+    """The device ops (kernel, copy and set nodes) captured so far into
+    the graph that `stream` is capturing (csrc/graph_ops.cu)."""
+    n = ctypes.c_longlong()
+    _build.check(_build.load().multih_graph_ops(stream.cuda_stream,
+                                                ctypes.byref(n)),
+                 "multih_graph_ops")
+    return n.value
+
+
+def _step(name: str):
+    """A call's host step: a record_function range while a profiler
+    records, else nothing (a range entered with no profiler costs ~10 us
+    of host time on the card's host, where a replay takes 17-87 ms)."""
+    if torch.autograd._profiler_enabled():
+        return record_function(name)
+    return contextlib.nullcontext()
+
+
+def stage_tables() -> list:
+    """The stage table (`CapturedFit.stages`, utils/tracing.StageTable) of
+    each fit this process captured, in the order of capture."""
+    return [fit.stages for fit in _CAPTURED.values()
+            if fit.stages is not None]
+
+
 def _clone(out):
     if isinstance(out, torch.Tensor):
         return out.clone()
@@ -302,7 +339,9 @@ class CapturedFit:
     After the capture: `warmup_s` and `capture_s` (host seconds),
     `pool_bytes` (the graph's private memory pool, None where the
     allocator's snapshot does not say), `launches` (each kernel's
-    launches captured, which every replay makes)."""
+    launches captured, which every replay makes), `stages` (the
+    utils/tracing.StageTable of the capture: each stage's span of the
+    graph's device ops and its launches, and the graph's ops in all)."""
 
     def __init__(self, cfg, kind: str, device: torch.device, mixed=None):
         self.cfg, self.kind, self.device = cfg, kind, device
@@ -324,6 +363,7 @@ class CapturedFit:
         self.warmup_s = self.capture_s = None
         self.pool_bytes = None
         self.launches = None
+        self.stages = None
         self._fn = _maker(cfg, kind, device=device, mixed=mixed)
 
     def _static(self):
@@ -363,7 +403,9 @@ class CapturedFit:
         graph.register_generator_state(self.generator)
         before = _launches()
         try:
-            with torch.cuda.graph(graph, stream=side):
+            with torch.cuda.graph(graph, stream=side), \
+                    tracing.capture_table(lambda: _graph_ops(side),
+                                          _launches) as stages:
                 out = self._fn(*self._args())
         except Exception as e:
             raise RuntimeError(
@@ -374,7 +416,7 @@ class CapturedFit:
         self.warmup_s = t1 - t0
         self.launches = {k: v - before[k] for k, v in _launches().items()}
         self.pool_bytes = _pool_bytes(graph, dev)
-        self.graph, self.out = graph, out
+        self.graph, self.out, self.stages = graph, out, stages
 
     def __call__(self, x1, x2, valid, key, *extra):
         if len(extra) != len(self.extra):
@@ -384,13 +426,15 @@ class CapturedFit:
                 and key.device.type == "cuda"):
             raise ValueError("a captured fit draws from one CUDA "
                              "torch.Generator")
-        self._load((x1, x2, valid, *extra))
+        with _step("aot.copy_in"):
+            self._load((x1, x2, valid, *extra))
         if self.graph is None:
             self._capture()
         self.generator.set_state(key.get_state())
-        self.graph.replay()
+        with _step("aot.replay"):
+            self.graph.replay()
         key.set_state(self.generator.get_state())
-        with torch.inference_mode():
+        with torch.inference_mode(), _step("aot.clone"):
             return _clone(self.out)
 
 
