@@ -31,7 +31,11 @@ Phases, each raising on failure:
      systems; K3 at the LO-refine batch C=256 and a
      PEARL batch C=16 and on the F normal matrices of a real refit in a
      motion fit and in the mixed polish (C=8), held to float64 eigh too;
-     K6 at both homography kinds on the fit's own tensors with the
+     the moment refit's kernels (assembly, K3, denormalization) on the
+     moments of a homography fit's C=256 and C=16 batches and a motion
+     fit's first C=256, first C=16 and last C=256, as close to the
+     float64 refit as the plain card route (each candidate's normalized
+     frame), 3 launches a call; K6 at both homography kinds on the fit's own tensors with the
      threshold a device tensor, its r and cost held to float64 too and
      its q equal to K4's on its own base; the neighbour list bit-exact;
      K4, K5 and K6 on the list the fit builds, K4, K5 and the list also
@@ -50,7 +54,8 @@ Phases, each raising on failure:
      rank by device ms;
   4. the fit end to end, each path with the launch counts set to 0 just
      before it and read just after: the side config MultiHConfig(
-     knn_window=False, knn_approx=False) on BASELINE config 2 (K1-K3);
+     knn_window=False, knn_approx=False) on BASELINE config 2 (K1-K3,
+     the refit's kernels);
      then the default config MultiHConfig() on BASELINE config 2 (exact
      recovery) and three golden scenes (K1-K5 and the list build), the
      same with mrf_fused_front=True (K6 once per PEARL iteration, no K4), the card
@@ -60,16 +65,16 @@ Phases, each raising on failure:
   5. the stress fit at bench.py::_stress_cfg(10240, 102400,
      n_candidates=256, max_labels=16)'s settings (window sampling, the
      windowed graph; 10k points, 70% outliers, 8 planes), with every
-     kernel but K6 launched; the same scene on the fused-front route (K6
+     homography kernel but K6 launched; the same scene on the fused-front route (K6
      in place of K4), warm fits of both routes in turns, and once at the
      side config (row-blocked exact graph past N=4096, band with far
-     edges; K1-K3);
+     edges; K1-K3, the refit's kernels);
   6. the fundamental-model fit: the motion suite's config
      MultiHConfig(model="fundamental", residual="sampson",
      n_hypotheses=2048, max_points=512) on fm2_b and fm4_a, 3 keys each,
      against the motion goldens (motion count exact on every key, mean
      misclassification within 2.0 pp), with the launches of every fit
-     (K1 at f_sampson, K3, K4, K5; no K2, no K7), and the warm fit
+     (K1 at f_sampson, K3, the refit's kernels, K4, K5; no K2, no K7), and the warm fit
      latency on fm4_a;
   7. one two-pass adaptive-threshold fit (fit_adaptive) on a noise-1 px
      scene, tau printed;
@@ -80,7 +85,8 @@ Phases, each raising on failure:
      stage residual="sampson"): mx21_a and mx22_b, 3 keys each, against
      their goldens (class-resolved counts exact on every key, 3-key mean
      |delta| <= 3.5 pp), with the launches of every fit (K1 at both
-     kinds, K2, K3, K4, K5 and the list build; no K6, no K7); one fit
+     kinds, K2, K3, the refit's kernels of both models, K4, K5 and the list
+     build; no K6, no K7); one fit
      at max_points 640, where both stages take the gather-path labeling
      (no K4, K5 or list build), and one fit_mixed_adaptive on a noise-1
      px scene there (tau_h, tau_f printed); the warm latency (median of
@@ -96,7 +102,7 @@ Phases, each raising on failure:
      one-point fit (fit(affines=...), 300 points, 2 planes, error < 3%,
      warm ms with and without the pool, the pool on the card against the
      CPU's on one F); the direct-refit fit (refit_moments=False) on
-     BASELINE config 2 (exact recovery; no K3); `python -m
+     BASELINE config 2 (exact recovery; no K3, no refit kernels); `python -m
      multih_tpu_torch.cli synth --json` as a subprocess on the card;
  11. the mesh axes (parallel/mesh.py, parallel/sharding.py): two gloo
      ranks share the one card (NCCL refuses two ranks on one device;
@@ -202,6 +208,17 @@ KERNELS = {
     "eig9_smallest": dict(
         source="multih_tpu_torch/csrc/eig_kernel.cu",
         replaces="multih_tpu/ops/kernels/eig_kernel.py:118"),
+    # the batched moment refit's assembly and denormalization around K3
+    # (the homography and the fundamental refit: one wrapper, two ends,
+    # counted apart as K1's kinds)
+    "moment_refit": dict(
+        source="multih_tpu_torch/csrc/refit_kernel.cu",
+        replaces="the plain ops of ops/geometry.py::"
+                 "homography_refit_batch around K3"),
+    "moment_refit_f": dict(
+        source="multih_tpu_torch/csrc/refit_kernel.cu",
+        replaces="the plain ops of ops/fmodel.py::"
+                 "fundamental_refit_batch around K3"),
     "mean_field_fused": dict(
         source="multih_tpu_torch/csrc/mrf_kernel.cu",
         replaces="multih_tpu/ops/kernels/mrf_kernel.py:118"),
@@ -244,6 +261,12 @@ PEAK_MUFU_S = 16 * 132 * 1.98e9
 DLT_OPS = 520 * PEAK_FLOP_S / PEAK_FP64_S
 DLT_TEST_OPS = 70
 EIG_OPS = 13000
+# per candidate of a moment refit's three launches: K3's EIG_OPS, the
+# assembly (the Hartley parameters and the congruences: ~370 H, ~510 F)
+# and the denormalization (~270 H; ~1,800 F, most of it the 3x3
+# Jacobi's 15 rotations), counted from csrc/refit_kernel.cu and rounded
+# up
+REFIT_OPS = {"homography": EIG_OPS + 700, "fundamental": EIG_OPS + 2400}
 # per (plane, point) of K6's front, counted from csrc/mrf_kernel.cu's
 # mf_front_grid: the residual (transfer 21, symmetric 43: 4 a homogeneous
 # coordinate, 2 the w guard, a divide a coordinate, 5 the squared
@@ -528,27 +551,45 @@ def _suite_points(cs, n_pad, device):
             for a in pad_points(cs.x1, cs.x2, None, n_pad)]
 
 
-def _captured_normal_matrices(run, c: int, last: bool = False):
-    """(c, 9, 9) normal matrices of a real refit on the card: the first
-    (or the last) batch of c that run() hands the eigensolve, taken as it
-    is handed over."""
-    from multih_tpu_torch.ops import geometry
+def _captured_moments(run, model: str) -> list:
+    """Every (moments, T1g, T2g) that run() hands the moment refit for
+    `model` on the card, in order, taken as handed over."""
+    from multih_tpu_torch.ops.kernels import eig_kernel
 
     seen = []
-    solve = geometry.smallest_eigvecs
+    refit = eig_kernel.moment_refit_batch
 
-    def capture(atas, *args):
-        if atas.shape[0] == c:
-            seen.append(atas.clone())
-        return solve(atas, *args)
+    def capture(mom, kind, T1g, T2g):
+        if kind == model:
+            seen.append((mom.clone(), T1g.clone(), T2g.clone()))
+        return refit(mom, kind, T1g, T2g)
 
-    geometry.smallest_eigvecs = capture
+    # the wrapper counts its launches under its module-level name
+    capture.launches = 0
+    capture.model_launches = dict.fromkeys(refit.model_launches, 0)
+    eig_kernel.moment_refit_batch = capture
     try:
         run()
     finally:
-        geometry.smallest_eigvecs = solve
-    check(len(seen) > 0, f"the fit made no C={c} refit")
-    return seen[-1 if last else 0].contiguous()
+        eig_kernel.moment_refit_batch = refit
+    return seen
+
+
+def _batch_of(batches, c: int, last: bool = False):
+    """The first (or the last) of `_captured_moments`' batches of c."""
+    found = [b for b in batches if b[0].shape[0] == c]
+    check(len(found) > 0, f"the fit made no C={c} refit")
+    return found[-1 if last else 0]
+
+
+def _captured_normal_matrices(run, c: int, last: bool = False):
+    """(c, 9, 9) normal matrices of a real F refit on the card: those the
+    plain route's ops assemble from the first (or the last) batch
+    of c moments that run() refits."""
+    from multih_tpu_torch.ops import fmodel
+
+    mom, _, _ = _batch_of(_captured_moments(run, "fundamental"), c, last)
+    return fmodel._moments_to_ata_f(mom.reshape(-1, 6, 6))[0].contiguous()
 
 
 def _captured_counts(run, s: int):
@@ -606,11 +647,15 @@ def _affine_fit(dev):
 def _f_refit_normal_matrices(dev):
     """The first C=256 batch of one motion fit on fm4_a (the LO refine
     of the 256 top-counted hypotheses)."""
+    return _captured_normal_matrices(lambda: _motion_fit(dev), 256)
+
+
+def _motion_fit(dev):
+    """One motion fit on fm4_a at tau 3 on the card."""
     from multih_tpu_torch import make_fit_tau
 
-    return _captured_normal_matrices(
-        lambda: make_fit_tau(motion_cfg(512))(
-            *_motion_points("fm4_a", 512, dev), _cpu_draws(0), 3.0), 256)
+    return make_fit_tau(motion_cfg(512))(
+        *_motion_points("fm4_a", 512, dev), _cpu_draws(0), 3.0)
 
 
 def _mixed_polish_normal_matrices(dev):
@@ -668,6 +713,89 @@ def eig_parity(atas, got):
           f"eig kernel C={atas.shape[0]} where the float32 floor is below "
           f"1e-5: max abs err {out['err']} vs the round-robin plain "
           f"version, {out['err_cyclic']} vs the cyclic one")
+    return out
+
+
+def refit_parity(model, mom, got, ref, T1g, T2g):
+    """Hold the refit kernels' models `got` against the plain card
+    route's `ref` on the same (C, 30 / 36) moments. Each is compared
+    with the float64 refit of the moments (the plain assembly's smallest
+    eigenvector by float64 eigh; for F its nearest rank-2 matrix), both
+    taken back in float64 into each candidate's normalized frame, where
+    its nullvector lives (in the raw frame the global similarities' pixel
+    scales hide what differs), sign-aligned. On the candidates whose
+    nullvector float32 fixes (a finite eigenvector floor, and the
+    plain route within 1e-2 of float64), the kernel must be as close
+    to float64 as the plain route: its largest error at most twice the
+    plain route's + 1e-5, its median at most twice the plain
+    route's + 1e-6. The float32 assembly's rounding, not K3, sets both
+    routes' error: on these moments the plain route lands up to ~9
+    times K3's floor eps32 lam_max / (lam_2 - lam_1) from float64. Every
+    model finite and of unit norm; F's largest |det| at most 10 times
+    the plain route's. Returns a dict: `fixed` the count of those
+    candidates, `err` / `err_ref` the kernel's and the plain route's
+    largest error from float64 there, `med` / `med_ref` their medians,
+    `raw` the largest raw-frame max-abs difference of the two routes,
+    `det` / `det_ref` F's largest |det|."""
+    import torch
+
+    from multih_tpu_torch.ops import fmodel, geometry
+
+    mom64 = mom.double().cpu()
+    if model == "homography":
+        atas, params = geometry._moments_to_ata(mom64.reshape(-1, 5, 6))
+    else:
+        atas, params = fmodel._moments_to_ata_f(mom64.reshape(-1, 6, 6))
+    s1 = geometry._similarity(*params[:3])
+    s2 = geometry._similarity(*params[3:])
+    t1, t2 = T1g.double().cpu(), T2g.double().cpu()
+
+    def back(m):
+        if model == "homography":
+            x = s2 @ t2 @ m @ torch.linalg.inv(t1) @ torch.linalg.inv(s1)
+        else:
+            x = (torch.linalg.inv(s2 @ t2).transpose(1, 2) @ m
+                 @ torch.linalg.inv(s1 @ t1))
+        return x.reshape(-1, 9) / torch.linalg.matrix_norm(x)[:, None]
+
+    ev, vec = torch.linalg.eigh(atas)
+    v = vec[..., 0].reshape(-1, 3, 3)
+    if model == "fundamental":
+        u, sv, vh = torch.linalg.svd(v)
+        v = u @ torch.diag_embed(sv * torch.tensor([1.0, 1.0, 0.0],
+                                                   dtype=sv.dtype)) @ vh
+    truth = v.reshape(-1, 9) / torch.linalg.matrix_norm(v)[:, None]
+
+    def err(x):
+        return (x * torch.sign((x * truth).sum(1, keepdim=True))
+                - truth).abs().amax(1)
+
+    g, r = got.double().cpu(), ref.double().cpu()
+    e_got, e_ref = err(back(g)), err(back(r))
+    floor = torch.finfo(torch.float32).eps * ev[:, -1] / (ev[:, 1]
+                                                          - ev[:, 0])
+    fixed = torch.isfinite(floor) & (e_ref < 1e-2)
+    c = mom.shape[0]
+    check(bool(fixed.any()), f"refit kernels {model} C={c}: no candidate "
+          f"with a fixed nullvector")
+    raw = (g * torch.sign((g * r).sum((1, 2), keepdim=True)) - r).abs()
+    out = dict(fixed=int(fixed.sum()), err=float(e_got[fixed].max()),
+               err_ref=float(e_ref[fixed].max()),
+               med=float(e_got[fixed].median()),
+               med_ref=float(e_ref[fixed].median()),
+               raw=float(raw.amax((1, 2))[fixed].max()))
+    check(bool(torch.isfinite(g).all()) and float(
+        (torch.linalg.matrix_norm(g) - 1.0).abs().max()) < 1e-5,
+        f"refit kernels {model} C={c}: a model not finite or not unit")
+    check(out["err"] <= 2.0 * out["err_ref"] + 1e-5
+          and out["med"] <= 2.0 * out["med_ref"] + 1e-6,
+          f"refit kernels {model} C={c}: farther from float64 than the "
+          f"plain route: {out}")
+    if model == "fundamental":
+        out.update(det=float(torch.linalg.det(g)[fixed].abs().max()),
+                   det_ref=float(torch.linalg.det(r)[fixed].abs().max()))
+        check(out["det"] <= 10.0 * out["det_ref"], f"refit kernels F C={c}: "
+              f"|det| {out['det']:.3g}, plain {out['det_ref']:.3g}")
     return out
 
 
@@ -882,11 +1010,70 @@ def phase_kernels(dev):
                    atas),
                4 * 90 * c, EIG_OPS * c, lib=lambda: torch.linalg.eigh(atas))
 
+    refit_kernels(dev, record)
     mrf_kernels(rng, dev, record)
     front_kernels(rng, dev, record)
     gather_kernels(rng, dev, record)
     torch.cuda.synchronize()
     return results
+
+
+def refit_kernels(dev, record):
+    """The moment refit's kernels on real moments of fits on the card: the
+    homography fit's (default config, easy2_a) first C=256 batch (the LO
+    refine of the top-counted hypotheses) and first C=16 (a PEARL refit
+    of max_labels planes), the motion fit's (fm4_a) first C=256, first
+    C=16 and last C=256 (a union merge's K^2); held against the plain
+    card route (the plain ops around K3, its time the plain time) by
+    `refit_parity`, three CUDA launches a call (assembly, K3,
+    denormalization)."""
+    import torch
+
+    from multih_tpu_torch import MultiHConfig, make_fit
+    from multih_tpu_torch.ops.kernels import eig_kernel
+    from multih_tpu_torch.utils import data
+
+    easy = _suite_points(data.suite_scene("easy2_a"), 512, dev)
+    h = _captured_moments(lambda: make_fit(MultiHConfig(max_points=512))(
+        *easy, torch.Generator(device=dev).manual_seed(0)), "homography")
+    f = _captured_moments(lambda: _motion_fit(dev), "fundamental")
+    print(f"  moment refit: a homography fit hands it {len(h)} batches, a "
+          f"motion fit {len(f)}")
+    sets = [("moment_refit", "homography", f"C={c} H moments",
+             _batch_of(h, c)) for c in (256, 16)]
+    sets += [("moment_refit_f", "fundamental", f"{which} C={c} F moments",
+              _batch_of(f, c, which == "last"))
+             for which, c in (("first", 256), ("first", 16),
+                              ("last", 256))]
+    for name, model, shape, (mom, T1g, T2g) in sets:
+        c, width = mom.shape
+
+        def kernel():
+            return eig_kernel.moment_refit_batch(mom, model, T1g, T2g)
+
+        got = kernel()
+        ref = eig_kernel.moment_refit_reference(mom, model, T1g, T2g)
+        p = refit_parity(model, mom, got, ref, T1g, T2g)
+        print(f"  refit {shape}: {p['fixed']} of {c} with a nullvector "
+              f"float32 fixes; in their normalized frames max / median "
+              f"abs err from float64: kernel {p['err']:.3g} / "
+              f"{p['med']:.3g}, plain route {p['err_ref']:.3g} / "
+              f"{p['med_ref']:.3g}; the two routes' models (raw frame) "
+              f"differ by {p['raw']:.3g}"
+              + (f"; largest |det| {p['det']:.3g} (plain "
+                 f"{p['det_ref']:.3g})" if "det" in p else ""))
+        row = record(name, shape, p["err"], kernel,
+                     lambda: eig_kernel.moment_refit_reference(mom, model,
+                                                               T1g, T2g),
+                     # moments in, the matrices and parameters out and
+                     # back, K3's vectors, the models, the similarities
+                     4 * ((width + 201) * c + 18), REFIT_OPS[model] * c)
+        n_launch, launched = cuda_launches(kernel)
+        check(n_launch in (3, None), f"refit kernels {shape}: launches "
+              f"{launched}")
+        row["launches_per_call"] = n_launch
+        print(f"  refit {shape}: CUDA launches a call "
+              f"{_launch_str(n_launch, launched)}")
 
 
 def _windowed_problem(dev, n_points, n_pad, block, seed=42):
@@ -1204,6 +1391,7 @@ def _wrappers():
         "inlier_counts": residual_kernel.inlier_counts_padded,
         "dlt_4pt": dlt_kernel.homography_4pt_gt,
         "eig9_smallest": eig_kernel.smallest_eigvec_9x9_batch,
+        "moment_refit": eig_kernel.moment_refit_batch,
         "mean_field_fused": mrf_kernel.mean_field_fused,
         "icm_fused": mrf_kernel.icm_fused,
         "mean_field_fused_front": mrf_kernel.mean_field_fused_front,
@@ -1216,7 +1404,9 @@ def count_launches(label: str, expect, fn, quiet: bool = False):
     """Run fn() with every kernel's launch count set to 0 just before and
     read just after; fail unless each kernel in `expect` launched. K1's
     launches are split by residual kind: `inlier_counts` counts the
-    homography kinds, `inlier_counts_f` the epipolar (f_) kinds."""
+    homography kinds, `inlier_counts_f` the epipolar (f_) kinds; the
+    moment refit's by model: `moment_refit` the homography refits,
+    `moment_refit_f` the fundamental ones."""
     import torch
 
     wrappers = _wrappers()
@@ -1224,6 +1414,8 @@ def count_launches(label: str, expect, fn, quiet: bool = False):
         w.launches = 0
     k1 = wrappers["inlier_counts"]
     k1.kind_launches = {}
+    refit = wrappers["moment_refit"]
+    refit.model_launches = dict.fromkeys(refit.model_launches, 0)
     out = fn()
     torch.cuda.synchronize()
     launches = {k: w.launches for k, w in wrappers.items()}
@@ -1231,6 +1423,8 @@ def count_launches(label: str, expect, fn, quiet: bool = False):
                if k.startswith("f_")}
     launches["inlier_counts_f"] = sum(f_kinds.values())
     launches["inlier_counts"] -= launches["inlier_counts_f"]
+    launches["moment_refit"] = refit.model_launches["homography"]
+    launches["moment_refit_f"] = refit.model_launches["fundamental"]
     if not quiet:
         print(f"kernel launches on the {label} path:", launches,
               "K1 by kind:", k1.kind_launches)
@@ -1267,7 +1461,7 @@ def phase_fits(dev):
 
     print("== 4. the fit on the card: side config, then the default config")
     gen = torch.Generator(device=dev)
-    k123 = ("inlier_counts", "dlt_4pt", "eig9_smallest")
+    k123 = ("inlier_counts", "dlt_4pt", "eig9_smallest", "moment_refit")
     launches = {}
 
     (planes, err), launches["side"] = count_launches(
@@ -1449,10 +1643,11 @@ def phase_stress(dev):
     f = mt.make_fit(cfg)
     gen = torch.Generator(device=dev).manual_seed(0)
     t0 = time.perf_counter()
+    # every kernel but K6 and those the homography fit does not launch
+    not_h = ("inlier_counts_f", "moment_refit_f")
     res, launches = count_launches(
         "stress", tuple(k for k in KERNELS
-                        if k not in ("inlier_counts_f",
-                                     "mean_field_fused_front")),
+                        if k not in not_h + ("mean_field_fused_front",)),
         lambda: f(*args, gen))
     cold = (time.perf_counter() - t0) * 1e3
     check(bool(torch.isfinite(res.homographies).all()), "non-finite H")
@@ -1472,8 +1667,8 @@ def phase_stress(dev):
     f_fused = mt.make_fit(dataclasses.replace(cfg, mrf_fused_front=True))
     res, fused_launches = count_launches(
         "fused-front stress", tuple(k for k in KERNELS
-                                    if k not in ("inlier_counts_f",
-                                                 "mean_field_fused")),
+                                    if k not in not_h
+                                    + ("mean_field_fused",)),
         lambda: f_fused(*args, gen))
     check(fused_launches["mean_field_fused_front"] == cfg.pearl_iterations
           and fused_launches["mean_field_fused"] == 0,
@@ -1504,7 +1699,8 @@ def phase_stress(dev):
                                window_sampling=False)
     f_side = mt.make_fit(side)
     res, side_launches = count_launches(
-        "side-config stress", ("inlier_counts", "dlt_4pt", "eig9_smallest"),
+        "side-config stress", ("inlier_counts", "dlt_4pt", "eig9_smallest",
+                               "moment_refit"),
         lambda: f_side(*args, gen))
     check(bool(torch.isfinite(res.homographies).all()), "non-finite H")
     err = evaluation.misclassification_error(res.labels.cpu().numpy(), gt,
@@ -1537,8 +1733,8 @@ def phase_motion(dev):
     from multih_tpu_torch.utils import data, evaluation
 
     print("== 6. the fundamental (multi-motion) fit on the card")
-    expect = ("inlier_counts_f", "eig9_smallest", "mean_field_fused",
-              "icm_fused", "band_list")
+    expect = ("inlier_counts_f", "eig9_smallest", "moment_refit_f",
+              "mean_field_fused", "icm_fused", "band_list")
     cfg = motion_cfg(512)
     f = mt.make_fit_tau(cfg)
     per_fit, results, path = [], {}, {}
@@ -1618,7 +1814,8 @@ def phase_adaptive(dev):
     gen = torch.Generator(device=dev)
     (res, tau), launches = count_launches(
         "adaptive", ("inlier_counts", "dlt_4pt", "eig9_smallest",
-                     "mean_field_fused", "icm_fused", "band_list"),
+                     "moment_refit", "mean_field_fused", "icm_fused",
+                     "band_list"),
         lambda: f(*args, gen.manual_seed(0)))
     check(tau.device.type == "cuda", "tau left the card")
     err = evaluation.misclassification_error(res.labels.cpu().numpy(), gt,
@@ -1653,8 +1850,8 @@ def phase_stream(dev):
                  + ("_preload" if upload == "preload" else ""))
         st, launches[label] = count_launches(
             f"stream {label}", ("inlier_counts", "dlt_4pt", "eig9_smallest",
-                                "mean_field_fused", "icm_fused",
-                                "band_list"),
+                                "moment_refit", "mean_field_fused",
+                                "icm_fused", "band_list"),
             lambda: streaming.run_stream(
                 streaming.SyntheticStream(n_frames=30, n_points=480,
                                           n_planes=3, seed=0),
@@ -1704,7 +1901,8 @@ def phase_mixed(dev):
 
     print("== 9. the mixed plane + motion fit on the card")
     banded = ("inlier_counts", "inlier_counts_f", "dlt_4pt",
-              "eig9_smallest", "mean_field_fused", "icm_fused", "band_list")
+              "eig9_smallest", "moment_refit", "moment_refit_f",
+              "mean_field_fused", "icm_fused", "band_list")
     cfg_h, cfg_f = mixed_cfgs(1024)
     k_union = cfg_h.max_labels + cfg_f.max_labels
     f = mt.make_fit_mixed(cfg_h, cfg_f)
@@ -1765,7 +1963,8 @@ def phase_mixed(dev):
     args = _to(dev, x1, x2, valid)
     res, fit_launches = count_launches(
         "mixed N=640 (gather path)", ("inlier_counts", "inlier_counts_f",
-                                      "dlt_4pt", "eig9_smallest"),
+                                      "dlt_4pt", "eig9_smallest",
+                                      "moment_refit", "moment_refit_f"),
         lambda: mt.make_fit_mixed(cfg_h6, cfg_f6)(*args, _cpu_draws(0)))
     check(all(fit_launches[k] == 0 for k in no_band),
           f"gather-path mixed fit launched a band kernel: {fit_launches}")
@@ -1783,7 +1982,8 @@ def phase_mixed(dev):
     args = _to(dev, x1, x2, valid)
     (res, tau_h, tau_f), fit_launches = count_launches(
         "mixed adaptive N=640", ("inlier_counts", "inlier_counts_f",
-                                 "dlt_4pt", "eig9_smallest"),
+                                 "dlt_4pt", "eig9_smallest",
+                                 "moment_refit", "moment_refit_f"),
         lambda: mt.make_fit_mixed_adaptive(cfg_h6, cfg_f6)(
             *args, _cpu_draws(0)))
     check(all(fit_launches[k] == 0 for k in no_band),
@@ -1852,7 +2052,7 @@ def phase_surfaces(dev):
           "the CLI")
     t_start = time.perf_counter()
     out, launches = {}, {}
-    kernels_h = ("inlier_counts", "dlt_4pt", "eig9_smallest",
+    kernels_h = ("inlier_counts", "dlt_4pt", "eig9_smallest", "moment_refit",
                  "mean_field_fused", "icm_fused", "band_list")
 
     # the batch: 24 golden scenes at N=1024, one upload, golden taus
@@ -1999,8 +2199,9 @@ def phase_surfaces(dev):
           f"misclassification {err:.4f}%, warm median "
           f"{statistics.median(times['direct']):.1f} ms against "
           f"{statistics.median(times['moments']):.1f} ms for the moment "
-          f"refit (5 each, in turns; K3 launches "
-          f"{launches['direct_refit']['eig9_smallest']}: its refits solve "
+          f"refit (5 each, in turns; K3 and refit-kernel launches "
+          f"{launches['direct_refit']['eig9_smallest']}, "
+          f"{launches['direct_refit']['moment_refit']}: its refits solve "
           f"with eigh)")
     check(planes == 2 and err == 0.0, "direct refit: BASELINE config 2 not "
           "recovered exactly")
@@ -2335,10 +2536,6 @@ def phase_mesh(dev, batch):
     return out, launches
 
 
-PT_KERNELS = ("inlier_counts", "eig9_smallest", "mean_field_fused",
-              "icm_fused")
-
-
 def _pt_cells(device):
     """Phase 12's cells, each a dict of name, cfg, args ((x1, x2, valid)
     on `device`), gt (padded ground-truth labels), key (returns the
@@ -2580,6 +2777,8 @@ def phase_pt(dev):
         n_own = cfg.max_points // 2
         k1 = ("inlier_counts_f" if cfg.model == "fundamental"
               else "inlier_counts")
+        refit = ("moment_refit_f" if cfg.model == "fundamental"
+                 else "moment_refit")
         cell = dict(single_warm_ms=s["warm_ms"],
                     single_peak_bytes=s["peak_bytes"],
                     single_launches=s["launches"], ranks=[])
@@ -2606,7 +2805,8 @@ def phase_pt(dev):
                   f"{int(g['active'].sum())}, misclassification "
                   f"{err:.3f}%; launches K1 {lc[k1]} (single "
                   f"{s['launches'][k1]}), K3 {lc['eig9_smallest']} (single "
-                  f"{s['launches']['eig9_smallest']}), K4 "
+                  f"{s['launches']['eig9_smallest']}), refit kernels "
+                  f"{lc[refit]} (single {s['launches'][refit]}), K4 "
                   f"{lc['mean_field_fused']} (single "
                   f"{s['launches']['mean_field_fused']}), K5 "
                   f"{lc['icm_fused']} (single {s['launches']['icm_fused']}),"
@@ -2625,8 +2825,9 @@ def phase_pt(dev):
                   f"{want} (the single fit's, K4 a launch a sweep, K5 one "
                   f"a half-sweep)")
             # no K4 or K5 on the exact graph's band (far edges)
-            for k in ((k1, "eig9_smallest", "mean_field_fused", "icm_fused")
-                      if cfg.knn_window else (k1, "eig9_smallest")):
+            for k in ((k1, "eig9_smallest", refit, "mean_field_fused",
+                       "icm_fused")
+                      if cfg.knn_window else (k1, "eig9_smallest", refit)):
                 check(lc[k] > 0, f"rank {r} {name}: {k} never launched")
             if s["golden"] is not None:
                 delta = err - s["golden"]
@@ -2674,9 +2875,9 @@ def _dryrun_rank(rank, device):
 
     return count_launches(
         f"dryrun rank {rank}", ("inlier_counts", "inlier_counts_f",
-                                "dlt_4pt", "eig9_smallest",
-                                "mean_field_fused", "icm_fused",
-                                "band_list"),
+                                "dlt_4pt", "eig9_smallest", "moment_refit",
+                                "moment_refit_f", "mean_field_fused",
+                                "icm_fused", "band_list"),
         lambda: dryrun.dryrun_rank(rank, device, 2), quiet=True)
 
 
@@ -3151,7 +3352,10 @@ def phase_aot(dev):
                       f"twin in {diff}")
         else:
             row["contract"] = _mixed_contract([r0, r1], c["golden"])
-        eager_fit = {k: v for k, v in eager_launches.items() if v}
+        # the capture counts the kernels a device trace names; the
+        # refit's calls (its K3 launches among them) stay on its wrapper
+        eager_fit = {k: v for k, v in eager_launches.items()
+                     if v and k in captured}
         check(per_replay == eager_fit, f"{label}: launches a replay "
               f"{per_replay}, an eager fit {eager_fit}")
         for k in expect:

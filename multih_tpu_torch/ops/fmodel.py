@@ -17,9 +17,11 @@ batch-first over leading dimensions where the JAX version is vmapped:
   eigenvector of F^T F (3x3 fixed-sweep Jacobi), in the NORMALIZED frame
   (docs/PERF.md "The raw-frame rank-2 bug").
 
-The refit's 9x9 eigensolves run in the Jacobi kernel (K3) on CUDA
-tensors when the caller asks (`eig_kernel`); the 8-point batch solve is
-plain PyTorch, as the JAX package computes it outside any Pallas kernel.
+On CUDA tensors, when the caller asks (`eig_kernel`), the refit runs
+from its moments to its models in hand-written kernels (the assembly,
+K3's 9x9 eigensolve and the rank-2 denormalization) and the 12-point
+solves' eigensolves in K3; the 8-point batch solve is plain PyTorch, as
+the JAX package computes it outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -260,6 +262,17 @@ def _f_from_nullvec(f, params, T1g, T2g):
     return _denormalize_f(f.reshape(-1, 3, 3), T1, T2)
 
 
+def fundamental_from_moments(mom: torch.Tensor, T1g: torch.Tensor,
+                             T2g: torch.Tensor, eigvecs) -> torch.Tensor:
+    """The plain refit from (C, 36) moment tables to (C, 3, 3) rank-2
+    fundamental matrices: the normalized normal matrices
+    (`_moments_to_ata_f`), their smallest eigenvectors by `eigvecs`
+    ((C, 9, 9) -> (C, 9)), and the nullvectors back in the raw frame
+    (`_f_from_nullvec`)."""
+    atas, params = _moments_to_ata_f(mom.reshape(-1, 6, 6))
+    return _f_from_nullvec(eigvecs(atas), params, T1g, T2g)
+
+
 def fundamental_refit_batch(
     weights: torch.Tensor,
     basis: FRefitBasis,
@@ -269,10 +282,17 @@ def fundamental_refit_batch(
 ) -> torch.Tensor:
     """Weighted 8-point refit of C candidates in one matmul: (C, N)
     weights -> (C, 3, 3) rank-2 fundamental matrices. With `eig_kernel`
-    the 9x9 eigensolves run in the Jacobi kernel (K3), the counterpart of
-    the JAX package's eig_pallas."""
+    everything after the moments' GEMM runs in hand-written kernels
+    (ops/kernels/eig_kernel.moment_refit_batch: the assembly, K3's
+    Jacobi eigensolve, the counterpart of the JAX package's eig_pallas,
+    and the rank-2 denormalization)."""
     mom = weights @ basis.feats  # (C, 36)
-    atas, params = _moments_to_ata_f(mom.reshape(-1, 6, 6))
-    fs = geometry.smallest_eigvecs(atas, eig_method, eig_iterations,
-                                   eig_kernel)
-    return _f_from_nullvec(fs, params, basis.T1g, basis.T2g)
+    if eig_kernel:
+        from multih_tpu_torch.ops.kernels import eig_kernel as ek
+
+        return ek.moment_refit_batch(mom, "fundamental", basis.T1g,
+                                     basis.T2g)
+    return fundamental_from_moments(
+        mom, basis.T1g, basis.T2g,
+        lambda a: geometry.smallest_eigvec_9x9(a, eig_iterations,
+                                               eig_method))

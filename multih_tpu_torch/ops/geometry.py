@@ -374,6 +374,16 @@ def _h_from_nullvec(h, params, T1g, T2g):
     return _normalize_sign(_similarity_inverse(T2g) @ Hg @ T1g)
 
 
+def homography_from_moments(mom: torch.Tensor, T1g: torch.Tensor,
+                            T2g: torch.Tensor, eigvecs) -> torch.Tensor:
+    """The plain refit from (C, 30) moment tables to (C, 3, 3)
+    homographies: the normalized normal matrices (`_moments_to_ata`),
+    their smallest eigenvectors by `eigvecs` ((C, 9, 9) -> (C, 9)), and
+    the nullvectors back in the raw frame (`_h_from_nullvec`)."""
+    atas, params = _moments_to_ata(mom.reshape(-1, 5, 6))
+    return _h_from_nullvec(eigvecs(atas), params, T1g, T2g)
+
+
 def homography_refit_batch(
     weights: torch.Tensor,
     basis: RefitBasis,
@@ -383,21 +393,28 @@ def homography_refit_batch(
 ) -> torch.Tensor:
     """Weighted DLT refit of C candidates: (C, N) weights -> (C, 3, 3).
 
-    With `eig_kernel` the 9x9 eigensolves run in the hand-written Jacobi
-    kernel (ops/kernels/eig_kernel.py, 6 sweeps) — the counterpart of the
-    JAX package's eig_pallas; otherwise `smallest_eigvec_9x9(a,
-    eig_iterations, eig_method)`, as geometry.py:506-509 does."""
+    With `eig_kernel` everything after the moments' GEMM runs in
+    hand-written kernels (ops/kernels/eig_kernel.moment_refit_batch: the
+    assembly, the Jacobi eigensolve of the JAX package's eig_pallas, 6
+    sweeps, and the denormalization); otherwise the plain ops with
+    `smallest_eigvec_9x9(a, eig_iterations, eig_method)`, as
+    geometry.py:506-509 does."""
     mom = weights @ basis.feats  # (C, 30)
-    atas, params = _moments_to_ata(mom.reshape(-1, 5, 6))
-    hs = smallest_eigvecs(atas, eig_method, eig_iterations, eig_kernel)
-    return _h_from_nullvec(hs, params, basis.T1g, basis.T2g)
+    if eig_kernel:
+        from multih_tpu_torch.ops.kernels import eig_kernel as ek
+
+        return ek.moment_refit_batch(mom, "homography", basis.T1g,
+                                     basis.T2g)
+    return homography_from_moments(
+        mom, basis.T1g, basis.T2g,
+        lambda a: smallest_eigvec_9x9(a, eig_iterations, eig_method))
 
 
 def smallest_eigvecs(atas: torch.Tensor, eig_method: str,
                      eig_iterations: int, eig_kernel: bool) -> torch.Tensor:
     """(C, 9, 9) -> (C, 9): the hand-written Jacobi kernel when
     `eig_kernel`, else `smallest_eigvec_9x9` (geometry.py:502-509's
-    rule, shared by the homography and the fundamental refit)."""
+    rule, which the fundamental 12-point solves take)."""
     if eig_kernel:
         from multih_tpu_torch.ops.kernels import eig_kernel as ek
 

@@ -61,6 +61,11 @@ _SIGNATURES = {
     "multih_inlier_counts_limits": [_P],
     "multih_dlt_4pt_gt": [_P, _I, _I, _I, _P, _P, _P],
     "multih_eig9_smallest": [_P, _I, _P, _P],
+    # moments, count, fundamental (0 / 1), normal matrices, parameters,
+    # stream; nullvectors, parameters, count, fundamental, T1g, T2g, out,
+    # stream
+    "multih_moment_refit_assemble": [_P, _I, _I, _P, _P, _P],
+    "multih_moment_refit_denormalize": [_P, _P, _I, _I, _P, _P, _P, _P],
     "multih_band_list": [_P, _I, _I, _P, _P, _P, _P],
     "multih_mean_field": [_P] * 5 + [_I, _P, _I, _I, _I, _F] + [_P] * 3,
     # q0; x1, x2 and their strides; valid, deg; Hs; active; thr and the

@@ -1,5 +1,8 @@
 """Batched smallest eigenvector of 9x9 symmetric matrices: the CUDA
-Jacobi kernel and its plain PyTorch versions.
+Jacobi kernel and its plain PyTorch versions; and the batched moment
+refit around it (`moment_refit_batch`): the refit's assembly and
+denormalization kernels (csrc/refit_kernel.cu) with the Jacobi kernel
+between them, three launches from moments to models.
 
 Replaces ``multih_tpu/ops/kernels/eig_kernel.py`` (``_eig_kernel`` ->
 ``jacobi_smallest_column`` via ``smallest_eigvec_9x9_batch``). The kernel
@@ -172,3 +175,69 @@ def smallest_eigvec_9x9_batch(ata: torch.Tensor) -> torch.Tensor:
 
 
 smallest_eigvec_9x9_batch.launches = 0
+
+
+# the moment table's width of each model class
+_MOMENT_WIDTH = {"homography": 30, "fundamental": 36}
+
+
+def moment_refit_reference(mom: torch.Tensor, model: str,
+                           T1g: torch.Tensor, T2g: torch.Tensor
+                           ) -> torch.Tensor:
+    """Plain version of `moment_refit_batch`: the model's plain refit
+    from moments (geometry.homography_from_moments /
+    fmodel.fundamental_from_moments) with `smallest_eigvec_9x9_batch` as
+    its eigensolve."""
+    from multih_tpu_torch.ops import fmodel, geometry
+
+    plain = (geometry.homography_from_moments if model == "homography"
+             else fmodel.fundamental_from_moments)
+    return plain(mom, T1g, T2g, smallest_eigvec_9x9_batch)
+
+
+def moment_refit_batch(mom: torch.Tensor, model: str, T1g: torch.Tensor,
+                       T2g: torch.Tensor) -> torch.Tensor:
+    """(C, 30) homography or (C, 36) fundamental moment tables (the
+    refit's `weights @ basis.feats`) and the basis's (3, 3) global
+    similarities -> (C, 3, 3) models: H Frobenius-normalized with h33 >=
+    0, F rank 2, Frobenius-normalized with its largest entry positive. A
+    CPU tensor takes the plain version; a CUDA float32 tensor launches
+    the refit's assembly kernel (the normalized normal matrices and the
+    Hartley parameters), `smallest_eigvec_9x9_batch` on the matrices,
+    and the denormalization kernel (csrc/refit_kernel.cu)."""
+    width = _MOMENT_WIDTH.get(model)
+    if width is None:
+        raise ValueError(f"model {model!r}: homography or fundamental")
+    if mom.dim() != 2 or mom.shape[1] != width:
+        raise ValueError(f"expected (C, {width}) {model} moments, got "
+                         f"{tuple(mom.shape)}")
+    if mom.dtype != torch.float32:
+        raise ValueError(f"expected float32 moments, got {mom.dtype}")
+    for name, T in (("T1g", T1g), ("T2g", T2g)):
+        if T.shape != (3, 3):
+            raise ValueError(f"expected a (3, 3) {name}, got "
+                             f"{tuple(T.shape)}")
+    if mom.device.type == "cpu":
+        return moment_refit_reference(mom, model, T1g, T2g)
+    mom, T1g, T2g = mom.contiguous(), T1g.contiguous(), T2g.contiguous()
+    _build.require_cuda(mom, T1g, T2g)
+    c, fundamental = mom.shape[0], int(model == "fundamental")
+    lib, stream = _build.load(), _build.stream_handle(mom)
+    ata = torch.empty((c, _N, _N), dtype=torch.float32, device=mom.device)
+    params = torch.empty((c, 6), dtype=torch.float32, device=mom.device)
+    _build.check(lib.multih_moment_refit_assemble(
+        mom.data_ptr(), c, fundamental, ata.data_ptr(), params.data_ptr(),
+        stream), "moment_refit_batch")
+    vec = smallest_eigvec_9x9_batch(ata)
+    out = torch.empty((c, 3, 3), dtype=torch.float32, device=mom.device)
+    _build.check(lib.multih_moment_refit_denormalize(
+        vec.data_ptr(), params.data_ptr(), c, fundamental, T1g.data_ptr(),
+        T2g.data_ptr(), out.data_ptr(), stream), "moment_refit_batch")
+    moment_refit_batch.launches += 1
+    moment_refit_batch.model_launches[model] += 1
+    return out
+
+
+moment_refit_batch.launches = 0
+# the same calls, by model class
+moment_refit_batch.model_launches = dict.fromkeys(_MOMENT_WIDTH, 0)

@@ -252,6 +252,85 @@ def eigvec_err64(atas, v):
     return (v * sign - v64).abs().amax(1).numpy()
 
 
+def refit_weights(rng, model, c, union=False):
+    """((C, N) weights, basis) of C batched refits on a scene of
+    `model` (4 planes, 20% outliers, 0.5 px; or fm4_a): each row
+    Tukey-like weights on a random subset of one true model's members,
+    every fourth the union of two models' (a bridge refit); with `union`,
+    the C = K^2 pairwise unions of K such rows (the union merge's batch).
+    Row 0 has all weights 0 and row 1 three members: the refits of an
+    empty and of a starved label."""
+    if model == "homography":
+        cs, _ = tdata.synthetic_scene(512, 4, 0.2, 0.5,
+                                      seed=int(rng.integers(1 << 30)))
+        basis = tgeo.prepare_refit(t(cs.x1), t(cs.x2))
+    else:
+        cs = tdata.motion_suite_scene("fm4_a")
+        basis = tfm.prepare_refit_f(t(cs.x1), t(cs.x2))
+    lab = cs.gt_labels
+    k = int(round(c ** 0.5)) if union else c
+    w = np.zeros((k, lab.shape[0]), np.float32)
+    for i in range(k):
+        m = lab == rng.integers(1, lab.max() + 1)
+        if i % 4 == 3 and not union:
+            m = m | (lab == rng.integers(1, lab.max() + 1))
+        keep = rng.uniform(size=lab.shape[0]) < rng.uniform(0.3, 1.0)
+        w[i] = m * keep * rng.uniform(0.1, 1.0, lab.shape[0])
+    if union:
+        w = np.maximum(w[:, None], w[None, :]).reshape(c, -1)
+    w[0] = 0.0
+    w[1] = 0.0
+    w[1, np.flatnonzero(lab > 0)[:3]] = 1.0
+    return t(w), basis
+
+
+def refit_errors(model, mom, got, ref, T1g, T2g):
+    """(err_got, err_ref, fixed), each (C,): the sign-aligned max-abs
+    distance of two float32 refits of the moments `mom` (the kernel's and
+    the unfused route's) from the float64 refit of the same moments (the
+    plain assembly's smallest eigenvector by float64 eigh; for F its
+    nearest rank-2 matrix), each taken back in float64 into the
+    candidate's normalized frame, where its nullvector lives (in the raw
+    frame the global similarities' pixel scales hide what differs); and
+    the candidates whose nullvector float32 fixes: the float64 normal
+    matrix has a finite eigenvector floor and the unfused route lands
+    within 1e-2 of it (no weight, or three members, fix none)."""
+    mom64 = mom.double().cpu()
+    if model == "homography":
+        atas, params = tgeo._moments_to_ata(mom64.reshape(-1, 5, 6))
+    else:
+        atas, params = tfm._moments_to_ata_f(mom64.reshape(-1, 6, 6))
+    s1 = tgeo._similarity(*params[:3])
+    s2 = tgeo._similarity(*params[3:])
+    t1, t2 = T1g.double().cpu(), T2g.double().cpu()
+
+    def back(m):
+        m = m.double().cpu()
+        if model == "homography":
+            x = s2 @ t2 @ m @ torch.linalg.inv(t1) @ torch.linalg.inv(s1)
+        else:
+            x = (torch.linalg.inv(s2 @ t2).transpose(1, 2) @ m
+                 @ torch.linalg.inv(s1 @ t1))
+        return x.reshape(-1, 9) / torch.linalg.matrix_norm(x)[:, None]
+
+    ev, vec = torch.linalg.eigh(atas)
+    v = vec[..., 0].reshape(-1, 3, 3)
+    if model == "fundamental":
+        u, sv, vh = torch.linalg.svd(v)
+        v = u @ torch.diag_embed(sv * torch.tensor([1.0, 1.0, 0.0],
+                                                   dtype=sv.dtype)) @ vh
+    truth = v.reshape(-1, 9) / torch.linalg.matrix_norm(v)[:, None]
+
+    def err(x):
+        return (x * torch.sign((x * truth).sum(1, keepdim=True))
+                - truth).abs().amax(1).numpy()
+
+    e_got, e_ref = err(back(got)), err(back(ref))
+    floor = (torch.finfo(torch.float32).eps * ev[:, -1]
+             / (ev[:, 1] - ev[:, 0])).numpy()
+    return e_got, e_ref, np.isfinite(floor) & (e_ref < 1e-2)
+
+
 # ---------------------------------------------------------------------------
 # the CUDA kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -707,6 +786,118 @@ class TestCudaKernels:
         with torch.cuda.stream(side):
             assert _build.stream_handle(x) == side.cuda_stream
 
+    # (model, C, union): the LO and PEARL refit batches of both models
+    # and the fundamental union merge's K^2 = 256
+    REFIT_SHAPES = [("homography", 16, False), ("homography", 256, False),
+                    ("fundamental", 16, False),
+                    ("fundamental", 256, False),
+                    ("fundamental", 256, True)]
+
+    @pytest.mark.parametrize("model,c,union", REFIT_SHAPES)
+    def test_moment_refit_kernel(self, rng, cuda_device, model, c, union):
+        """The refit's kernels (assembly, K3, denormalization) against
+        the plain card route (the plain ops around K3) on the same
+        moments: finite and of unit Frobenius norm everywhere; on every
+        candidate whose nullvector float32 fixes, as close to the float64
+        refit as the plain route is (`refit_errors`: the largest error at
+        most twice the plain route's + 1e-5, the median at most twice its
+        median + 1e-6; the float32 assembly's rounding, not K3, sets both
+        routes' error); F's determinant at the plain route's level; three
+        CUDA launches a call, one of them K3's."""
+        w, basis = refit_weights(rng, model, c, union)
+        mom, T1g, T2g = (x.to(cuda_device) for x in (w @ basis.feats,
+                                                     basis.T1g, basis.T2g))
+        before = (teig.moment_refit_batch.launches,
+                  teig.smallest_eigvec_9x9_batch.launches)
+        got = teig.moment_refit_batch(mom, model, T1g, T2g)
+        assert (teig.moment_refit_batch.launches,
+                teig.smallest_eigvec_9x9_batch.launches) == (
+                    before[0] + 1, before[1] + 1)
+        ref = teig.moment_refit_reference(mom, model, T1g, T2g)
+        assert got.shape == (c, 3, 3)
+        assert bool(torch.isfinite(got).all())
+        norms = torch.linalg.matrix_norm(got.double())
+        assert float((norms - 1.0).abs().max()) < 1e-5
+        e_got, e_ref, fixed = refit_errors(model, mom, got, ref, T1g, T2g)
+        assert fixed.sum() >= c - 2
+        e_got, e_ref = e_got[fixed], e_ref[fixed]
+        assert e_got.max() <= 2.0 * e_ref.max() + 1e-5
+        assert np.median(e_got) <= 2.0 * np.median(e_ref) + 1e-6
+        if model == "fundamental":
+            det_got = torch.linalg.det(got.double()).abs()[fixed]
+            det_ref = torch.linalg.det(ref.double()).abs()[fixed]
+            assert float(det_got.max()) <= 10.0 * float(det_ref.max())
+        assert launches_per_call(
+            lambda: teig.moment_refit_batch(mom, model, T1g, T2g)) == 3
+
+    def test_moment_refit_rejects_bad_input(self, cuda_device):
+        eye = torch.eye(3, device=cuda_device)
+        with pytest.raises(ValueError):  # float64 moments
+            teig.moment_refit_batch(torch.zeros(
+                (4, 30), dtype=torch.float64, device=cuda_device),
+                "homography", eye, eye)
+        with pytest.raises(ValueError):  # float64 similarities
+            teig.moment_refit_batch(torch.zeros((4, 36), device=cuda_device),
+                                    "fundamental", eye.double(), eye)
+
+    @pytest.mark.parametrize("config,scene", [("h512", "easy2_a"),
+                                              ("f512", "fm4_a")])
+    def test_captured_fit_refits_through_the_kernels(self, cuda_device,
+                                                     monkeypatch, config,
+                                                     scene):
+        """At the benchmark's configurations, every moment refit of a fit
+        on the card runs the refit's kernels (their calls equal the fit's
+        refit calls, each with one K3 launch; K3's other launches are
+        the 12-point solves'), and the captured fit's replay, whose
+        launches equal the eager fit's, returns the eager fit's result
+        bit for bit."""
+        import json
+
+        from multih_tpu_torch.utils import aot
+
+        with open(os.path.join(os.path.dirname(__file__), "..",
+                               "portbench", "configs",
+                               f"{config}.json")) as fh:
+            cfg = mt.MultiHConfig(**json.load(fh)["multih"])
+        cs = (tdata.suite_scene(scene) if cfg.model == "homography"
+              else tdata.motion_suite_scene(scene))
+        pts = [t(a).to(cuda_device) for a in mt.pad_points(
+            cs.x1, cs.x2, None, cfg.max_points)[:3]]
+        calls = collections.Counter()
+
+        def counted(name, fn):
+            def wrapper(*a, **kw):
+                calls[name] += 1
+                return fn(*a, **kw)
+            return wrapper
+
+        for mod, name in ((tgeo, "homography_refit_batch"),
+                          (tfm, "fundamental_refit_batch"),
+                          (tfm, "fundamental_npt_batch")):
+            monkeypatch.setattr(mod, name, counted(name, getattr(mod, name)))
+        refit = teig.moment_refit_batch
+        gen = torch.Generator(device=cuda_device)
+        before = aot._launches()
+        by_model = dict(refit.model_launches)
+        eager = tpipe.make_fit(cfg, device=cuda_device)(*pts,
+                                                        gen.manual_seed(1))
+        torch.cuda.synchronize(cuda_device)
+        launches = {k: v - before[k] for k, v in aot._launches().items()}
+        refits = {k: v - by_model[k] for k, v in refit.model_launches.items()}
+        other = ("fundamental" if cfg.model == "homography"
+                 else "homography")
+        assert refits[cfg.model] == calls[f"{cfg.model}_refit_batch"] > 0
+        assert refits[other] == calls[f"{other}_refit_batch"] == 0
+        assert launches["eig9_smallest"] == (refits[cfg.model]
+                                             + calls["fundamental_npt_batch"])
+
+        fn = aot.cached_fit(cfg, "fit", device=cuda_device)
+        replay = fn(*pts, gen.manual_seed(1))
+        assert fn.launches == launches
+        for name in eager._fields:
+            assert torch.equal(getattr(eager, name), getattr(replay, name)), \
+                name
+
     def test_wrappers_reject_bad_input(self, cuda_device):
         with pytest.raises(ValueError):  # float64 rows
             tdlt.homography_4pt_gt(torch.zeros((32, 8), dtype=torch.float64,
@@ -752,6 +943,68 @@ class TestCudaKernels:
 # ---------------------------------------------------------------------------
 # the golden contract of tests/test_golden_parity.py, for the port
 # ---------------------------------------------------------------------------
+
+class TestMomentRefitEntry:
+    """The fused moment refit's wrapper on the CPU: its plain route is the
+    unfused composition, bit for bit, and the refits that ask for the
+    kernel take it; its argument checks; its launch counters."""
+
+    @pytest.mark.parametrize("c", [16, 256])
+    @pytest.mark.parametrize("model", ["homography", "fundamental"])
+    def test_plain_route_is_the_composition(self, rng, model, c):
+        """moment_refit_batch on CPU tensors is _moments_to_ata(_f) ->
+        smallest_eigvecs (K3's plain version) -> _h_from_nullvec /
+        _f_from_nullvec bit for bit, degenerate rows (no weight, three
+        members) included, and so is the refit entry with eig_kernel."""
+        w, basis = refit_weights(rng, model, c)
+        mom = w @ basis.feats
+        got = teig.moment_refit_batch(mom, model, basis.T1g, basis.T2g)
+        if model == "homography":
+            atas, params = tgeo._moments_to_ata(mom.reshape(-1, 5, 6))
+            ref = tgeo._h_from_nullvec(
+                tgeo.smallest_eigvecs(atas, "jacobi", 8, True), params,
+                basis.T1g, basis.T2g)
+            via = tgeo.homography_refit_batch(w, basis, eig_kernel=True)
+        else:
+            atas, params = tfm._moments_to_ata_f(mom.reshape(-1, 6, 6))
+            ref = tfm._f_from_nullvec(
+                tgeo.smallest_eigvecs(atas, "eigh", 6, True), params,
+                basis.T1g, basis.T2g)
+            via = tfm.fundamental_refit_batch(w, basis, eig_kernel=True)
+        assert got.shape == (c, 3, 3)
+        assert torch.equal(got, ref) and torch.equal(via, ref)
+        assert bool(torch.isfinite(got[:2]).all())
+
+    def test_rejects_bad_input(self):
+        eye = torch.eye(3)
+        bad = [
+            (torch.zeros((4, 36)), "homography", eye),    # F's width
+            (torch.zeros((4, 30)), "fundamental", eye),   # H's width
+            (torch.zeros((4, 30), dtype=torch.float64), "homography", eye),
+            (torch.zeros((4, 5, 6)), "homography", eye),  # not (C, 30)
+            (torch.zeros((4, 30)), "affine", eye),        # no such model
+            (torch.zeros((4, 30)), "homography", torch.eye(4)),
+        ]
+        for mom, model, T in bad:
+            with pytest.raises(ValueError):
+                teig.moment_refit_batch(mom, model, T, eye)
+
+    def test_launch_counters_in_aot(self, monkeypatch):
+        """aot._launches() counts the refit's K3 launches with K3's and
+        names only the kernels a device trace names (portbench/trace.py),
+        so a stage's launches map onto its trace; the refit's own calls,
+        by model class, stay on its wrapper."""
+        from multih_tpu_torch.utils import aot
+
+        monkeypatch.setattr(teig.smallest_eigvec_9x9_batch, "launches", 7)
+        monkeypatch.setattr(teig.moment_refit_batch, "model_launches",
+                            {"homography": 3, "fundamental": 5})
+        got = aot._launches()
+        assert got["eig9_smallest"] == 7
+        assert not any(k.startswith("moment_refit") for k in got)
+        assert set(teig.moment_refit_batch.model_launches) == {
+            "homography", "fundamental"}
+
 
 class TestKernelEntries:
     """K1's and K2's wrappers on the CPU: what they pass on, their plain
