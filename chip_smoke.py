@@ -35,7 +35,11 @@ Phases, each raising on failure:
      moments of a homography fit's C=256 and C=16 batches and a motion
      fit's first C=256, first C=16 and last C=256, as close to the
      float64 refit as the plain card route (each candidate's normalized
-     frame), 3 launches a call; K6 at both homography kinds on the fit's own tensors with the
+     frame), 3 launches a call; the F fit's accept fallback (a front
+     and a back a step around K5) on the first and last accept states
+     of a motion fit on fm4_a, steps taken, each step's energy and the
+     models equal to the plain loop's, 3 K launches a call; K6 at both
+     homography kinds on the fit's own tensors with the
      threshold a device tensor, its r and cost held to float64 too and
      its q equal to K4's on its own base; the neighbour list bit-exact;
      K4, K5 and K6 on the list the fit builds, K4, K5 and the list also
@@ -74,7 +78,8 @@ Phases, each raising on failure:
      n_hypotheses=2048, max_points=512) on fm2_b and fm4_a, 3 keys each,
      against the motion goldens (motion count exact on every key, mean
      misclassification within 2.0 pp), with the launches of every fit
-     (K1 at f_sampson, K3, the refit's kernels, K4, K5; no K2, no K7), and the warm fit
+     (K1 at f_sampson, K3, the refit's kernels, K4, K5, the accept's
+     ends: 2 K an accept; no K2, no K7), and the warm fit
      latency on fm4_a;
   7. one two-pass adaptive-threshold fit (fit_adaptive) on a noise-1 px
      scene, tau printed;
@@ -85,10 +90,10 @@ Phases, each raising on failure:
      stage residual="sampson"): mx21_a and mx22_b, 3 keys each, against
      their goldens (class-resolved counts exact on every key, 3-key mean
      |delta| <= 3.5 pp), with the launches of every fit (K1 at both
-     kinds, K2, K3, the refit's kernels of both models, K4, K5 and the list
-     build; no K6, no K7); one fit
+     kinds, K2, K3, the refit's kernels of both models, K4, K5, the list
+     build and the accept's ends, 2 Kf an accept; no K6, no K7); one fit
      at max_points 640, where both stages take the gather-path labeling
-     (no K4, K5 or list build), and one fit_mixed_adaptive on a noise-1
+     (no K4, K5, list build or accept end), and one fit_mixed_adaptive on a noise-1
      px scene there (tau_h, tau_f printed); the warm latency (median of
      5) and the device busy time per fit at N=1024, with each stage's
      host and device ms (mixed_fit_h, mixed_fit_f, mixed_polish);
@@ -219,6 +224,11 @@ KERNELS = {
         source="multih_tpu_torch/csrc/refit_kernel.cu",
         replaces="the plain ops of ops/fmodel.py::"
                  "fundamental_refit_batch around K3"),
+    # the F fit's accept fallback: a front and a back a step around K5
+    "f_accept_step": dict(
+        source="multih_tpu_torch/csrc/accept_kernel.cu",
+        replaces="the plain ops of models/pipeline.py::"
+                 "_f_fallback_plain around K5"),
     "mean_field_fused": dict(
         source="multih_tpu_torch/csrc/mrf_kernel.cu",
         replaces="multih_tpu/ops/kernels/mrf_kernel.py:118"),
@@ -1011,6 +1021,7 @@ def phase_kernels(dev):
                4 * 90 * c, EIG_OPS * c, lib=lambda: torch.linalg.eigh(atas))
 
     refit_kernels(dev, record)
+    accept_kernels(dev, record)
     mrf_kernels(rng, dev, record)
     front_kernels(rng, dev, record)
     gather_kernels(rng, dev, record)
@@ -1074,6 +1085,104 @@ def refit_kernels(dev, record):
         row["launches_per_call"] = n_launch
         print(f"  refit {shape}: CUDA launches a call "
               f"{_launch_str(n_launch, launched)}")
+
+
+def accept_kernels(dev, record):
+    """The F fit's accept fallback on real accept states of the motion
+    fit on fm4_a (the motion suite's config: the f512 cell's K=16, L=17,
+    N=512): the first accept (an exclusive-core refit's) and the last (a
+    member resample's), each as handed to the kernel route, held against
+    the plain loop `pipeline._f_fallback_plain` on the same state: the
+    same steps taken, each step's energy equal, the models bit for bit;
+    2 K end launches a call on the wrapper's count, 3 K CUDA launches (a
+    front, K5 and a back a step)."""
+    import torch
+
+    from multih_tpu_torch.models import pipeline
+    from multih_tpu_torch.ops.kernels import accept_kernel
+
+    states, plain_fns = [], []
+    accept, fallback = pipeline._f_accept, accept_kernel.f_accept_fallback
+
+    def take_plain(*args, **kw):
+        # relabel_energy, residuals: the phase's closures
+        plain_fns.append(args[9:11])
+        return accept(*args, **kw)
+
+    def take_state(*args):
+        states.append(tuple(a.clone() if torch.is_tensor(a) else a
+                            for a in args))
+        return fallback(*args)
+
+    # the wrapper counts its launches under its module-level name
+    take_state.launches = 0
+    pipeline._f_accept = take_plain
+    accept_kernel.f_accept_fallback = take_state
+    try:
+        _motion_fit(dev)
+    finally:
+        pipeline._f_accept = accept
+        accept_kernel.f_accept_fallback = fallback
+    cfg = motion_cfg(512)
+    n_acc = _accept_ends(cfg) // (2 * cfg.max_labels)
+    check(len(states) == len(plain_fns) == n_acc, f"accept fallback: "
+          f"{len(states)} kernel-route calls, {len(plain_fns)} accepts, "
+          f"expected {n_acc}")
+    for which, idx in (("first", 0), ("last", -1)):
+        args = states[idx]
+        relabel_energy, residuals = plain_fns[idx]
+        hs_c, r_c, lab_c, e_c, hs_prop, r_prop, ok_prop = args[:7]
+        adj, icm_it = args[10], args[-1]
+        k, n = r_c.shape
+        l = k + 1
+
+        def kernel():
+            return accept_kernel.f_accept_fallback(*args)
+
+        def plain():
+            return pipeline._f_fallback_plain(hs_c, r_c, lab_c, e_c, hs_prop,
+                                              ok_prop, relabel_energy,
+                                              residuals)
+
+        n0 = accept_kernel.f_accept_fallback.launches
+        hs_k, e_k, took_k = kernel()
+        check(accept_kernel.f_accept_fallback.launches - n0 == 2 * k,
+              f"accept fallback {which}: "
+              f"{accept_kernel.f_accept_fallback.launches - n0} end "
+              f"launches, expected {2 * k}")
+        hs_p, e_p, took_p = plain()
+        check(torch.equal(took_k, took_p), f"accept fallback {which}: "
+              f"steps taken {took_k.tolist()}, plain {took_p.tolist()}")
+        off = (e_k != e_p).nonzero().flatten().tolist()
+        check(not off, f"accept fallback {which}: step energies differ "
+              f"{[(i, float(e_k[i]), float(e_p[i])) for i in off]}")
+        check(torch.equal(hs_k, hs_p), f"accept fallback {which}: models "
+              f"differ from the plain loop's by "
+              f"{float((hs_k - hs_p).abs().max()):.3g}")
+        nnz = int((adj.band != 0).sum())
+        s = 2  # K5's starts
+        # a step: the front reads the candidate row, valid, deg and the
+        # L costs, writes the row's cost, base and save and the starts;
+        # the back reads the L costs, the list, deg and the polished
+        # starts, writes back a row and the starts; K5 as mrf_kernels
+        # counts it
+        step_bytes = (4 * n * (l + 10) + 4 * n * (l + 6) + 8 * nnz
+                      + (8 * nnz + 4 * n) + 4 * (2 * s * n + l * n))
+        step_ops = (n * (6 * l + 10) + 4 * nnz
+                    + icm_it * s * (nnz * l + 3 * l * n))
+        row = record("f_accept_step",
+                     f"{which} accept K={k} N={n} (ends + K5)",
+                     float((e_k - e_p).abs().max()), kernel, plain,
+                     k * step_bytes, k * step_ops)
+        n_launch, launched = cuda_launches(kernel)
+        check(n_launch in (3 * k, None), f"accept fallback {which}: CUDA "
+              f"launches {launched}")
+        row["launches_per_call"] = n_launch
+        print(f"  accept fallback, {which} accept: {int(ok_prop.sum())} of "
+              f"{k} proposals ok, {int(took_k.sum())} steps taken "
+              f"({int((took_k & ~ok_prop).sum())} of an unchanged model), "
+              f"steps, energies and models equal to the plain loop's; "
+              f"CUDA launches a call {_launch_str(n_launch, launched)}")
 
 
 def _windowed_problem(dev, n_points, n_pad, block, seed=42):
@@ -1383,15 +1492,16 @@ def _to(dev, *arrays):
 
 
 def _wrappers():
-    from multih_tpu_torch.ops.kernels import (dlt_kernel, eig_kernel,
-                                              gather_kernel, mrf_kernel,
-                                              residual_kernel)
+    from multih_tpu_torch.ops.kernels import (accept_kernel, dlt_kernel,
+                                              eig_kernel, gather_kernel,
+                                              mrf_kernel, residual_kernel)
 
     return {
         "inlier_counts": residual_kernel.inlier_counts_padded,
         "dlt_4pt": dlt_kernel.homography_4pt_gt,
         "eig9_smallest": eig_kernel.smallest_eigvec_9x9_batch,
         "moment_refit": eig_kernel.moment_refit_batch,
+        "f_accept_step": accept_kernel.f_accept_fallback,
         "mean_field_fused": mrf_kernel.mean_field_fused,
         "icm_fused": mrf_kernel.icm_fused,
         "mean_field_fused_front": mrf_kernel.mean_field_fused_front,
@@ -1406,7 +1516,8 @@ def count_launches(label: str, expect, fn, quiet: bool = False):
     launches are split by residual kind: `inlier_counts` counts the
     homography kinds, `inlier_counts_f` the epipolar (f_) kinds; the
     moment refit's by model: `moment_refit` the homography refits,
-    `moment_refit_f` the fundamental ones."""
+    `moment_refit_f` the fundamental ones; `f_accept_step` counts the
+    accept fallback's ends (its K5 launches count as K5's)."""
     import torch
 
     wrappers = _wrappers()
@@ -1432,6 +1543,15 @@ def count_launches(label: str, expect, fn, quiet: bool = False):
         check(launches[k] > 0, f"kernel {k} never launched on the {label} "
               f"path")
     return out, launches
+
+
+def _accept_ends(cfg) -> int:
+    """The accept fallback's end launches in one F fit at cfg on the
+    kernel route: a front and a back for each of the max_labels models,
+    at each accept of `pipeline._f_refine_phases`."""
+    accepts = (cfg.f_exclusive_iterations * cfg.f_exclusive_refine
+               + cfg.f_resample_iterations * cfg.f_resample_lo)
+    return 2 * cfg.max_labels * accepts
 
 
 def _baseline2(dev, cfg, gen):
@@ -1644,7 +1764,7 @@ def phase_stress(dev):
     gen = torch.Generator(device=dev).manual_seed(0)
     t0 = time.perf_counter()
     # every kernel but K6 and those the homography fit does not launch
-    not_h = ("inlier_counts_f", "moment_refit_f")
+    not_h = ("inlier_counts_f", "moment_refit_f", "f_accept_step")
     res, launches = count_launches(
         "stress", tuple(k for k in KERNELS
                         if k not in not_h + ("mean_field_fused_front",)),
@@ -1734,7 +1854,7 @@ def phase_motion(dev):
 
     print("== 6. the fundamental (multi-motion) fit on the card")
     expect = ("inlier_counts_f", "eig9_smallest", "moment_refit_f",
-              "mean_field_fused", "icm_fused", "band_list")
+              "f_accept_step", "mean_field_fused", "icm_fused", "band_list")
     cfg = motion_cfg(512)
     f = mt.make_fit_tau(cfg)
     per_fit, results, path = [], {}, {}
@@ -1755,6 +1875,9 @@ def phase_motion(dev):
                   and fit_launches["window_gather"] == 0,
                   f"motion fit launched a homography-path kernel: "
                   f"{fit_launches}")
+            check(fit_launches["f_accept_step"] == _accept_ends(cfg),
+                  f"motion fit: accept ends {fit_launches['f_accept_step']}"
+                  f", expected {_accept_ends(cfg)} (2 K an accept)")
             per_fit.append(fit_launches)
             for kname, c in fit_launches.items():
                 path[kname] = path.get(kname, 0) + c
@@ -1902,7 +2025,7 @@ def phase_mixed(dev):
     print("== 9. the mixed plane + motion fit on the card")
     banded = ("inlier_counts", "inlier_counts_f", "dlt_4pt",
               "eig9_smallest", "moment_refit", "moment_refit_f",
-              "mean_field_fused", "icm_fused", "band_list")
+              "f_accept_step", "mean_field_fused", "icm_fused", "band_list")
     cfg_h, cfg_f = mixed_cfgs(1024)
     k_union = cfg_h.max_labels + cfg_f.max_labels
     f = mt.make_fit_mixed(cfg_h, cfg_f)
@@ -1926,6 +2049,10 @@ def phase_mixed(dev):
             check(fit_launches["mean_field_fused_front"] == 0
                   and fit_launches["window_gather"] == 0,
                   f"mixed fit launched K6 or K7: {fit_launches}")
+            check(fit_launches["f_accept_step"] == _accept_ends(cfg_f),
+                  f"mixed fit: accept ends {fit_launches['f_accept_step']},"
+                  f" expected {_accept_ends(cfg_f)} (2 Kf an accept of the "
+                  f"motion stage)")
             tally(fit_launches, path)
             check(bool(torch.isfinite(res.models[res.active > 0]).all()),
                   "non-finite model")
@@ -1957,7 +2084,7 @@ def phase_mixed(dev):
     cfg_h6, cfg_f6 = mixed_cfgs(640)
     gather = {}
     no_band = ("mean_field_fused", "icm_fused", "band_list",
-               "mean_field_fused_front", "window_gather")
+               "mean_field_fused_front", "window_gather", "f_accept_step")
     cs, _, _ = data.synthetic_mixed_scene(600, 2, 1, 0.1, 0.5, seed=4)
     x1, x2, valid, gt = mt.pad_points(cs.x1, cs.x2, cs.gt_labels, 640)
     args = _to(dev, x1, x2, valid)
@@ -2593,11 +2720,13 @@ def _pt_expected(cfg, single: dict) -> dict:
     """Each kernel's launches in one 'pt' rank's fit, from the single
     card fit's (`single`): K4 a launch a mean-field sweep and K5 one an
     ICM half-sweep where the single fit launches each once a call (none
-    on the exact graph's band, in either), every other kernel as often
-    as in the single fit (the refits gather their weights and refit
-    whole; each rank counts its own points, once a sweep)."""
+    on the exact graph's band, in either), no accept end (a 'pt' shard
+    takes the accept's plain loop, whose relabels launch K5 as the ends'
+    steps do), every other kernel as often as in the single fit (the
+    refits gather their weights and refit whole; each rank counts its
+    own points, once a sweep)."""
     factor = {"mean_field_fused": cfg.meanfield_iterations,
-              "icm_fused": 2 * cfg.icm_iterations}
+              "icm_fused": 2 * cfg.icm_iterations, "f_accept_step": 0}
     return {k: n * factor.get(k, 1) for k, n in single.items()}
 
 

@@ -61,7 +61,8 @@ import torch.nn.functional as F
 from multih_tpu_torch.config import MultiHConfig
 from multih_tpu_torch.models import labeling, selection
 from multih_tpu_torch.ops import epipolar, fmodel, geometry, sampling
-from multih_tpu_torch.ops.kernels import dlt_kernel, residual_kernel
+from multih_tpu_torch.ops.kernels import (accept_kernel, dlt_kernel,
+                                          residual_kernel)
 from multih_tpu_torch.ops.topk import top_k_stable
 from multih_tpu_torch.utils.tracing import stage
 
@@ -936,21 +937,36 @@ def _trimmed_cost(r_like, member_f, t_idx):
     return torch.gather(csum, -1, idx)[..., 0]
 
 
+def _f_accept_kernel_ok(cfg: MultiHConfig, device: torch.device, adj,
+                        shard) -> bool:
+    """Whether `_f_accept`'s fallback runs as K5 between its two
+    hand-written ends (accept_kernel.f_accept_fallback): exactly where
+    the fallback's relabel runs K5, on a CUDA fit with the kernels on,
+    without a 'pt' shard, over a far-free band."""
+    return (_kernels_enabled(cfg, device) and shard is None
+            and labeling._mrf_kernel_ok(adj))
+
+
 def _f_accept(Hs_c, q_c, r_c, lab_c, e_c, Hs_prop, r_prop, ok_prop,
-              label_energy, relabel_energy, residuals, on_device=None):
+              label_energy, relabel_energy, residuals, on_device=None,
+              fallback=None):
     """The accept of `_f_refine_phases` (the lax.cond at pipeline.py:1556):
     the joint move (every ok proposal at once, scored under a full
     relabel) if it lowers the energy e_c of the carried (Hs_c, q_c, r_c,
     lab_c), else one model at a time under an ICM relabel from the
     carried labeling, each kept iff the energy drops. label_energy(r,
     q0) -> (labels, q, e), relabel_energy(r, labels0) -> (labels, e) and
-    residuals(Ms) -> r are the phase's. Returns (Hs, q).
+    residuals(Ms) -> r are the phase's; `fallback`, where given, runs
+    the one-model-at-a-time loop in kernels ((Hs_c, r_c, lab_c, e_c,
+    Hs_prop, r_prop, ok_prop) -> (Hs, e_steps, took) as
+    `_f_fallback_plain`, accept_kernel.f_accept_fallback). Returns (Hs,
+    q).
 
     On the CPU the branch is a host read, and the fallback runs only
     where the joint move is refused. On the card (on_device, by default
     where e_c lies) both run and each output is picked with torch.where,
     so that nothing is read back and a CUDA graph can capture the
-    accept. Both routes give the same result bit for bit."""
+    accept. Every route gives the same result bit for bit."""
     if on_device is None:
         on_device = e_c.device.type != "cpu"
     with stage("f_accept"):
@@ -959,22 +975,41 @@ def _f_accept(Hs_c, q_c, r_c, lab_c, e_c, Hs_prop, r_prop, ok_prop,
         Hs_j = torch.where(ok_prop[:, None, None], Hs_prop, Hs_c)
         if not on_device and bool(e_j < e_c):
             return Hs_j, q_j
-        Hs_s, r_s, lab_s, e_s = Hs_c, r_c, lab_c, e_c
-        for i in range(Hs_c.shape[0]):  # the lax.scan over models
-            Hn = torch.where(ok_prop[i], Hs_prop[i], Hs_s[i])
-            r_n = r_s.clone()
-            r_n[i] = residuals(Hn[None])[0]
-            lab_n, e_n = relabel_energy(r_n, lab_s)
-            better = e_n < e_s
-            Hs_s = Hs_s.clone()
-            Hs_s[i] = torch.where(better, Hn, Hs_s[i])
-            r_s = torch.where(better, r_n, r_s)
-            lab_s = torch.where(better, lab_n, lab_s)
-            e_s = torch.where(better, e_n, e_s)
+        if fallback is not None:
+            Hs_s = fallback(Hs_c, r_c, lab_c, e_c, Hs_prop, r_prop,
+                            ok_prop)[0]
+        else:
+            Hs_s = _f_fallback_plain(Hs_c, r_c, lab_c, e_c, Hs_prop,
+                                     ok_prop, relabel_energy, residuals)[0]
         if not on_device:
             return Hs_s, q_c
         joint = e_j < e_c
         return torch.where(joint, Hs_j, Hs_s), torch.where(joint, q_j, q_c)
+
+
+def _f_fallback_plain(Hs_c, r_c, lab_c, e_c, Hs_prop, ok_prop,
+                      relabel_energy, residuals):
+    """`_f_accept`'s fallback in plain ops: model i's proposal (its
+    carried model where ok_prop[i] is false) under an ICM relabel from
+    the carried labeling, kept iff the energy drops, for every i in
+    turn. Returns (Hs, e_steps (K,): each step's candidate energy, took
+    (K,) bool: the steps taken)."""
+    Hs_s, r_s, lab_s, e_s = Hs_c, r_c, lab_c, e_c
+    e_steps, took = [], []
+    for i in range(Hs_c.shape[0]):  # the lax.scan over models
+        Hn = torch.where(ok_prop[i], Hs_prop[i], Hs_s[i])
+        r_n = r_s.clone()
+        r_n[i] = residuals(Hn[None])[0]
+        lab_n, e_n = relabel_energy(r_n, lab_s)
+        better = e_n < e_s
+        Hs_s = Hs_s.clone()
+        Hs_s[i] = torch.where(better, Hn, Hs_s[i])
+        r_s = torch.where(better, r_n, r_s)
+        lab_s = torch.where(better, lab_n, lab_s)
+        e_s = torch.where(better, e_n, e_s)
+        e_steps.append(e_n)
+        took.append(better)
+    return Hs_s, torch.stack(e_steps), torch.stack(took)
 
 
 def _f_refine_phases(Hs, active, q, draws, x1, x2, valid, nbr_idx, nbr_w,
@@ -1036,6 +1071,14 @@ def _f_refine_phases(Hs, active, q, draws, x1, x2, valid, nbr_idx, nbr_w,
                                     active, adj=adj, shard=shard)
         return lab_e, q_e, e
 
+    fallback = None
+    if _f_accept_kernel_ok(cfg, dev, adj, shard):
+        def fallback(Hs_c, r_c, lab_c, e_c, Hs_prop, r_prop, ok_prop):
+            return accept_kernel.f_accept_fallback(
+                Hs_c, r_c, lab_c, e_c, Hs_prop, r_prop, ok_prop, valid, thr,
+                active, adj, cfg.spatial_weight, cfg.outlier_cost,
+                cfg.label_cost, cfg.icm_iterations)
+
     def relabel_energy(r_n, lab0):
         dct_n = labeling.data_costs_t(r_n, valid, thr, cfg.outlier_cost,
                                       active)
@@ -1070,7 +1113,7 @@ def _f_refine_phases(Hs, active, q, draws, x1, x2, valid, nbr_idx, nbr_w,
                        & all_finite(Hs_prop) & (active > 0))
             Hs, q = _f_accept(Hs, q, r_c, lab_c, e_c, Hs_prop, r_prop,
                               ok_prop, label_energy, relabel_energy,
-                              residuals)
+                              residuals, fallback=fallback)
 
     if cfg.f_resample_lo:
         m_pts, s_sub, n_pts = 12, cfg.f_resample_subsets, x1_all.shape[0]
@@ -1119,7 +1162,7 @@ def _f_refine_phases(Hs, active, q, draws, x1, x2, valid, nbr_idx, nbr_w,
                        & all_finite(Hs_prop))
             Hs, q = _f_accept(Hs, q, r_c, lab_c, e_c, Hs_prop, r_prop,
                               ok_prop, label_energy, relabel_energy,
-                              residuals)
+                              residuals, fallback=fallback)
     return Hs, q
 
 

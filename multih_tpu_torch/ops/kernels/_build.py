@@ -77,6 +77,11 @@ _SIGNATURES = {
                                + [_P] * 5,
     "multih_icm": [_P] * 5 + [_I] * 6 + [_F] + [_P] * 3,
     "multih_window_gather": [_P, _P] + [_I] * 7 + [_P, _P],
+    # end, step, init; valid, deg, the list and cap; the accept's
+    # inputs, K5's output, the state and the record; K, N; sw, oc,
+    # label_cost; stream
+    "multih_f_accept_step": [_I] * 3 + [_P] * 5 + [_I] + [_P] * 18
+                            + [_I] * 2 + [ctypes.c_double, _F, _F, _P],
     # the capturing stream; the count of device ops captured (long long)
     "multih_graph_ops": [_P, _P],
 }

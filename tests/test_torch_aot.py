@@ -224,13 +224,15 @@ def test_f_accept_routes_agree(f_cfg, motion_scene, monkeypatch):
     """pipeline._f_accept on its device route (both moves computed, each
     output picked with torch.where) equals its host route bit for bit,
     call by call through an F fit, on calls where the joint move is taken
-    and on calls where it is refused."""
+    and on calls where it is refused. On the card the fallback's kernel
+    route is held to both as a third route
+    (tests/test_torch_accept.py, which imports no JAX)."""
     accept = pipeline._f_accept
     joint = []
 
-    def both(Hs_c, q_c, *args):
-        host = accept(Hs_c, q_c, *args, on_device=False)
-        device = accept(Hs_c, q_c, *args, on_device=True)
+    def both(Hs_c, q_c, *args, **kw):
+        host = accept(Hs_c, q_c, *args, on_device=False, **kw)
+        device = accept(Hs_c, q_c, *args, on_device=True, **kw)
         assert_same(device, host)
         joint.append(host[1] is not q_c)  # the fallback keeps q_c
         return host
