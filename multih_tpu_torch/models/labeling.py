@@ -142,8 +142,11 @@ class BandedAdjacency(NamedTuple):
       than one block (zero-padded).
     deg: (N, 1) — symmetrized degree.
     n_dropped: () int32 — far edges beyond capacity F.
-    nbr: the far-free band's neighbour list, which the fused MRF kernels
-      read (mrf_kernel.band_list), or None.
+    nbr: the far-free band's neighbour list (mrf_kernel.band_list), or
+      None. The fused MRF kernels run exactly where the adjacency carries
+      it; the fit builds it where its kernels are on
+      (pipeline._kernels_enabled), and elsewhere the same sweeps run in
+      their plain versions.
     """
 
     band: torch.Tensor
@@ -184,7 +187,7 @@ def build_banded_adjacency(
     nbr_w: torch.Tensor,
     block: int = 256,
     far_capacity: int | None = None,
-    neighbour_list: bool | None = None,
+    neighbour_list: bool = False,
 ) -> BandedAdjacency:
     """The directed k-NN graph as the banded symmetric operator, general
     scatter path: each directed edge (i, j, w) adds 0.5 w to both (i<-j)
@@ -192,8 +195,8 @@ def build_banded_adjacency(
     (capacity default max(block, 0.75 N); overflow counted in n_dropped).
     far_capacity=0 takes the far-free build of a windowed graph
     (`_build_band_far_free`), which also builds the band's neighbour
-    list for the fused MRF kernels when `neighbour_list` (default: when
-    the band is a CUDA tensor), one launch of mrf_kernel.band_list.
+    list for the fused MRF kernels when `neighbour_list` (a CUDA band),
+    one launch of mrf_kernel.band_list.
 
     Scatter-adds are index_add_: weights are in {0, 0.5} and sums in
     {0, 0.5, 1}, all exact, so atomic order does not change the band."""
@@ -202,8 +205,6 @@ def build_banded_adjacency(
         raise ValueError((n, block))
     if far_capacity == 0:
         adj = _build_band_far_free(nbr_idx, nbr_w, block)
-        if neighbour_list is None:
-            neighbour_list = adj.band.is_cuda
         if neighbour_list:
             adj = adj._replace(nbr=mrf_kernel.band_list(adj.band))
         return adj
@@ -395,8 +396,7 @@ class PointShard:
 
 
 def build_window_adjacency(nbr_idx, nbr_w, shard: PointShard,
-                           neighbour_list: bool | None = None
-                           ) -> BandedAdjacency:
+                           neighbour_list: bool = False) -> BandedAdjacency:
     """`_build_band_far_free` for a 'pt' rank: nbr_idx / nbr_w are the
     windowed graph's rows of its own points (global columns). The
     reverse half of block b's band reads the forward band of blocks b-1
@@ -404,7 +404,7 @@ def build_window_adjacency(nbr_idx, nbr_w, shard: PointShard,
     (mesh.halo_exchange). Returns the band of the rank's window, a zero
     block on each side of its own blocks (rows whose sweep output
     is discarded), with the window's neighbour list when `neighbour_list`
-    (default: on CUDA). The own rows equal the whole band's: its entries
+    (a CUDA band). The own rows equal the whole band's: its entries
     are sums of {0, 0.5}, exact in any order. n_dropped counts the own
     rows only (the caller sums it over the axis)."""
     block = shard.block
@@ -418,15 +418,13 @@ def build_window_adjacency(nbr_idx, nbr_w, shard: PointShard,
     zero = torch.zeros_like(band[:1])
     adj = _far_free(torch.cat([zero, band, zero]),
                     2 * (~in_band & (nbr_w > 0)).sum())
-    if neighbour_list is None:
-        neighbour_list = band.is_cuda
     if neighbour_list:
         adj = adj._replace(nbr=mrf_kernel.band_list(adj.band))
     return adj
 
 
 def shard_adjacency(nbr_idx, nbr_w, shard: PointShard, windowed: bool,
-                    neighbour_list: bool | None = None) -> BandedAdjacency:
+                    neighbour_list: bool = False) -> BandedAdjacency:
     """A 'pt' rank's share of the fit's banded adjacency, set on `shard`
     (adj, far, n_dropped) from its own rows of the k-NN graph. The
     windowed graph: the far-free window band (`build_window_adjacency`),
@@ -435,7 +433,9 @@ def shard_adjacency(nbr_idx, nbr_w, shard: PointShard, windowed: bool,
     built on the gathered graph, as the single fit builds it, so that
     which edges the capacity cuts and n_dropped are the single fit's;
     the rank keeps the far edges into its own rows and the slots of
-    their columns in one all_gather a sweep (`PointShard.agree_t`)."""
+    their columns in one all_gather a sweep (`PointShard.agree_t`).
+    With `neighbour_list`, the window band carries its list wherever the
+    rank's sweeps read no far edge."""
     if windowed:
         adj = build_window_adjacency(nbr_idx, nbr_w, shard, neighbour_list)
         shard.adj, shard.n_dropped = adj, shard.psum(adj.n_dropped)
@@ -448,6 +448,8 @@ def shard_adjacency(nbr_idx, nbr_w, shard: PointShard, windowed: bool,
         *_directed_edges(g_idx, g_w, block), max(block, (3 * n) // 4))
     shard.adj, shard.n_dropped = adj, n_dropped
     shard.far = _own_far(far_out, far_in, far_w, shard)
+    if shard.far is None and neighbour_list:
+        adj = shard.adj = adj._replace(nbr=mrf_kernel.band_list(adj.band))
     return adj
 
 
@@ -478,8 +480,15 @@ def _own_far(far_out, far_in, far_w, shard: PointShard) -> PointFar | None:
 
 
 def _mrf_kernel_ok(adj: BandedAdjacency | None) -> bool:
-    """The fused MRF kernels need a far-edge-free banded adjacency."""
+    """A far-edge-free banded adjacency: the band the fused MRF sweeps
+    (the kernels or their plain versions) run on."""
     return adj is not None and adj.far_w.shape[0] == 0
+
+
+def _mrf_kernels_run(adj: BandedAdjacency | None) -> bool:
+    """Whether the fused MRF kernels run: exactly where the adjacency
+    carries its neighbour list (only a far-free band does)."""
+    return adj is not None and adj.nbr is not None
 
 
 # ---------------------------------------------------------------------------
@@ -580,17 +589,17 @@ def _mf_temps(iterations, temp_start, temp_end, dtype, device):
 
 def mean_field_t(dct, nbr_idx, nbr_w, spatial_weight: float,
                  iterations: int, temp_start: float, temp_end: float,
-                 q_init=None, adj=None, use_kernel: bool = False,
-                 shard: PointShard | None = None):
+                 q_init=None, adj=None, shard: PointShard | None = None):
     """Annealed mean-field for the Potts MRF, label-major (L, N):
     q <- softmax_l(-(D + lambda (deg - agree(q))) / T) per sweep, over the
     band when `adj` is given, over the k-NN graph's gather otherwise. The
     JAX lax.scan over temperatures (labeling.py:640) is a Python loop.
     Over a far-free band all sweeps run in the fused kernel
-    (mrf_kernel.mean_field_fused, one call) with `use_kernel`, else in
-    its plain version. With a `shard`, dct and q are a 'pt' rank's own
-    points and every sweep exchanges the halo: on a far-free band the
-    kernel or its plain version a call a sweep
+    (mrf_kernel.mean_field_fused, one call) where the adjacency carries
+    its neighbour list, else in its plain version. With a `shard`, dct
+    and q are a 'pt' rank's own points and every sweep exchanges the
+    halo: on a far-free band the kernel (where shard.adj carries the
+    list) or its plain version a call a sweep
     (mrf_kernel.mean_field_windowed), on the exact graph's band the plain
     sweeps, each reading the far columns too (PointShard.agree_t)."""
     q = torch.softmax(-dct, dim=0) if q_init is None else q_init
@@ -600,11 +609,10 @@ def mean_field_t(dct, nbr_idx, nbr_w, spatial_weight: float,
         base = dct + spatial_weight * shard.deg.T
         return mrf_kernel.mean_field_windowed(
             q.contiguous(), base.contiguous(), shard.adj.band, 1.0 / temps,
-            spatial_weight, shard.window, nbr=shard.adj.nbr,
-            use_kernel=use_kernel)
+            spatial_weight, shard.window, nbr=shard.adj.nbr)
     if shard is None and _mrf_kernel_ok(adj):
         base = dct + spatial_weight * adj.deg.T  # (L, N)
-        if not use_kernel:
+        if adj.nbr is None:
             return mrf_kernel.mean_field_fused_reference(
                 q, base, adj.band, 1.0 / temps, spatial_weight)
         return mrf_kernel.mean_field_fused(
@@ -621,17 +629,16 @@ def mean_field_t(dct, nbr_idx, nbr_w, spatial_weight: float,
 def pearl_relax_fused(x1, x2, valid, Hs, active, thr, outlier_cost: float,
                       spatial_weight: float, iterations: int,
                       temp_start: float, temp_end: float, q_init,
-                      adj: BandedAdjacency, kind: str = "symmetric",
-                      use_kernel: bool = False):
+                      adj: BandedAdjacency, kind: str = "symmetric"):
     """residual_matrix -> data_costs_t -> mean_field_t as one fused call
-    (labeling.py:652) on the fit's own tensors and the band's degree.
-    `use_kernel` runs the CUDA kernel (mrf_kernel.mean_field_fused_front),
-    else its plain version. Homography transfer / symmetric kinds and a
-    far-free band only. Returns (q, dct, r) for the rest of the PEARL
-    iteration."""
+    (labeling.py:652) on the fit's own tensors and the band's degree:
+    the CUDA kernel (mrf_kernel.mean_field_fused_front) where the
+    adjacency carries its neighbour list, else its plain version.
+    Homography transfer / symmetric kinds and a far-free band only.
+    Returns (q, dct, r) for the rest of the PEARL iteration."""
     temps = _mf_temps(iterations, temp_start, temp_end, torch.float32,
                       x1.device)
-    front = (mrf_kernel.mean_field_fused_front if use_kernel
+    front = (mrf_kernel.mean_field_fused_front if adj.nbr is not None
              else mrf_kernel.mean_field_fused_front_reference)
     return front(q_init.to(torch.float32).contiguous(), x1, x2, valid,
                  adj.deg, Hs, active, adj.band, 1.0 / temps, thr,
@@ -660,8 +667,8 @@ def _energies_batch(labels, dct, agree_fn, deg, spatial_weight,
 
 
 def _icm_batch(starts, dct, spatial_weight: float, iterations: int,
-               adj: BandedAdjacency | None, use_kernel: bool = False,
-               nbr_idx=None, nbr_w=None, shard: PointShard | None = None):
+               adj: BandedAdjacency | None, nbr_idx=None, nbr_w=None,
+               shard: PointShard | None = None):
     """Red-black ICM from S start labelings at once, (S, N) -> (S, N),
     over the band when `adj` is given, over the k-NN graph (nbr_idx,
     nbr_w) otherwise: each half-sweep moves the points of one index
@@ -670,9 +677,10 @@ def _icm_batch(starts, dct, spatial_weight: float, iterations: int,
     escape adopts the best constant labeling if it has lower energy
     (labeling.py:702-753). The fori_loop is a Python loop; over a
     far-free band the half-sweeps run in the fused kernel
-    (mrf_kernel.icm_fused, one call) with `use_kernel`, else in its plain
-    version. With a `shard` (a 'pt' rank's own points), on a far-free
-    band the kernel or its plain version a call a half-sweep, the halo
+    (mrf_kernel.icm_fused, one call) where the adjacency carries its
+    neighbour list, else in its plain version. With a `shard` (a 'pt'
+    rank's own points), on a far-free band the kernel (where shard.adj
+    carries the list) or its plain version a call a half-sweep, the halo
     exchanged before each (mrf_kernel.icm_windowed), on the exact graph's
     band the plain half-sweeps through PointShard.agree_t (one gather of
     the far columns each); the energies are summed over the axis."""
@@ -682,8 +690,8 @@ def _icm_batch(starts, dct, spatial_weight: float, iterations: int,
         labels = mrf_kernel.icm_windowed(
             starts.to(torch.int32).contiguous(), base.contiguous(),
             shard.adj.band, iterations, spatial_weight, shard.window,
-            nbr=shard.adj.nbr, use_kernel=use_kernel).to(starts.dtype)
-    elif shard is None and _mrf_kernel_ok(adj) and not use_kernel:
+            nbr=shard.adj.nbr).to(starts.dtype)
+    elif shard is None and _mrf_kernel_ok(adj) and adj.nbr is None:
         labels = mrf_kernel.icm_fused_reference(
             starts.to(torch.int32), base, adj.band, iterations,
             spatial_weight).to(starts.dtype)
@@ -729,15 +737,16 @@ def _icm_sweeps(starts, dct, spatial_weight: float, iterations: int,
 
 
 def best_labeling_t(starts, dct, nbr_idx, nbr_w, spatial_weight: float,
-                    icm_iterations: int, adj=None, use_kernel: bool = False,
+                    icm_iterations: int, adj=None,
                     shard: PointShard | None = None):
     """ICM from several start labelings, polished together
-    (`_icm_batch`); returns the one of lowest data + Potts energy, the
+    (`_icm_batch`: the fused kernel where the adjacency carries its
+    neighbour list); returns the one of lowest data + Potts energy, the
     first on ties, without a label-cost term (labeling.py:923-960). With
     a `shard`, on a 'pt' rank's own points, the energies over the axis."""
     polished = _icm_batch(torch.stack(starts), dct, spatial_weight,
-                          icm_iterations, adj, use_kernel=use_kernel,
-                          nbr_idx=nbr_idx, nbr_w=nbr_w, shard=shard)
+                          icm_iterations, adj, nbr_idx=nbr_idx, nbr_w=nbr_w,
+                          shard=shard)
     agree_fn, deg = _agree_and_deg_t(nbr_idx, nbr_w, adj, dct.dtype, shard)
     energies = _energies_batch(polished, dct, agree_fn, deg, spatial_weight,
                                shard)

@@ -22,7 +22,10 @@ windowed graph's far-free band; with ``cfg.mrf_fused_front`` the
 residuals, data costs and mean-field sweeps of each PEARL iteration in
 one fused call, `fused_front_gate`) and the window-sampling gathers
 (`_kernels_enabled`); otherwise their plain PyTorch versions run, as the
-JAX package runs its jnp paths off the TPU. Around the fit: seed
+JAX package runs its jnp paths off the TPU. The MRF sweeps' route is
+decided once, when the band is built: `fit` gives it its neighbour list
+where `_kernels_enabled` holds, and the labeling runs the MRF kernels
+exactly where the adjacency carries the list. Around the fit: seed
 homographies (`make_fit_seeded`, the streaming warm start of
 utils/streaming.py), the paper's affine one-point hypotheses
 (`fit(affines=...)`, ops/epipolar.py), the direct (non-moment) refit
@@ -157,14 +160,13 @@ def banded_gate(cfg: MultiHConfig, n_pts: int) -> bool:
             and n_pts >= 2 * cfg.agree_block)
 
 
-def fused_front_gate(cfg: MultiHConfig, adj, has_pt_mesh: bool,
-                     device: torch.device) -> bool:
+def fused_front_gate(cfg: MultiHConfig, adj, has_pt_mesh: bool) -> bool:
     """Whether _pearl_iteration runs the fused residual + data-cost +
-    mean-field kernel (cfg.mrf_fused_front; pipeline.py:461): the kernels
-    on, a far-edge-free banded adjacency, no point mesh, and a homography
-    residual kind the kernel implements."""
-    return (_kernels_enabled(cfg, device) and cfg.mrf_fused_front
-            and labeling._mrf_kernel_ok(adj)
+    mean-field kernel (cfg.mrf_fused_front; pipeline.py:461): the MRF
+    kernels run (the adjacency carries its neighbour list, which the fit
+    builds on a far-free band where `_kernels_enabled` holds), no point
+    mesh, and a homography residual kind the kernel implements."""
+    return (cfg.mrf_fused_front and labeling._mrf_kernels_run(adj)
             and not has_pt_mesh and cfg.model == "homography"
             and cfg.residual in ("symmetric", "transfer"))
 
@@ -652,15 +654,14 @@ def _pearl_iteration(carry, it: int, x1, x2, valid, nbr_idx, nbr_w,
     Hs, active, q = carry
     thr = _thr(cfg, tau, x1)
     k = cfg.max_labels
-    use_k = _kernels_enabled(cfg, x1.device)
     f_model = cfg.model == "fundamental"
 
-    if fused_front_gate(cfg, adj, shard is not None, x1.device):
+    if fused_front_gate(cfg, adj, shard is not None):
         q, dct, r = labeling.pearl_relax_fused(
             x1, x2, valid, Hs, active, thr, cfg.outlier_cost,
             cfg.spatial_weight, cfg.meanfield_iterations,
             cfg.temperature_start, cfg.temperature, q, adj,
-            kind=cfg.residual, use_kernel=True,
+            kind=cfg.residual,
         )
     else:
         r = model_residual_matrix(Hs, x1, x2, cfg.residual, cfg)  # (K, N)
@@ -668,14 +669,13 @@ def _pearl_iteration(carry, it: int, x1, x2, valid, nbr_idx, nbr_w,
         q = labeling.mean_field_t(
             dct, nbr_idx, nbr_w, cfg.spatial_weight,
             cfg.meanfield_iterations, cfg.temperature_start,
-            cfg.temperature, q_init=q, adj=adj, use_kernel=use_k,
-            shard=shard,
+            cfg.temperature, q_init=q, adj=adj, shard=shard,
         )
     # two ICM starts: the mean-field argmax and the data argmin
     labels = labeling.best_labeling_t(
         [torch.argmax(q, dim=0), torch.argmin(dct, dim=0)],
         dct, nbr_idx, nbr_w, cfg.spatial_weight, cfg.icm_iterations,
-        adj=adj, use_kernel=use_k, shard=shard,
+        adj=adj, shard=shard,
     )
 
     # refit on assignments; accept per plane if inliers don't drop:
@@ -835,7 +835,7 @@ def _split_refine(Hs, active, q, x1, x2, valid, nbr_idx, nbr_w,
     lab_s = labeling.best_labeling_t(
         [torch.argmax(q, dim=0), torch.argmin(dct, dim=0)],
         dct, nbr_idx, nbr_w, cfg.spatial_weight, cfg.icm_iterations,
-        adj=adj, use_kernel=_kernels_enabled(cfg, dev), shard=shard,
+        adj=adj, shard=shard,
     )
     member = (lab_s[None, :] == torch.arange(k, device=dev)[:, None]).to(
         x1.dtype) * valid[None, :]  # (K, N)
@@ -937,14 +937,12 @@ def _trimmed_cost(r_like, member_f, t_idx):
     return torch.gather(csum, -1, idx)[..., 0]
 
 
-def _f_accept_kernel_ok(cfg: MultiHConfig, device: torch.device, adj,
-                        shard) -> bool:
+def _f_accept_kernel_ok(adj, shard) -> bool:
     """Whether `_f_accept`'s fallback runs as K5 between its two
     hand-written ends (accept_kernel.f_accept_fallback): exactly where
-    the fallback's relabel runs K5, on a CUDA fit with the kernels on,
-    without a 'pt' shard, over a far-free band."""
-    return (_kernels_enabled(cfg, device) and shard is None
-            and labeling._mrf_kernel_ok(adj))
+    the fallback's relabel runs K5, without a 'pt' shard where the
+    adjacency carries its neighbour list (the MRF kernels' one rule)."""
+    return shard is None and labeling._mrf_kernels_run(adj)
 
 
 def _f_accept(Hs_c, q_c, r_c, lab_c, e_c, Hs_prop, r_prop, ok_prop,
@@ -1032,7 +1030,6 @@ def _f_refine_phases(Hs, active, q, draws, x1, x2, valid, nbr_idx, nbr_w,
     thr = _thr(cfg, tau, x1)
     k = cfg.max_labels
     dev = x1.device
-    use_k = _kernels_enabled(cfg, dev)
     x1_all, x2_all, valid_all = ((x1, x2, valid) if shard is None
                                  else (shard.x1, shard.x2, shard.valid))
     if basis is None:
@@ -1058,13 +1055,12 @@ def _f_refine_phases(Hs, active, q, draws, x1, x2, valid, nbr_idx, nbr_w,
         q_e = labeling.mean_field_t(
             dct_e, nbr_idx, nbr_w, cfg.spatial_weight,
             cfg.meanfield_iterations, cfg.temperature_start,
-            cfg.temperature, q_init=q0, adj=adj, use_kernel=use_k,
-            shard=shard,
+            cfg.temperature, q_init=q0, adj=adj, shard=shard,
         )
         lab_e = labeling.best_labeling_t(
             [torch.argmax(q_e, dim=0), torch.argmin(dct_e, dim=0)],
             dct_e, nbr_idx, nbr_w, cfg.spatial_weight, cfg.icm_iterations,
-            adj=adj, use_kernel=use_k, shard=shard,
+            adj=adj, shard=shard,
         )
         e = labeling.total_energy_t(lab_e, dct_e, nbr_idx, nbr_w,
                                     cfg.spatial_weight, cfg.label_cost,
@@ -1072,7 +1068,7 @@ def _f_refine_phases(Hs, active, q, draws, x1, x2, valid, nbr_idx, nbr_w,
         return lab_e, q_e, e
 
     fallback = None
-    if _f_accept_kernel_ok(cfg, dev, adj, shard):
+    if _f_accept_kernel_ok(adj, shard):
         def fallback(Hs_c, r_c, lab_c, e_c, Hs_prop, r_prop, ok_prop):
             return accept_kernel.f_accept_fallback(
                 Hs_c, r_c, lab_c, e_c, Hs_prop, r_prop, ok_prop, valid, thr,
@@ -1085,7 +1081,7 @@ def _f_refine_phases(Hs, active, q, draws, x1, x2, valid, nbr_idx, nbr_w,
         lab_n = labeling.best_labeling_t(
             [lab0, torch.argmin(dct_n, dim=0)],
             dct_n, nbr_idx, nbr_w, cfg.spatial_weight,
-            cfg.icm_iterations, adj=adj, use_kernel=use_k, shard=shard,
+            cfg.icm_iterations, adj=adj, shard=shard,
         )
         e_n = labeling.total_energy_t(
             lab_n, dct_n, nbr_idx, nbr_w, cfg.spatial_weight,
@@ -1465,7 +1461,7 @@ def fit(x1, x2, valid, key, cfg: MultiHConfig, affines=None, tau=None,
         labels = labeling.best_labeling_t(
             [torch.argmax(q, dim=0), torch.argmin(dct, dim=0)],
             dct, nbr_idx, nbr_w, cfg.spatial_weight, cfg.icm_iterations,
-            adj=adj, use_kernel=_kernels_enabled(cfg, dev), shard=shard,
+            adj=adj, shard=shard,
         )
         label_active = torch.cat([active, torch.ones(1, dtype=active.dtype,
                                                      device=dev)])

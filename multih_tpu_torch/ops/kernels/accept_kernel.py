@@ -26,8 +26,8 @@ route and its card route without the kernels), which returns the same
 (Hs, energies, verdicts) and which the card tests hold it to step by
 step: the same steps taken, the same energies and models. The wrapper takes CUDA tensors only;
 `pipeline._f_accept_kernel_ok` chooses this route exactly where K5 runs
-inside the loop's relabel (a CUDA fit with the kernels on, no 'pt'
-shard, a far-free band).
+inside the loop's relabel (no 'pt' shard, an adjacency that carries its
+neighbour list).
 """
 
 from __future__ import annotations

@@ -48,10 +48,12 @@ own base dct + sw*deg^T bit for bit (the same sweep code; so within 1e-5
 of the plain sweeps there) and within 1e-4 of the plain version (r's
 last bits, where px - u cancels, reach q through 1/T up to 4).
 
-The wrappers take CUDA tensors only and raise on anything else; the
-callers (labeling.build_banded_adjacency, labeling.mean_field_t,
-labeling._icm_batch, labeling.pearl_relax_fused) choose the plain
-versions for CPU tensors.
+The wrappers take CUDA tensors only and raise on anything else. The
+callers (labeling.mean_field_t, labeling._icm_batch,
+labeling.pearl_relax_fused and the two windowed sweeps below) run the
+kernels exactly where the band's neighbour list is given, which the fit
+builds only where its kernels are on (labeling.build_banded_adjacency),
+and the plain versions on the same band elsewhere.
 
 On a 'pt' mesh a rank holds its own Morton blocks only, and a cooperative
 launch of every sweep cannot wait on a neighbour's halo. So
@@ -59,8 +61,8 @@ launch of every sweep cannot wait on a neighbour's halo. So
 once a half-sweep (`half_sweeps=1`, `parity0` alternating) on the rank's
 window, its own blocks plus one halo block a side, the halo exchanged
 before each launch; the band reaches one block, so the own blocks come
-out bit-equal to the unsharded launch. Their plain form calls the plain
-versions the same way.
+out bit-equal to the unsharded launch. Without the window's list they
+call the plain versions the same way.
 """
 
 from __future__ import annotations
@@ -400,15 +402,15 @@ def _pad_window(t: torch.Tensor, block: int) -> torch.Tensor:
 
 
 def mean_field_windowed(q_t, base_t, band, inv_temps, spatial_weight: float,
-                        window, nbr: NeighbourList | None = None,
-                        use_kernel: bool = True) -> torch.Tensor:
+                        window, nbr: NeighbourList | None = None
+                        ) -> torch.Tensor:
     """The annealed mean-field sweeps of a rank's own rows (L, n_own) on
-    a 'pt' mesh: each sweep one `mean_field_fused` launch (with
-    `use_kernel`, else its plain version) on the rank's window, its own
-    blocks plus one halo block on each side, `window(q)` exchanging the
-    halo; only the own blocks' output is kept. band: the window's (n_own
-    / B + 2, B, 3B) band, its halo blocks' rows zero; nbr its list. The
-    band reaches one block, so the own blocks equal the unsharded
+    a 'pt' mesh: each sweep one `mean_field_fused` launch (with the
+    window's list `nbr`, else its plain version) on the rank's window,
+    its own blocks plus one halo block on each side, `window(q)`
+    exchanging the halo; only the own blocks' output is kept. band: the
+    window's (n_own / B + 2, B, 3B) band, its halo blocks' rows zero.
+    The band reaches one block, so the own blocks equal the unsharded
     launch's bit for bit (the halo rows' output is discarded)."""
     block = band.shape[1]
     base_w = _pad_window(base_t, block).contiguous()
@@ -416,7 +418,7 @@ def mean_field_windowed(q_t, base_t, band, inv_temps, spatial_weight: float,
     q = q_t
     for s in range(inv_temps.shape[0]):
         q_w = window(q).contiguous()
-        if use_kernel:
+        if nbr is not None:
             q_w = mean_field_fused(q_w, base_w, band, inv_temps[s:s + 1],
                                    spatial_weight, nbr=nbr)
         else:
@@ -429,22 +431,21 @@ def mean_field_windowed(q_t, base_t, band, inv_temps, spatial_weight: float,
 
 def icm_windowed(labels0, base_t, band, iterations: int,
                  spatial_weight: float, window,
-                 nbr: NeighbourList | None = None,
-                 use_kernel: bool = True) -> torch.Tensor:
+                 nbr: NeighbourList | None = None) -> torch.Tensor:
     """The 2*iterations red-black ICM half-sweeps of a rank's own rows
     (S, n_own) on a 'pt' mesh: one `icm_fused` half-sweep launch (with
-    `use_kernel`, else its plain version) a half-sweep on the rank's
-    window, parity 0 first, `window(labels)` exchanging the halo before
-    each; as `mean_field_windowed`, the own blocks equal the unsharded
-    launch's. The window starts at a multiple of B (even), so a window
-    index has its global index's parity."""
+    the window's list `nbr`, else its plain version) a half-sweep on the
+    rank's window, parity 0 first, `window(labels)` exchanging the halo
+    before each; as `mean_field_windowed`, the own blocks equal the
+    unsharded launch's. The window starts at a multiple of B (even), so
+    a window index has its global index's parity."""
     block = band.shape[1]
     base_w = _pad_window(base_t, block).contiguous()
     own = slice(block, block + labels0.shape[1])
     labels = labels0
     for h in range(2 * iterations):
         lab_w = window(labels).contiguous()
-        if use_kernel:
+        if nbr is not None:
             lab_w = icm_fused(lab_w, base_w, band, 0, spatial_weight,
                               nbr=nbr, half_sweeps=1, parity0=h % 2)
         else:

@@ -21,32 +21,48 @@ from multih_tpu_torch.ops.kernels import accept_kernel, mrf_kernel
 from multih_tpu_torch.ops.sampling import TorchDraws
 from multih_tpu_torch.utils import data as tdata
 
+import card_checks as cc
+
 torch.set_num_threads(1)
 
 
-def _adj(n_far: int) -> labeling.BandedAdjacency:
-    """A 2-block band of 4 points a block, with n_far far edges."""
+def _adj(n_far: int, listed: bool = False) -> labeling.BandedAdjacency:
+    """A 2-block band of 4 points a block, with n_far far edges and, where
+    `listed`, the neighbour list the fit builds where its kernels are on
+    (plain version: no card is touched)."""
+    band = torch.zeros((2, 4, 12))
     return labeling.BandedAdjacency(
-        band=torch.zeros((2, 4, 12)),
+        band=band,
         far_out=torch.zeros((n_far,), dtype=torch.int64),
         far_in=torch.zeros((n_far,), dtype=torch.int64),
         far_w=torch.zeros((n_far,)), deg=torch.zeros((8, 1)),
-        n_dropped=torch.zeros((), dtype=torch.int32))
+        n_dropped=torch.zeros((), dtype=torch.int32),
+        nbr=mrf_kernel.band_list_reference(band) if listed else None)
 
 
 def test_f_accept_route_choice():
     """The kernel route runs exactly where the fallback's relabel runs
-    K5: CPU tensors, a 'pt' shard, the exact graph's far edges, the
-    gather path (no band) and use_pallas=False keep the plain loop."""
+    K5, where the adjacency carries its neighbour list: a CPU fit and
+    use_pallas=False (no list built), a 'pt' shard, the exact graph's
+    far edges (no list) and the gather path (no band) keep the plain
+    loop."""
     cfg = mt.MultiHConfig(model="fundamental", residual="sampson")
-    card, cpu = torch.device("cuda"), torch.device("cpu")
+    dev = torch.device("cpu")
     ok = pipeline._f_accept_kernel_ok
-    assert ok(cfg, card, _adj(0), None)
-    assert not ok(cfg, cpu, _adj(0), None)
-    assert not ok(cfg, card, _adj(0), object())
-    assert not ok(cfg, card, _adj(3), None)
-    assert not ok(cfg, card, None, None)
-    assert not ok(dataclasses.replace(cfg, use_pallas=False), card, _adj(0),
+
+    def adj_of(cfg, dev, n_far=0):
+        """The band as `fit` builds it: its list where the kernels are
+        on (far-free bands only)."""
+        return _adj(n_far, listed=n_far == 0
+                    and pipeline._kernels_enabled(cfg, dev))
+
+    card = torch.device("cuda")  # a device name only
+    assert ok(adj_of(cfg, card), None)
+    assert not ok(adj_of(cfg, dev), None)
+    assert not ok(adj_of(cfg, card), object())
+    assert not ok(adj_of(cfg, card, 3), None)
+    assert not ok(None, None)
+    assert not ok(adj_of(dataclasses.replace(cfg, use_pallas=False), card),
                   None)
 
 
@@ -61,8 +77,10 @@ def _fit_holding_routes(cfg, cs, key, dev, monkeypatch):
     """One F fit on the card whose every accept runs the kernel route,
     the plain device loop and the host route on the same inputs, held
     equal: the same steps taken, each step's energy equal after the
-    float32 rounding, Hs and q bit for bit. Returns the per-call counts
-    (steps, steps taken, steps taken whose model was unchanged)."""
+    float32 rounding, Hs and q bit for bit; on the first accept, 3 K device
+    ops a kernel-route call (a front, K5 and a back a step). Returns
+    the per-call counts (steps, steps taken, steps taken whose model was
+    unchanged)."""
     accept = pipeline._f_accept
     counts = []
 
@@ -71,9 +89,11 @@ def _fit_holding_routes(cfg, cs, key, dev, monkeypatch):
         assert fallback is not None, "the kernel route did not engage"
         args = (Hs_c, q_c, r_c, lab_c, e_c, Hs_prop, r_prop, ok_prop,
                 label_energy, relabel_energy, residuals)
-        ran = []
+        ran, fb_args = [], []
 
         def recorded(*a):
+            fb_args.append(tuple(x.clone() if torch.is_tensor(x) else x
+                                 for x in a))
             ran.append(fallback(*a))
             return ran[-1]
 
@@ -85,17 +105,13 @@ def _fit_holding_routes(cfg, cs, key, dev, monkeypatch):
         assert mrf_kernel.icm_fused.launches - n_k5 > k  # + the joint move's
         plain = accept(*args)
         host = accept(*args, on_device=False)
-        Hs_p, e_p, took_p = pipeline._f_fallback_plain(
-            Hs_c, r_c, lab_c, e_c, Hs_prop, ok_prop, relabel_energy,
-            residuals)
-        Hs_k, e_k, took_k = ran[0]
-        assert torch.equal(Hs_k, Hs_p)
-        assert torch.equal(took_k, took_p), (took_k, took_p)
-        off = (e_k != e_p).nonzero().flatten().tolist()
-        assert not off, [(i, float(e_k[i]), float(e_p[i])) for i in off]
+        a = cc.accept_parity(fb_args[0], relabel_energy, residuals,
+                             got=ran[0])
         for out in (plain, host):
             assert torch.equal(got[0], out[0]) and torch.equal(got[1], out[1])
-        counts.append((k, int(took_k.sum()), int((took_k & ~ok_prop).sum())))
+        if not counts:
+            assert cc.graph_ops(lambda: fallback(*fb_args[0])) == 3 * k
+        counts.append((k, a["taken"], a["unchanged"]))
         return got
 
     monkeypatch.setattr(pipeline, "_f_accept", routes)

@@ -108,7 +108,7 @@ def test_residual_matrix_f(rng, kind):
 def _ill_conditioned(solve, p1, p2, *f32s):
     """Samples where a float32 solve (`f32s`) is more than 1e-4 from the
     float64 one: there no float32 solver holds 5e-4 (the rule of
-    chip_smoke.dlt_parity)."""
+    tests/test_torch_kernels.py::TestCudaKernels::test_dlt_gt_kernel)."""
     f64 = solve(t(p1).double(), t(p2).double()).numpy()
     return np.any([np.abs(f - f64).max((1, 2)) > 1e-4 for f in f32s], 0)
 

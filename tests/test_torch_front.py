@@ -125,16 +125,20 @@ def test_front_without_sweeps_keeps_q0(rng):
 
 def test_fused_route_fit_matches_unfused(monkeypatch):
     """The fit's fused-front branch (pipeline._pearl_iteration), run on
-    the CPU with the kernel's plain version in the kernel's place and
-    the gate told it is on a card, ends where the unfused route does:
-    the same planes and >= 99% of the labels (the two routes' sweeps
-    round differently)."""
+    the CPU with the kernel's plain version (the band carries no list)
+    and the gate shown the band with its list, as on a card, ends where
+    the unfused route does: the same planes and >= 99% of the labels
+    (the two routes' sweeps round differently)."""
     gate = tpipe.fused_front_gate
+    plain_front = tmrf.mean_field_fused_front_reference
     calls = []
 
     def front(*args, **kw):
         calls.append(1)
-        return tmrf.mean_field_fused_front_reference(*args, **kw)
+        return plain_front(*args, **kw)
+
+    def listed(adj):
+        return adj._replace(nbr=tmrf.band_list_reference(adj.band))
 
     cfg = mt.MultiHConfig(max_points=512, n_hypotheses=512,
                           mrf_fused_front=True)
@@ -143,8 +147,8 @@ def test_fused_route_fit_matches_unfused(monkeypatch):
     plain = mt.fit(x1, x2, valid, torch.Generator().manual_seed(0), cfg,
                    device="cpu")
     monkeypatch.setattr(tpipe, "fused_front_gate",
-                        lambda c, adj, mesh, dev: gate(c, adj, mesh, CUDA))
-    monkeypatch.setattr(tmrf, "mean_field_fused_front", front)
+                        lambda c, adj, mesh: gate(c, listed(adj), mesh))
+    monkeypatch.setattr(tmrf, "mean_field_fused_front_reference", front)
     fused = mt.fit(x1, x2, valid, torch.Generator().manual_seed(0), cfg,
                    device="cpu")
     assert len(calls) == cfg.pearl_iterations
@@ -191,14 +195,19 @@ def windowed_adj():
 
 
 @pytest.fixture(scope="module")
+def listed_adj(windowed_adj):
+    """The band as `fit` builds it where its kernels are on: with its
+    neighbour list (the list's plain version; no card is touched)."""
+    return windowed_adj._replace(
+        nbr=tmrf.band_list_reference(windowed_adj.band))
+
+
+@pytest.fixture(scope="module")
 def jax_windowed_adj(windowed_adj):
     """The same band as the JAX package's BandedAdjacency (its six
     fields; the port's seventh, the neighbour list, is the card's)."""
     return jlab.BandedAdjacency(*[jnp.asarray(a.numpy())
                                   for a in windowed_adj[:6]])
-
-
-CUDA = torch.device("cuda")  # a device name only: no card is touched
 
 
 @pytest.mark.parametrize("kw,mesh,expect", [
@@ -211,10 +220,12 @@ CUDA = torch.device("cuda")  # a device name only: no card is touched
     (dict(mrf_fused_front=True, use_pallas=False), False, False),
 ], ids=["eligible", "off_by_default", "pt_mesh", "fundamental", "sampson",
         "kernels_off"])
-def test_fused_front_gate(windowed_adj, jax_windowed_adj, monkeypatch, kw,
-                          mesh, expect):
+def test_fused_front_gate(windowed_adj, listed_adj, jax_windowed_adj,
+                          monkeypatch, kw, mesh, expect):
     cfg = _cfg(**kw)
-    assert tpipe.fused_front_gate(cfg, windowed_adj, mesh, CUDA) is expect
+    # the fit builds the list on a card where the kernels are on
+    adj = listed_adj if cfg.use_pallas else windowed_adj
+    assert tpipe.fused_front_gate(cfg, adj, mesh) is expect
     # the reference's gate on the same config and band, its TPU backend
     # emulated as tests/test_path_gates.py does
     monkeypatch.setattr(jpipe, "_pallas_enabled", lambda c: c.use_pallas)
@@ -223,12 +234,17 @@ def test_fused_front_gate(windowed_adj, jax_windowed_adj, monkeypatch, kw,
         is expect
 
 
-def test_fused_front_gate_needs_far_free_band_and_card(windowed_adj):
+def test_fused_front_gate_needs_far_free_band_and_card(windowed_adj,
+                                                       listed_adj):
+    """The gate holds only where the band carries its neighbour list,
+    which the fit builds on a card and on a far-free band only: the
+    exact graph's band with far edges, the gather path (no band) and a
+    CPU fit's band (no list) keep the unfused route."""
     cfg = _cfg(mrf_fused_front=True)
+    assert tpipe.fused_front_gate(cfg, listed_adj, False)
     far = windowed_adj._replace(far_w=torch.ones(3),
                                 far_out=torch.zeros(3, dtype=torch.int64),
                                 far_in=torch.zeros(3, dtype=torch.int64))
-    assert not tpipe.fused_front_gate(cfg, far, False, CUDA)
-    assert not tpipe.fused_front_gate(cfg, None, False, CUDA)
-    cpu = torch.device("cpu")
-    assert not tpipe.fused_front_gate(cfg, windowed_adj, False, cpu)
+    assert not tpipe.fused_front_gate(cfg, far, False)
+    assert not tpipe.fused_front_gate(cfg, None, False)
+    assert not tpipe.fused_front_gate(cfg, windowed_adj, False)

@@ -34,6 +34,8 @@ from multih_tpu_torch.ops.sampling import TorchDraws
 from multih_tpu_torch.utils import data as tdata
 from multih_tpu_torch.utils import evaluation
 
+import card_checks as cc
+
 GOLDENS = os.path.join(os.path.dirname(__file__), "goldens")
 
 # The suite runs in several pytest-xdist workers on one host, and every
@@ -158,43 +160,15 @@ def sampler_rows_ok(gt):
     return (~bad).astype(np.float32)
 
 
-def launches_per_call(fn, calls=10):
-    """CUDA launches a call of fn over `calls` calls, from
-    torch.profiler. A profile can miss device events (a short window may
-    come back empty), never add one: a session in which some name does
-    not occur a multiple of `calls` times is taken again."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(5):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        counts = collections.Counter(
-            e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA)
-        if counts and all(c % calls == 0 for c in counts.values()):
-            return sum(counts.values()) // calls
-    raise AssertionError("the profiler lost device events in every "
-                         "session")
-
-
 def normal_matrices(rng, c):
-    """(C, 9, 9) DLT normal matrices of noisy 12-point samples."""
-    x1 = rng.uniform(-1, 1, (c, 12, 2))
-    H = np.eye(3) + rng.normal(0, 0.1, (c, 3, 3))
-    pr = np.concatenate([x1, np.ones((c, 12, 1))], 2) @ H.transpose(0, 2, 1)
-    x2 = pr[..., :2] / pr[..., 2:3] + rng.normal(0, 0.01, (c, 12, 2))
-    return tgeo.dlt_normal_matrix(t(x1.astype(np.float32)),
-                                  t(x2.astype(np.float32))).numpy()
+    """(C, 9, 9) DLT normal matrices of noisy 12-point samples (numpy)."""
+    return cc.normal_matrices(rng, c).numpy()
 
 
 def windowed_band(rng, n, block, device, invalid=30):
     """Morton-sorted random points on `device` with their windowed k-NN
-    graph and its far-free band, as the fit builds them."""
+    graph and its far-free band, as the fit builds them (with the
+    neighbour list on the card)."""
     x1 = t(rng.uniform(0, 100, (n, 2)).astype(np.float32)).to(device)
     x2 = x1 + t(rng.normal(0, 2.0, (n, 2)).astype(np.float32)).to(device)
     valid = torch.ones(n, device=device)
@@ -202,7 +176,8 @@ def windowed_band(rng, n, block, device, invalid=30):
     perm = tpipe.morton_order(x1, valid)
     x1, x2, valid = x1[perm], x2[perm], valid[perm]
     nbr_idx, nbr_w = tlab.knn_graph_windowed(x1, valid, 6, block)
-    adj = tlab.build_banded_adjacency(nbr_idx, nbr_w, block, far_capacity=0)
+    adj = tlab.build_banded_adjacency(nbr_idx, nbr_w, block, far_capacity=0,
+                                      neighbour_list=x1.is_cuda)
     return x1, x2, valid, nbr_idx, adj
 
 
@@ -284,53 +259,6 @@ def refit_weights(rng, model, c, union=False):
     return t(w), basis
 
 
-def refit_errors(model, mom, got, ref, T1g, T2g):
-    """(err_got, err_ref, fixed), each (C,): the sign-aligned max-abs
-    distance of two float32 refits of the moments `mom` (the kernel's and
-    the unfused route's) from the float64 refit of the same moments (the
-    plain assembly's smallest eigenvector by float64 eigh; for F its
-    nearest rank-2 matrix), each taken back in float64 into the
-    candidate's normalized frame, where its nullvector lives (in the raw
-    frame the global similarities' pixel scales hide what differs); and
-    the candidates whose nullvector float32 fixes: the float64 normal
-    matrix has a finite eigenvector floor and the unfused route lands
-    within 1e-2 of it (no weight, or three members, fix none)."""
-    mom64 = mom.double().cpu()
-    if model == "homography":
-        atas, params = tgeo._moments_to_ata(mom64.reshape(-1, 5, 6))
-    else:
-        atas, params = tfm._moments_to_ata_f(mom64.reshape(-1, 6, 6))
-    s1 = tgeo._similarity(*params[:3])
-    s2 = tgeo._similarity(*params[3:])
-    t1, t2 = T1g.double().cpu(), T2g.double().cpu()
-
-    def back(m):
-        m = m.double().cpu()
-        if model == "homography":
-            x = s2 @ t2 @ m @ torch.linalg.inv(t1) @ torch.linalg.inv(s1)
-        else:
-            x = (torch.linalg.inv(s2 @ t2).transpose(1, 2) @ m
-                 @ torch.linalg.inv(s1 @ t1))
-        return x.reshape(-1, 9) / torch.linalg.matrix_norm(x)[:, None]
-
-    ev, vec = torch.linalg.eigh(atas)
-    v = vec[..., 0].reshape(-1, 3, 3)
-    if model == "fundamental":
-        u, sv, vh = torch.linalg.svd(v)
-        v = u @ torch.diag_embed(sv * torch.tensor([1.0, 1.0, 0.0],
-                                                   dtype=sv.dtype)) @ vh
-    truth = v.reshape(-1, 9) / torch.linalg.matrix_norm(v)[:, None]
-
-    def err(x):
-        return (x * torch.sign((x * truth).sum(1, keepdim=True))
-                - truth).abs().amax(1).numpy()
-
-    e_got, e_ref = err(back(got)), err(back(ref))
-    floor = (torch.finfo(torch.float32).eps * ev[:, -1]
-             / (ev[:, 1] - ev[:, 0])).numpy()
-    return e_got, e_ref, np.isfinite(floor) & (e_ref < 1e-2)
-
-
 # ---------------------------------------------------------------------------
 # the CUDA kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -344,18 +272,26 @@ def cuda_device():
 
 @pytest.mark.cuda
 class TestCudaKernels:
-    @pytest.mark.parametrize("kind", ["symmetric", "transfer", "sampson"])
-    def test_count_kernel(self, rng, cuda_device, kind):
-        Hs, x1, x2, valid = count_problem(rng, 2051, 1536)
-        args = [t(a).to(cuda_device) for a in (Hs, x1, x2, valid)]
-        thr = torch.tensor(900.0, device=cuda_device)
-        before = tres.inlier_counts_padded.launches
-        got = tres.inlier_counts_padded(*args, thr, kind=kind)
-        assert tres.inlier_counts_padded.launches == before + 1
-        ref = tres.inlier_counts_reference(*args, thr, kind)
-        d = (got - ref).abs()
-        assert float(ref.max()) > 0
-        assert float(d.max()) <= 2.0 and float(d.mean()) < 0.5
+    @pytest.mark.parametrize("kind,pool", [
+        ("symmetric", None), ("transfer", None), ("sampson", None),
+        ("transfer", "stress_sweep"), ("symmetric", "affine_pool"),
+    ], ids=["symmetric", "transfer", "sampson", "stress_sweep",
+            "affine_pool"])
+    def test_count_kernel(self, rng, cuda_device, kind, pool):
+        """Within +-2 of the plain version, mean < 0.5, one launch a call,
+        in both reciprocal modes: 2051 hypotheses over 1536 points in
+        each homography kind, the stress fit's ranking sweep (102400 x
+        1280, transfer), and the affine fit's own verify pool at its
+        threshold (2563 x 512, some hypotheses non-finite)."""
+        if pool == "affine_pool":
+            *args, pool_kind, thr = cc.affine_verify_pool(cuda_device)
+            assert pool_kind == kind
+        else:
+            s, n = (102400, 1280) if pool == "stress_sweep" else (2051, 1536)
+            args = [t(a).to(cuda_device) for a in count_problem(rng, s, n)]
+            thr = torch.tensor(900.0, device=cuda_device)
+        for approx in (True, False):
+            cc.count_parity(*args, thr, kind, approx_rcp=approx)
 
     @pytest.mark.parametrize("kind", ["f_sampson", "f_symmetric",
                                       "f_transfer"])
@@ -365,11 +301,7 @@ class TestCudaKernels:
         args = [t(a).to(cuda_device)
                 for a in (random_fs(rng, 2051), x1, x2, valid)]
         thr = torch.tensor(900.0, device=cuda_device)
-        got = tres.inlier_counts_padded(*args, thr, kind=kind)
-        ref = tres.inlier_counts_reference(*args, thr, kind)
-        d = (got - ref).abs()
-        assert float(ref.max()) > 0
-        assert float(d.max()) <= 2.0 and float(d.mean()) < 0.5
+        cc.count_parity(*args, thr, kind)
 
     def test_dlt_kernel(self, rng, cuda_device):
         """Random quads in contiguous (32, S) rows: ok exact, H's within
@@ -381,16 +313,8 @@ class TestCudaKernels:
         rows = np.zeros((1301, 4, 8), np.float32)
         rows[:, :, 0:2], rows[:, :, 2:4], rows[:, :, 4] = p1, p2, 1.0
         gt = t(rows.reshape(1301, 32).T.copy()).to(cuda_device)
-        got, ok = tdlt.homography_4pt_gt(gt)
-        ref, ref_ok = tdlt.homography_4pt_gt_reference(gt)
-        ref64 = tdlt.homography_4pt_gt_reference(gt.double())[0]
-        assert torch.equal(ok, ref_ok) and float(ok[5]) == 0.0
-        well = (ref_ok > 0) & ((ref.double() - ref64).abs().amax((1, 2))
-                               < 1e-4)
-        err = (got - ref).abs().amax((1, 2))[well]
-        assert bool(torch.isfinite(got).all()) and float(err.max()) < 5e-4
-        err64 = (got.double() - ref64).abs().amax((1, 2))[ref_ok > 0]
-        assert float(err64.max()) < 1e-6
+        _, ok, d = cc.dlt_parity(gt)
+        assert float(ok[5]) == 0.0 and d["well"] > 0
 
     @pytest.mark.parametrize("approx", [True, False])
     @pytest.mark.parametrize("kind", list(tres.KINDS))
@@ -404,17 +328,10 @@ class TestCudaKernels:
             hs = random_fs(rng, s) if kind.startswith("f_") else \
                 random_hs(rng, s)
             args = [t(a).to(cuda_device) for a in (hs, x1, x2, valid)]
-            before = tres.inlier_counts_padded.launches
-            got = tres.inlier_counts_padded(*args, thr, kind=kind,
-                                            approx_rcp=approx)
-            assert tres.inlier_counts_padded.launches == before + 1
-            ref = tres.inlier_counts_reference(*args, thr, kind)
-            d = (got - ref).abs()
-            assert got.dtype == torch.float32 and got.shape == (s,)
-            assert float(d.max()) <= 2.0 and float(d.mean()) < 0.5
+            cc.count_parity(*args, thr, kind, inliers=s == 2051,
+                            approx_rcp=approx)
             if s == 2051:
-                assert float(ref.max()) > 0
-                assert launches_per_call(lambda: tres.inlier_counts_padded(
+                assert cc.launches_per_call(lambda: tres.inlier_counts_padded(
                     *args, thr, kind=kind, approx_rcp=approx)) == 1
 
     @pytest.mark.parametrize("approx", [True, False])
@@ -431,12 +348,7 @@ class TestCudaKernels:
         Hs, x1, x2, valid = [t(a).to(cuda_device) for a in (hs, x1, x2,
                                                             valid)]
         thr = torch.tensor(900.0, device=cuda_device)
-        ref = tres.inlier_counts_reference(Hs, x1, x2, valid, thr)
-        got = tres.inlier_counts_padded(Hs, x1, x2, valid, thr,
-                                        approx_rcp=approx)
-        d = (got - ref).abs()
-        assert float(ref.max()) > 0
-        assert float(d.max()) <= 2.0 and float(d.mean()) < 0.5
+        got, _ = cc.count_parity(Hs, x1, x2, valid, thr, approx_rcp=approx)
         for shape in ((1, 1), (8, 1), (2, 3), (4, 8), (1, 8)):
             monkeypatch.setattr(tres, "launch_shape",
                                 lambda *a, shape=shape: shape)
@@ -457,23 +369,12 @@ class TestCudaKernels:
         float64 on every usable quad, the sampler's transposed view read
         where it lies, one launch a call."""
         gt = t(sampler_rows(rng, 4099)).to(cuda_device)
-        ref_h, ref_ok = tdlt.homography_4pt_gt_reference(gt)
-        ref64 = tdlt.homography_4pt_gt_reference(gt.double())[0]
         view = gt.T.contiguous().T  # strides (1, 32), as the sampler's
         for rows in (gt, view):
-            before = tdlt.homography_4pt_gt.launches
-            hs, ok = tdlt.homography_4pt_gt(rows)
-            assert tdlt.homography_4pt_gt.launches == before + 1
-            assert torch.equal(ok, ref_ok)
-            assert bool(torch.isfinite(hs).all())
-            well = (ref_ok > 0) & ((ref_h.double() - ref64).abs().amax(
-                (1, 2)) < 1e-4)
-            assert int(well.sum()) > 1000
-            assert float((hs - ref_h).abs().amax((1, 2))[well].max()) < 5e-4
-            assert float((hs.double() - ref64).abs().amax((1, 2))[
-                ref_ok > 0].max()) < 1e-6
-        assert 0 < int(ref_ok.sum()) < gt.shape[1]
-        assert launches_per_call(lambda: tdlt.homography_4pt_gt(view)) == 1
+            _, _, d = cc.dlt_parity(rows)
+            assert d["well"] > 1000
+            assert 0 < d["usable"] < gt.shape[1]
+        assert cc.launches_per_call(lambda: tdlt.homography_4pt_gt(view)) == 1
 
     @staticmethod
     def _hold_eig(atas):
@@ -481,27 +382,15 @@ class TestCudaKernels:
         the float32 floor eps32 * lam_max / (lam_2 - lam_1) of float64
         eigh on every matrix, and where that floor is below 1e-5 within
         1e-5 of the round-robin plain version (the kernel's order and
-        rounding) and 1e-4 of the cyclic one (the JAX twin's order)."""
-        before = teig.smallest_eigvec_9x9_batch.launches
-        got = teig.smallest_eigvec_9x9_batch(atas)
-        assert teig.smallest_eigvec_9x9_batch.launches == before + 1
-        assert got.shape == (atas.shape[0], 9)
-        floor = eigvec_floor(atas)
-        assert (eigvec_err64(atas, got) <= 2.0 * floor).all()
-        well = floor < 1e-5
-        if well.any():
-            got = got.cpu().numpy()[well]
-            rr = teig.smallest_eigvec_9x9_round_robin_reference(atas)
-            cyc = teig.smallest_eigvec_9x9_batch_reference(atas)
-            assert sign_aligned_err(rr.cpu().numpy()[well], got) <= 1e-5
-            assert sign_aligned_err(cyc.cpu().numpy()[well], got) < 1e-4
-        return well.sum()
+        rounding) and 1e-4 of the cyclic one (the JAX twin's order):
+        `card_checks.eig_parity`. Returns the count of those."""
+        return cc.eig_parity(atas)["well"]
 
     @pytest.mark.parametrize("c", [1, 16, 17, 256, 300])
     def test_eig_kernel(self, rng, cuda_device, c):
         """Homography normal matrices at the PEARL (16) and LO-refine
         (256) batches, one matrix, and ragged last warps (17, 300)."""
-        atas = t(normal_matrices(rng, c)).to(cuda_device)
+        atas = cc.normal_matrices(rng, c).to(cuda_device)
         assert self._hold_eig(atas) >= 0.8 * c
         # and, as before the round-robin order, within 1e-4 of the cyclic
         # version on every one of these matrices
@@ -509,16 +398,23 @@ class TestCudaKernels:
         ref = teig.smallest_eigvec_9x9_batch_reference(atas).cpu().numpy()
         assert sign_aligned_err(ref, got) < 1e-4
 
-    @pytest.mark.parametrize("c", [16, 256])
+    @pytest.mark.parametrize("c", [16, 256, "fit", "mixed_polish"])
     def test_eig_kernel_f_normal_matrices(self, rng, cuda_device, c):
         """K3 on the fundamental refit's normal matrices (C=256, the
-        union merge's batch; C=16, a PEARL refit's). Their smallest eigenvalue gap is down to
-        6e-5 of the largest, so float32 fixes the eigenvector only to
-        eps32 * lam_max / gap (up to 2e-3 here): the kernel is held
-        within twice that floor of float64 eigh on every matrix
-        (chip_smoke.py prints how far the kernel and its plain version
-        get)."""
-        atas = f_normal_matrices(rng, c).to(cuda_device)
+        union merge's batch; C=16, a PEARL refit's), and on those of
+        real refits on the card: a motion fit's first C=256 on fm4_a
+        ("fit") and the mixed polish's last C=8 on mx21_a
+        ("mixed_polish"). Their smallest eigenvalue gap is down to 6e-5
+        of the largest, so float32 fixes the eigenvector only to eps32 *
+        lam_max / gap (up to 2e-3 here): the kernel is held within twice
+        that floor of float64 eigh on every matrix (a real refit's
+        labels without members give zero matrices, which have none)."""
+        if isinstance(c, int):
+            atas = f_normal_matrices(rng, c).to(cuda_device).contiguous()
+        else:
+            atas = cc.f_normal_matrices_of(cc.fit_refit_batch(
+                *(("fundamental", 256, False) if c == "fit"
+                  else ("mixed", 8, True)), cuda_device)[0])
         self._hold_eig(atas)
 
     # (N, B, L, sweeps): one and two labels a lane, one to ~3 points a
@@ -542,15 +438,8 @@ class TestCudaKernels:
         # the fit's annealing schedule (a single sweep at temp_end)
         inv_t = (1.0 / tlab._mf_temps(sweeps, 2.0, 0.25, torch.float32,
                                       cuda_device))[:sweeps]
-        nbr = tmrf.band_list(band)
-        before = tmrf.mean_field_fused.launches
-        got = tmrf.mean_field_fused(q0, base, band, inv_t, 0.1, nbr=nbr)
-        assert tmrf.mean_field_fused.launches == before + 1
-        ref = tmrf.mean_field_fused_reference(q0, base, band, inv_t, 0.1)
-        assert float((got - ref).abs().max()) <= 1e-5
-        # without a list the wrapper builds one: the same result
-        assert torch.equal(tmrf.mean_field_fused(q0, base, band, inv_t, 0.1),
-                           got)
+        # with the band's list, and without one (the wrapper builds it)
+        cc.mean_field_parity(q0, base, band, inv_t, 0.1, tmrf.band_list(band))
 
     @pytest.mark.parametrize("n,block", [(512, 256), (10240, 128),
                                          (1024, 64)])
@@ -558,23 +447,19 @@ class TestCudaKernels:
         """Bit-exact against its plain version: a windowed band (30
         invalid points: empty rows) and the same with a hub row."""
         _, _, _, _, adj = windowed_band(rng, n, block, cuda_device)
-        for band in (adj.band, add_hub(rng, adj.band)):
-            got = tmrf.band_list(band)
-            ref = tmrf.band_list_reference(band)
-            for a, b in zip(got, ref):
-                assert a.dtype == b.dtype and torch.equal(a, b)
-            assert int((got.cnt == 0).sum()) >= 30
+        # the fit's adjacency carries the band's list
+        got = cc.band_list_parity(adj.band, adj.nbr)
+        assert int((got.cnt == 0).sum()) >= 30
+        got = cc.band_list_parity(add_hub(rng, adj.band))
+        assert int((got.cnt == 0).sum()) >= 30
         assert int(got.cnt.max()) > 32
-        # the fit's adjacency carries the same list
-        for a, b in zip(adj.nbr, tmrf.band_list_reference(adj.band)):
-            assert torch.equal(a, b)
 
     @pytest.mark.parametrize("n,block,l", [(512, 256, 17), (10240, 128, 17),
                                            (10240, 128, 64)])
     def test_mrf_kernels_one_launch(self, rng, cuda_device, n, block, l):
         """torch.profiler sees one CUDA kernel a K4, K5 and K6 call (the
         list given; K6 on a stride-0 stack of H's)."""
-        kernels = launches_per_call
+        kernels = cc.launches_per_call
         x1, x2, valid, _, adj = windowed_band(rng, n, block, cuda_device)
         dct = t(rng.uniform(0, 2.0, (l, n)).astype(np.float32)).to(
             cuda_device)
@@ -597,23 +482,14 @@ class TestCudaKernels:
     @pytest.mark.parametrize("kind", ["symmetric", "transfer"])
     @pytest.mark.parametrize("n,block,sweeps", [
         (512, 256, 6), (2048, 128, 4), (1024, 64, 1), (512, 128, 0),
+        (10240, 128, 4),
     ])
     def test_mean_field_front_kernel(self, rng, cuda_device, kind, n, block,
                                      sweeps):
-        """The fused front against its plain version, thr a device
-        tensor, one launch a call: r to rtol 1e-3 / atol 1e-4 up to 1e6
-        px^2 and min(r/thr, 8) to atol 1e-4 everywhere; dct equal to
-        data_costs_t of the kernel's own r (rtol 2e-6); q equal to K4's
-        on the kernel's own base dct + sw*deg bit for bit (the same sweep
-        code), so within 1e-5 of the plain sweeps there, and within 1e-4
-        of the plain version end to end.
-        Past 1e6 px^2 (a transfer 1000 px off) w nears zero, and its
-        float32 cancellation, not the kernel, sets r's digits: the
-        elementwise sum and the plain version's matmul differ by up to
-        15% at r ~ 1e14 (measured on the card); the cost is saturated
-        there on both sides. Below it, px - u cancels: r ~ 10 px^2 moves
-        by ~1e-4 px^2 between the two roundings, dct by ~1e-5, and one
-        sweep at 1/T = 4 turns that into ~1.1e-5 of q (measured)."""
+        """The fused front against its plain version on the fit's own
+        tensors, thr a device tensor (`card_checks.front_parity`: r, the
+        cost, dct and q each held to the plain version and to float64),
+        one CUDA launch a call."""
         x1, x2, valid, _, adj = windowed_band(rng, n, block, cuda_device)
         hs = np.eye(3)[None] + rng.normal(0, 0.02, (16, 3, 3))
         hs[-1] = rng.normal(0, 1.0, (3, 3))  # huge residuals, truncated
@@ -626,35 +502,11 @@ class TestCudaKernels:
         # the fit's annealing schedule (a single sweep at temp_end)
         inv_t = (1.0 / tlab._mf_temps(sweeps, 2.0, 0.25, torch.float32,
                                       cuda_device))[:sweeps]
-        args = (q0, x1, x2, valid, adj.deg, hs, active, adj.band, inv_t,
-                thr, 0.1, 1.0, kind)
-        before = tmrf.mean_field_fused_front.launches
-        q, dct, r = tmrf.mean_field_fused_front(*args)
-        assert tmrf.mean_field_fused_front.launches == before + 1
-        assert launches_per_call(
-            lambda: tmrf.mean_field_fused_front(*args, nbr=adj.nbr)) == 1
-        q_ref, _, r_ref = tmrf.mean_field_fused_front_reference(*args)
-        near = r_ref <= 1e6
-        torch.testing.assert_close(r[near], r_ref[near], rtol=1e-3,
-                                   atol=1e-4, msg=lambda m: f"r: {m}")
-        assert bool((r[~near] > 8.0 * thr).all())
-        torch.testing.assert_close(torch.clamp_max(r / thr, 8.0),
-                                   torch.clamp_max(r_ref / thr, 8.0),
-                                   rtol=0, atol=1e-4,
-                                   msg=lambda m: f"min(r/thr, 8): {m}")
-        torch.testing.assert_close(
-            dct, tlab.data_costs_t(r, valid, thr, 1.0, active),
-            rtol=2e-6, atol=1e-6, msg=lambda m: f"dct: {m}")
-        base = (dct + 0.1 * adj.deg.T).contiguous()
-        if sweeps:
-            assert torch.equal(q, tmrf.mean_field_fused(
-                q0, base, adj.band, inv_t, 0.1, nbr=adj.nbr))
-        q_own = tmrf.mean_field_fused_reference(q0, base, adj.band, inv_t,
-                                                0.1)
-        assert float((q - q_own).abs().max()) <= 1e-5
-        assert float((q - q_ref).abs().max()) <= 1e-4
-        if sweeps == 0:
-            assert torch.equal(q, q0)
+        cc.front_parity(q0, x1, x2, valid, adj, hs, active, inv_t, thr, 0.1,
+                        kind)
+        assert cc.launches_per_call(lambda: tmrf.mean_field_fused_front(
+            q0, x1, x2, valid, adj.deg, hs, active, adj.band, inv_t, thr,
+            0.1, 1.0, kind, nbr=adj.nbr)) == 1
 
     @pytest.mark.parametrize("hub", [False, True])
     @pytest.mark.parametrize("n,block,l,iterations,s", [
@@ -673,12 +525,7 @@ class TestCudaKernels:
         starts = torch.stack([torch.argmin(dct, 0), torch.argmax(q0, 0),
                               t(rng.integers(0, l, n)).to(cuda_device)]
                              )[:s].to(torch.int32).contiguous()
-        before = tmrf.icm_fused.launches
-        got = tmrf.icm_fused(starts, base, band, iterations, 0.1)
-        assert tmrf.icm_fused.launches == before + 1
-        ref = tmrf.icm_fused_reference(starts, base, band, iterations, 0.1)
-        assert torch.equal(got, ref)
-        assert bool((got != starts).any())
+        cc.icm_parity(starts, base, band, iterations, 0.1)
 
     @pytest.mark.parametrize("parity0,halves", [(1, 1), (0, 3)])
     def test_icm_kernel_half_sweeps(self, rng, cuda_device, parity0, halves):
@@ -687,14 +534,8 @@ class TestCudaKernels:
         dct, q0, base, band = mrf_inputs(rng, 2048, 128, 17, cuda_device)
         starts = torch.stack([torch.argmin(dct, 0), torch.argmax(q0, 0)]
                              ).to(torch.int32).contiguous()
-        before = tmrf.icm_fused.launches
-        got = tmrf.icm_fused(starts, base, band, 0, 0.1, half_sweeps=halves,
-                             parity0=parity0)
-        assert tmrf.icm_fused.launches == before + 1
-        ref = tmrf.icm_fused_reference(starts, base, band, 0, 0.1,
-                                       half_sweeps=halves, parity0=parity0)
-        assert torch.equal(got, ref)
-        assert bool((got != starts).any())
+        cc.icm_parity(starts, base, band, 0, 0.1, half_sweeps=halves,
+                      parity0=parity0)
 
     def test_windowed_sweeps_own_blocks(self, rng, cuda_device):
         """K4 a launch a sweep and K5 a launch a half-sweep on one rank's
@@ -723,12 +564,13 @@ class TestCudaKernels:
             it = iter(states[:-1])  # the unsharded state before each launch
             return lambda t: next(it)[:, lo - block:hi + block]
 
+        win_nbr = tmrf.band_list(win)
         q = tmrf.mean_field_windowed(q0[:, lo:hi].contiguous(),
                                      base[:, lo:hi].contiguous(), win, inv_t,
-                                     0.1, window(q_full))
+                                     0.1, window(q_full), nbr=win_nbr)
         lab = tmrf.icm_windowed(starts[:, lo:hi].contiguous(),
                                 base[:, lo:hi].contiguous(), win, 2, 0.1,
-                                window(l_full))
+                                window(l_full), nbr=win_nbr)
         assert torch.equal(q_full[-1][:, lo:hi], q)
         assert torch.equal(l_full[-1][:, lo:hi], lab)
 
@@ -753,8 +595,7 @@ class TestCudaKernels:
         nb, rows, _ = win.shape
         sel = t(rng.integers(-2, rows + 3, (nb, t_sel)).astype(np.int32)
                 ).to(cuda_device)
-        ref = tgather.window_gather_reference(win, sel, mode)
-        assert torch.equal(tgather.window_gather(win, sel, mode), ref)
+        ref = cc.gather_parity(win, sel, mode)
         zero = (ref == 0).all(1)
         assert t_sel == 1 or (bool(zero.any()) and not bool(zero.all()))
 
@@ -770,9 +611,7 @@ class TestCudaKernels:
                                                + 3)):
             sel = t(rng.integers(-2, hi, (nb, 999)).astype(np.int32)).to(
                 cuda_device)
-            assert torch.equal(tgather.window_gather(win, sel, mode),
-                               tgather.window_gather_reference(win, sel,
-                                                               mode))
+            cc.gather_parity(win, sel, mode)
 
     def test_stream_handle(self, cuda_device):
         """The launches' stream is the current one, on a side stream
@@ -787,11 +626,16 @@ class TestCudaKernels:
             assert _build.stream_handle(x) == side.cuda_stream
 
     # (model, C, union): the LO and PEARL refit batches of both models
-    # and the fundamental union merge's K^2 = 256
+    # and the fundamental union merge's K^2 = 256; then the moments of
+    # real fits on the card (`fit_refit_batch`): the first batches of
+    # 256 and 16 and the last of 256 (a union merge's)
     REFIT_SHAPES = [("homography", 16, False), ("homography", 256, False),
                     ("fundamental", 16, False),
                     ("fundamental", 256, False),
-                    ("fundamental", 256, True)]
+                    ("fundamental", 256, True),
+                    ("homography", 256, "fit"), ("homography", 16, "fit"),
+                    ("fundamental", 256, "fit"), ("fundamental", 16, "fit"),
+                    ("fundamental", 256, "fit_last")]
 
     @pytest.mark.parametrize("model,c,union", REFIT_SHAPES)
     def test_moment_refit_kernel(self, rng, cuda_device, model, c, union):
@@ -803,31 +647,19 @@ class TestCudaKernels:
         most twice the plain route's + 1e-5, the median at most twice its
         median + 1e-6; the float32 assembly's rounding, not K3, sets both
         routes' error); F's determinant at the plain route's level; three
-        CUDA launches a call, one of them K3's."""
-        w, basis = refit_weights(rng, model, c, union)
-        mom, T1g, T2g = (x.to(cuda_device) for x in (w @ basis.feats,
-                                                     basis.T1g, basis.T2g))
-        before = (teig.moment_refit_batch.launches,
-                  teig.smallest_eigvec_9x9_batch.launches)
-        got = teig.moment_refit_batch(mom, model, T1g, T2g)
-        assert (teig.moment_refit_batch.launches,
-                teig.smallest_eigvec_9x9_batch.launches) == (
-                    before[0] + 1, before[1] + 1)
-        ref = teig.moment_refit_reference(mom, model, T1g, T2g)
-        assert got.shape == (c, 3, 3)
-        assert bool(torch.isfinite(got).all())
-        norms = torch.linalg.matrix_norm(got.double())
-        assert float((norms - 1.0).abs().max()) < 1e-5
-        e_got, e_ref, fixed = refit_errors(model, mom, got, ref, T1g, T2g)
-        assert fixed.sum() >= c - 2
-        e_got, e_ref = e_got[fixed], e_ref[fixed]
-        assert e_got.max() <= 2.0 * e_ref.max() + 1e-5
-        assert np.median(e_got) <= 2.0 * np.median(e_ref) + 1e-6
-        if model == "fundamental":
-            det_got = torch.linalg.det(got.double()).abs()[fixed]
-            det_ref = torch.linalg.det(ref.double()).abs()[fixed]
-            assert float(det_got.max()) <= 10.0 * float(det_ref.max())
-        assert launches_per_call(
+        CUDA launches a call, one of them K3's. On a real fit's moments
+        (`union` "fit" / "fit_last"), only the live planes' candidates
+        fix a nullvector: at least one must."""
+        real = union in ("fit", "fit_last")
+        if real:
+            mom, T1g, T2g = cc.fit_refit_batch(model, c, union == "fit_last",
+                                               cuda_device)
+        else:
+            w, basis = refit_weights(rng, model, c, union)
+            mom, T1g, T2g = (x.to(cuda_device) for x in (
+                w @ basis.feats, basis.T1g, basis.T2g))
+        cc.refit_parity(model, mom, T1g, T2g, 1 if real else c - 2)
+        assert cc.launches_per_call(
             lambda: teig.moment_refit_batch(mom, model, T1g, T2g)) == 3
 
     def test_moment_refit_rejects_bad_input(self, cuda_device):

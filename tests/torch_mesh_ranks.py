@@ -123,8 +123,9 @@ def pt_sweep_inputs():
 def pt_sweeps(shard, spatial_weight=0.7):
     """On a 'pt' rank: its window band, then the plain windowed
     mean-field and ICM sweeps (mrf_kernel.mean_field_windowed /
-    icm_windowed, use_kernel=False: the 'pt' fit's sweeps on the CPU)
-    on its own blocks, halos exchanged over the mesh."""
+    icm_windowed on a band without its neighbour list: the 'pt' fit's
+    sweeps on the CPU) on its own blocks, halos exchanged over the
+    mesh."""
     from multih_tpu_torch.ops.kernels import mrf_kernel
 
     x1, valid, q0, base, starts, inv_t = (torch.from_numpy(a) for a in
@@ -135,10 +136,10 @@ def pt_sweeps(shard, spatial_weight=0.7):
     own = slice(shard.lo, shard.hi)
     q = mrf_kernel.mean_field_windowed(
         q0[:, own].contiguous(), base[:, own].contiguous(), adj.band, inv_t,
-        spatial_weight, shard.window, use_kernel=False)
+        spatial_weight, shard.window)
     lab = mrf_kernel.icm_windowed(
         starts[:, own].contiguous(), base[:, own].contiguous(), adj.band, 2,
-        spatial_weight, shard.window, use_kernel=False)
+        spatial_weight, shard.window)
     return {"band": adj.band.numpy(), "deg": adj.deg.numpy(),
             "q": q.numpy(), "labels": lab.numpy()}
 

@@ -4,7 +4,7 @@ against float64 on the card.
 
     python3 tools/torch_float_floor.py [--seeds N]
 
-K1: the affine fit's own verify pool (chip_smoke.py phase 3, 2563
+K1: the affine fit's own verify pool (tests/card_checks.py's, 2563
 hypotheses x 512 points, symmetric), counted by the kernel in both
 reciprocal modes, by the plain version in float32 and in float64. Each
 row where any two differ is printed with its H's singular values; for
@@ -14,9 +14,10 @@ an FMA-contracted minor would round it (emulated in float64: each
 minor's first product exact, its second rounded to float32, the
 difference rounded once), against the adjugate rounded term by term.
 
-K6: the fused front's min(r/thr, 8) at chip_smoke.py's stress shape
-(L=17, N=10240, B=128; 15 near-identity planes, a wild one), its inputs
-drawn as front_kernels draws them but from generators seeded 0..N-1:
+K6: the fused front's min(r/thr, 8) at the stress shape (L=17,
+N=10240, B=128, tests/card_checks.py's windowed stress scene; 15
+near-identity planes with pixel shifts, a wild one), from generators
+seeded 0..N-1:
 per seed and kind, the largest distance between kernel, plain version
 and float64, and how many of the 163840 costs are beyond 1e-4; and r's
 largest relative distance from float64 (up to 1e6 px^2) for each. The
@@ -64,11 +65,10 @@ def k1_pool(dev) -> None:
     import numpy as np
     import torch
 
-    import chip_smoke as cs
+    import card_checks as cc
     from multih_tpu_torch.ops.kernels import residual_kernel as rk
 
-    hs, x1, x2, valid, kind, thr = cs._captured_counts(cs._affine_fit(dev),
-                                                       2051 + 512)
+    hs, x1, x2, valid, kind, thr = cc.affine_verify_pool(dev)
     t = float(thr)
     counts = {
         "approx": rk.inlier_counts_padded(hs, x1, x2, valid, thr, kind=kind,
@@ -112,12 +112,12 @@ def k6_front(dev, seeds: int) -> None:
     import numpy as np
     import torch
 
-    import chip_smoke as cs
     from multih_tpu_torch.ops import geometry
     from multih_tpu_torch.ops.kernels import mrf_kernel as mk
+    import card_checks as cc
 
     l, sw, n_points, n, block, sweeps = 17, 0.1, 10000, 10240, 128, 4
-    x1, x2, valid, _, adj = cs._windowed_problem(dev, n_points, n, block)
+    x1, x2, valid, _, adj = cc.windowed_problem(dev, n_points, n, block)
     thr = torch.tensor(9.0, device=dev)
     inv_t = torch.from_numpy((1.0 / np.geomspace(2.0, 0.25, sweeps))
                              .astype(np.float32)).to(dev)
@@ -164,19 +164,20 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seeds", type=int, default=8)
     args = ap.parse_args(argv)
-    sys.path.insert(0, REPO)
+    sys.path[:0] = [REPO, os.path.join(REPO, "tests")]
     import torch
 
     if not torch.cuda.is_available():
         print("torch_float_floor: no CUDA device", file=sys.stderr)
         return 1
-    import chip_smoke as cs
+    from card_checks import card_line
+    from multih_tpu_torch.ops.kernels import _build
 
     dev = torch.device("cuda")
-    cs.phase_build()
+    _build.load()
     k1_pool(dev)
     k6_front(dev, args.seeds)
-    print(cs.card_line())
+    print(card_line())
     return 0
 
 

@@ -9,8 +9,8 @@ DIR is a checkout that holds `multih_tpu_torch/` (`--new` defaults to
 this repository). Each round runs the trees in the order old, new, new,
 old, each in a child process that imports the port from its tree,
 builds that tree's kernels into its own `build/` (timed apart from the
-rest), and times at chip_smoke.py's phase 3 shapes (`--parts` picks
-which, all but dltlanes by default):
+rest), and times at the main paths' shapes (`--parts` picks which, all
+but dltlanes by default):
   - count: K1 `inlier_counts_padded` at 2051x512 (symmetric, sampson),
     102400x1280 (transfer), 2051x10240 and 16x10240 (symmetric) on the
     stress scene's points and at 2051x512 in the three epipolar kinds on
@@ -46,43 +46,121 @@ which, all but dltlanes by default):
   - fits: the default fit at N=512 (easy2_a) and the motion fit at
     N=512 (fm4_a, the motion suite's config): device busy time per fit
     (5 warm fits under torch.profiler) and median latency (10 fits).
-Every kernel timing is "call ms" (chip_smoke.cuda_ms: one CUDA-event
-pair around one call) and "device ms" (chip_smoke.device_ms: the device
-time of the call's kernels alone, from torch.profiler over 50 calls).
-Each child prints one line per timing and a JSON line of them; the
-card's name and power limit come first and last.
+Every kernel timing is "call ms" (`cuda_ms`: one CUDA-event pair around
+one call, the wrapper's host work included) and "device ms"
+(`device_ms`: the device time of the call's kernels alone, from
+torch.profiler over 50 calls; rank kernel redesigns by it). Beside a
+kernel's time stand its plain version's call ms and one launch's bound
+(the larger of its bytes at the HBM rate and its operations at the
+float32 rate, from portbench/roofline.py's `WORK` at the launch's
+shape). The inputs and the CUDA launches a call are
+tests/card_checks.py's (seeded generators; fits on the card). Each
+child prints one line per timing and a JSON line of them; the card's
+name and power limit come first and last. A whole fit's time is
+portbench's (`python3 -m portbench.run`).
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import statistics
 import subprocess
 import sys
+import time
+
+import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(REPO, "tests"))
+import card_checks as cc  # noqa: E402  (the inputs the card checks use)
 
 
-def _chip_smoke():
-    """This repository's chip_smoke.py (the old tree has its own)."""
-    import importlib.util
+# ---------------------------------------------------------------------------
+# timers
+# ---------------------------------------------------------------------------
 
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median "call ms" of fn(): one CUDA-event pair around one call on an
+    idle card, so the window holds the wrapper's host work as well as the
+    device work it enqueues."""
+    import torch
 
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def busy_us(key_averages) -> float:
+    """The self device time of every device event in a profile, in us:
+    kernels and copies, not the record_function annotations (whose
+    device ranges span their stage's wall time)."""
+    from torch.autograd import DeviceType
+
+    return sum(e.self_device_time_total for e in key_averages
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False))
+
+
+def device_ms(fn, reps: int = 50, tries: int = 5) -> float:
+    """"Device ms" of fn(): the device time of every kernel and copy that
+    `reps` warm calls ran (busy_us), over reps. No host work and no gap
+    between launches is in it. A session that came back with no device
+    events is taken again, up to `tries` times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    busy = 0.0
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        busy = busy_us(prof.key_averages())
+        if busy > 0:
+            return busy / reps / 1e3
+    raise AssertionError("the profiler saw no device time")
+
+
+def host_ms(fn, reps: int) -> list[float]:
+    """Host-clock ms of fn() ending in a device synchronize."""
+    import torch
+
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the parts
+# ---------------------------------------------------------------------------
 
 def child(tree: str, parts) -> dict:
     sys.path.insert(0, os.path.abspath(tree))
     import torch
 
     from multih_tpu_torch.ops.kernels import _build
+    from portbench import roofline
 
-    cs = _chip_smoke()
     if not torch.cuda.is_available():
         raise SystemExit("torch_kernel_ab: no CUDA device")
     dev = torch.device("cuda")
@@ -94,36 +172,51 @@ def child(tree: str, parts) -> dict:
             print("  ptxas:", line.strip().removeprefix("ptxas info    : "))
     out = {}
 
-    def timed(name, fn):
-        call, devt = cs.cuda_ms(fn, reps=50), cs.device_ms(fn)
-        out[name] = dict(call_ms=call, device_ms=devt)
+    def timed(name, fn, plain=None, work=None):
+        """Times fn() and, where given, its plain version plain() (call
+        ms), and prints the bound of one launch at `work` (the kernel's
+        name in portbench/roofline.py's WORK and its shape)."""
+        call, devt = cuda_ms(fn, reps=50), device_ms(fn)
+        row = out[name] = dict(call_ms=call, device_ms=devt)
+        more = ""
+        if plain is not None:
+            row["plain_ms"] = cuda_ms(plain, reps=5)
+            more += f"  plain {row['plain_ms']:9.4f} ms"
+        if work is not None:
+            counts = roofline.WORK[work[0]](**work[1])
+            row.update(bound_ms=roofline.bound_s(*counts) * 1e3,
+                       bound_by=roofline.bound_by(*counts))
+            more += f"  bound {row['bound_ms']:.5f} ms ({row['bound_by']})"
         print(f"  {name:46s} call {call:8.4f} ms  device {devt:8.4f} ms  "
-              f"call - device {call - devt:8.4f} ms")
+              f"call - device {call - devt:8.4f} ms{more}")
 
     for part in parts:
-        PARTS[part](cs, dev, timed, out)
+        PARTS[part](dev, timed, out)
     torch.cuda.synchronize()
     return out
 
 
-def eig_part(cs, dev, timed, out):
-    import numpy as np
+def eig_part(dev, timed, out):
     import torch
 
+    from multih_tpu_torch.ops import fmodel
     from multih_tpu_torch.ops.kernels import eig_kernel as ek
 
     rng = np.random.default_rng(0)
-    sets = [(f"C={c}", cs._normal_matrices(rng, c).to(dev).contiguous())
+    sets = [(f"C={c}", cc.normal_matrices(rng, c).to(dev).contiguous())
             for c in (256, 16)]
-    sets.append(("C=256 F", cs._f_refit_normal_matrices(dev)))
+    mom = cc.fit_refit_batch("fundamental", 256, False, dev)[0]
+    sets.append(("C=256 F", fmodel._moments_to_ata_f(
+        mom.reshape(-1, 6, 6))[0].contiguous()))
     for label, atas in sets:
-        timed(f"eig {label}", lambda: ek.smallest_eigvec_9x9_batch(atas))
+        timed(f"eig {label}", lambda: ek.smallest_eigvec_9x9_batch(atas),
+              lambda: ek.smallest_eigvec_9x9_round_robin_reference(atas),
+              ("eig9_smallest", dict(c=atas.shape[0])))
         timed(f"eig {label} torch.linalg.eigh",
               lambda: torch.linalg.eigh(atas))
 
 
-def gather_part(cs, dev, timed, out):
-    import numpy as np
+def gather_part(dev, timed, out):
     import torch
 
     from multih_tpu_torch.ops import sampling
@@ -131,7 +224,7 @@ def gather_part(cs, dev, timed, out):
     from multih_tpu_torch.ops.kernels import gather_kernel as gk
 
     rng = np.random.default_rng(1)
-    x1, x2, valid, nbr_idx, _ = cs._windowed_problem(dev, 10000, 10240, 128)
+    x1, x2, valid, nbr_idx, _ = cc.windowed_problem(dev, 10000, 10240, 128)
     avail = valid.clone()
     avail[:3000] = 0.0
     win_all = sampling.window_source(x1, x2, avail, nbr_idx, 128)
@@ -159,7 +252,9 @@ def gather_part(cs, dev, timed, out):
         label = f"gather {mode} C={c} T={t}"
         if not torch.equal(gk.window_gather(win, sel, mode), ref):
             raise AssertionError(f"{label}: not exact")
-        timed(label, lambda: gk.window_gather(win, sel, mode))
+        timed(label, lambda: gk.window_gather(win, sel, mode),
+              lambda: gk.window_gather_reference(win, sel, mode),
+              ("window_gather", dict(nb=nb, rows=rows, c=c, t=t)))
         for tb in ((t, 640, 320, 256, 128) if blocks else ()):
             if not torch.equal(gather_at(win, sel, mode, tb), ref):
                 raise AssertionError(f"{label} t_block {tb}: not exact")
@@ -170,8 +265,9 @@ def gather_part(cs, dev, timed, out):
             timed(f"{label} torch.gather", lambda: torch.gather(win, 1, idx))
 
 
-def mrf_part(cs, dev, timed, out):
-    import numpy as np
+def mrf_part(dev, timed, out):
+    import inspect
+
     import torch
 
     from multih_tpu_torch.models import labeling
@@ -183,7 +279,7 @@ def mrf_part(cs, dev, timed, out):
 
     for n_points, n, block, sweeps, icm_it in ((500, 512, 256, 6, 2),
                                                (10000, 10240, 128, 4, 1)):
-        x1, x2, valid, _, adj = cs._windowed_problem(dev, n_points, n, block)
+        x1, x2, valid, _, adj = cc.windowed_problem(dev, n_points, n, block)
         band = adj.band
         kw = dict(nbr=adj.nbr) if has_list else {}
         dct = torch.from_numpy(rng.uniform(0, 2.0, (l, n)).astype(
@@ -197,6 +293,7 @@ def mrf_part(cs, dev, timed, out):
             torch.from_numpy(rng.integers(0, l, n)).to(dev),
         ]).to(torch.int32).contiguous()
         shape = f"N={n}"
+        nnz = int((band != 0).sum())
         mf_ref = mk.mean_field_fused_reference(q0, base, band, inv_t, sw)
         icm_ref = mk.icm_fused_reference(starts, base, band, icm_it, sw)
 
@@ -220,42 +317,63 @@ def mrf_part(cs, dev, timed, out):
         def k6():
             return mk.mean_field_fused_front(*k6_args, **kw)
 
-        def relax(use_kernel=True):
-            # the fit's fused call, the packing (where the tree has it)
-            # included; the same signature in every tree
+        # the fit's fused call, the packing (where the tree has it)
+        # included: K6 where the band carries its list, its plain version
+        # on the band without it (a tree that still takes `use_kernel`
+        # is told so)
+        takes_flag = "use_kernel" in inspect.signature(
+            labeling.pearl_relax_fused).parameters
+
+        def relax(band_adj=adj, **kw):
             return labeling.pearl_relax_fused(
                 x1, x2, valid, hs, active, thr, 1.0, sw, sweeps, 2.0, 0.25,
-                q0, adj, kind="symmetric", use_kernel=use_kernel)
+                q0, band_adj, kind="symmetric", **kw)
 
         q6_ref = mk.mean_field_fused_front_reference(*k6_args)[0]
-        relax_ref = relax(use_kernel=False)[0]
-        for name, fn, ok in (
+        relax_plain = functools.partial(relax, adj._replace(nbr=None))
+        relax_ref = relax_plain()[0]
+        if takes_flag:
+            relax = functools.partial(relax, use_kernel=True)
+        for name, fn, ok, plain, work in (
                 (f"K4 mean-field {shape} sweeps={sweeps}", k4,
-                 lambda r: float((r - mf_ref).abs().max()) <= 1e-5),
+                 lambda r: float((r - mf_ref).abs().max()) <= 1e-5,
+                 lambda: mk.mean_field_fused_reference(q0, base, band, inv_t,
+                                                       sw),
+                 ("mean_field_fused", dict(l=l, n=n, sweeps=sweeps,
+                                           nnz=nnz))),
                 (f"K5 ICM {shape} S=2 it={icm_it}", k5,
-                 lambda r: torch.equal(r, icm_ref)),
+                 lambda r: torch.equal(r, icm_ref),
+                 lambda: mk.icm_fused_reference(starts, base, band, icm_it,
+                                                sw),
+                 ("icm_fused", dict(starts=2, l=l, n=n,
+                                    half_sweeps=2 * icm_it, nnz=nnz))),
                 (f"K6 front {shape} sweeps={sweeps}", k6,
-                 lambda r: float((r[0] - q6_ref).abs().max()) <= 1e-4),
+                 lambda r: float((r[0] - q6_ref).abs().max()) <= 1e-4,
+                 lambda: mk.mean_field_fused_front_reference(*k6_args),
+                 ("mean_field_fused_front", dict(l=l, n=n, sweeps=sweeps,
+                                                 nnz=nnz, kind="symmetric"))),
                 (f"pearl_relax_fused {shape} sweeps={sweeps}", relax,
-                 lambda r: float((r[0] - relax_ref).abs().max()) <= 1e-4)):
+                 lambda r: float((r[0] - relax_ref).abs().max()) <= 1e-4,
+                 relax_plain, None)):
             if not ok(fn()):
                 raise AssertionError(f"{name}: differs from its plain version")
-            timed(name, fn)
-            out[name]["launches_per_call"] = cs.cuda_launches(fn)[0]
+            timed(name, fn, plain, work)
+            out[name]["launches_per_call"] = cc.cuda_launches(fn)[0]
             print(f"  {name:46s} CUDA launches a call "
                   f"{out[name]['launches_per_call']}")
         if has_list:
-            timed(f"band_list {shape} B={block}", lambda: mk.band_list(band))
+            timed(f"band_list {shape} B={block}", lambda: mk.band_list(band),
+                  lambda: mk.band_list_reference(band),
+                  ("band_list", dict(nb=n // block, block=block)))
 
 
-def count_part(cs, dev, timed, out):
-    """K1 at chip_smoke.py phase 3's shapes, each held to its plain
+def count_part(dev, timed, out):
+    """K1 at the count sweeps' shapes, each held to its plain
     version first (max |dcount| <= 2, mean < 0.5), with its CUDA
     launches a call: in both reciprocal modes where the tree's wrapper
     takes `approx_rcp`, else once ("exact": IEEE division)."""
     import inspect
 
-    import numpy as np
     import torch
 
     from multih_tpu_torch.ops import fmodel, geometry
@@ -267,14 +385,14 @@ def count_part(cs, dev, timed, out):
         ((None, "exact"),)
     thr = torch.full((), 9.0, device=dev)
     problems = []
-    x1, x2, valid = cs._scene_points(10000, 10240, 42, dev)
+    x1, x2, valid = cc.scene_points(10000, 10240, 42, dev)
     for s, n, kind in ((2051, 512, "symmetric"), (2051, 512, "sampson"),
                        (102400, 1280, "transfer"),
                        (2051, 10240, "symmetric"), (16, 10240, "symmetric")):
         idx = torch.from_numpy(rng.integers(0, 10000, (s, 4))).to(dev)
         Hs = geometry.homography_4pt_batch_qr(x1[idx], x2[idx]).contiguous()
         problems.append((Hs, x1[:n], x2[:n], valid[:n], kind))
-    f1, f2, fv = cs._motion_points("fm4_a", 512, dev)
+    f1, f2, fv = cc.motion_points("fm4_a", 512, dev)
     for kind in ("f_sampson", "f_symmetric", "f_transfer"):
         idx = torch.from_numpy(rng.integers(0, int(fv.sum()), (2051, 8))
                                ).to(dev)
@@ -293,20 +411,23 @@ def count_part(cs, dev, timed, out):
             if float(d.max()) > 2.0 or float(d.mean()) >= 0.5:
                 raise AssertionError(f"{name}: max {float(d.max())} mean "
                                      f"{float(d.mean())}")
-            timed(name, fn)
-            out[name]["launches_per_call"] = cs.cuda_launches(fn)[0]
+            timed(name, fn,
+                  lambda: rk.inlier_counts_reference(Hs, px, py, pv, thr,
+                                                     kind),
+                  ("inlier_counts", dict(s=Hs.shape[0], n=px.shape[0],
+                                         kind=kind, approx_rcp=bool(approx))))
+            out[name]["launches_per_call"] = cc.cuda_launches(fn)[0]
             print(f"  {name:46s} CUDA launches a call "
                   f"{out[name]['launches_per_call']}")
 
 
-def dlt_part(cs, dev, timed, out):
-    """K2 at chip_smoke.py phase 3's S=512 and S=51200: the pipeline's
+def dlt_part(dev, timed, out):
+    """K2 at a progressive round's S=512 and S=51200: the pipeline's
     `_solve_from_gt` on the sampler's (32, S) rows (collinear, duplicate,
     padded and ~0.01 px quads), against the same call on the plain path
     (ok held equal; the H's max-abs error printed where the plain
     float32 solve is within 1e-4 of float64), with its CUDA launches a
     call."""
-    import numpy as np
     import torch
 
     import multih_tpu_torch as mt
@@ -316,7 +437,7 @@ def dlt_part(cs, dev, timed, out):
     cfg = mt.MultiHConfig()
     plain = mt.MultiHConfig(use_pallas=False)
     for s in (512, 51200):
-        gt = cs._sampler_rows(rng, s, dev)
+        gt = cc.sampler_rows(rng, s, dev)
         hs, ok = pipeline._solve_from_gt(gt, cfg)
         ref_h, ref_ok = pipeline._solve_from_gt(gt, plain)
         ref64 = pipeline._solve_from_gt(gt.double(), plain)[0]
@@ -333,13 +454,14 @@ def dlt_part(cs, dev, timed, out):
 
         def fn():
             return pipeline._solve_from_gt(gt, cfg)
-        timed(name, fn)
-        out[name]["launches_per_call"] = cs.cuda_launches(fn)[0]
+        timed(name, fn, lambda: pipeline._solve_from_gt(gt, plain),
+              ("dlt_4pt", dict(s=s)))
+        out[name]["launches_per_call"] = cc.cuda_launches(fn)[0]
         print(f"  {name:46s} CUDA launches a call "
               f"{out[name]['launches_per_call']}")
 
 
-def dltlanes_part(cs, dev, timed, out):
+def dltlanes_part(dev, timed, out):
     """K2's kernel (`homography_4pt_gt`: one thread a solve, 32 a block)
     against `tools/dlt_lanes.cu`'s 4-lanes-a-solve variant and its floor
     (the same grid, staging and writes, no solve), on the same sampler
@@ -348,7 +470,6 @@ def dltlanes_part(cs, dev, timed, out):
     version's, H's within 1e-6 of float64 on every usable quad."""
     import ctypes
 
-    import numpy as np
     import torch
 
     from multih_tpu_torch.ops.kernels import _build, dlt_kernel
@@ -376,7 +497,7 @@ def dltlanes_part(cs, dev, timed, out):
 
     rng = np.random.default_rng(5)
     for s in (512, 51200):
-        gt = cs._sampler_rows(rng, s, dev)
+        gt = cc.sampler_rows(rng, s, dev)
         ref_h, ref_ok = dlt_kernel.homography_4pt_gt_reference(gt)
         ref64 = dlt_kernel.homography_4pt_gt_reference(gt.double())[0]
         use = ref_ok > 0
@@ -398,9 +519,9 @@ def dltlanes_part(cs, dev, timed, out):
               lambda: run(floor, gt))
 
 
-def fits_part(cs, dev, timed, out):
+def fits_part(dev, timed, out):
     """The default fit at N=512 (easy2_a, the golden tau) and the motion
-    fit on fm4_a (chip_smoke phase 6's warm fit): device busy time per fit
+    fit on fm4_a (the motion suite's config): device busy time per fit
     (every kernel's and copy's device time, 5 warm fits) and the median
     host-clock latency of 10."""
     import torch
@@ -413,12 +534,12 @@ def fits_part(cs, dev, timed, out):
             for a in mt.pad_points(scene.x1, scene.x2, None, 512)]
     fits = (("default fit N=512", mt.make_fit_tau(
                 mt.MultiHConfig(max_points=512)), args),
-            ("motion fit fm4_a N=512", mt.make_fit_tau(cs.motion_cfg(512)),
-             cs._motion_points("fm4_a", 512, dev)))
+            ("motion fit fm4_a N=512", mt.make_fit_tau(cc.motion_cfg(512)),
+             cc.motion_points("fm4_a", 512, dev)))
     for label, fit, fargs in fits:
         gen = torch.Generator(device=dev).manual_seed(0)
-        busy = cs.device_ms(lambda: fit(*fargs, gen, 3.0), reps=5)
-        lat = statistics.median(cs.host_ms(lambda: fit(*fargs, gen, 3.0), 10))
+        busy = device_ms(lambda: fit(*fargs, gen, 3.0), reps=5)
+        lat = statistics.median(host_ms(lambda: fit(*fargs, gen, 3.0), 10))
         out[label] = dict(device_ms=busy, latency_ms=lat)
         print(f"  {label}: device busy {busy:.3f} ms a fit, latency median "
               f"{lat:.2f} ms")
@@ -444,8 +565,7 @@ def main(argv=None) -> int:
         return 0
     if not args.old:
         ap.error("--old is required")
-    cs = _chip_smoke()
-    print(cs.card_line())
+    print(cc.card_line())
     rc = 0
     for _ in range(args.rounds):
         for tree in (args.old, args.new, args.new, args.old):
@@ -457,7 +577,7 @@ def main(argv=None) -> int:
             if proc.returncode:
                 print(proc.stderr[-4000:], file=sys.stderr)
                 rc = proc.returncode
-    print(cs.card_line())
+    print(cc.card_line())
     return rc
 
 

@@ -12,7 +12,7 @@ or, as a rehearsal on the CPU at a small size:
 
 Each rank fits, in turns (single, sharded, sharded, single), the parts
 asked for (`--parts`, all three by default):
-  - the stress cell (chip_smoke.py phase 5's scene at stress_cfg()) on
+  - the stress cell (tests/card_checks.py's stress scene and config) on
     its own card alone, and hyp-sharded over a (1, world) mesh; checks
     the sharded result equals the single card fit; reports the warm
     walls, the hypothesize + verify device ms (utils/tracing.py: all
@@ -61,13 +61,42 @@ def _wall_ms(fn, device) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
+def _traced_device_ms(fn, trace_dir: str, worker: str) -> dict:
+    """Device ms of one warm call of fn, read by utils/tracing.py from
+    the torch.profiler trace that tensorboard_trace_handler writes: all
+    its kernels, and the NCCL kernels among them (which spin on the card
+    until every peer has arrived). A session that came back with no
+    device events is taken again, up to 5 times."""
+    import torch
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+
+    from multih_tpu_torch.utils import tracing
+
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(5):
+        d = os.path.join(trace_dir, f"{worker}-{attempt}")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     on_trace_ready=tensorboard_trace_handler(
+                         d, worker_name=worker)):
+            fn()
+            torch.cuda.synchronize()
+        times = tracing.module_device_times_ms(d, min_ms=0.0)
+        if times:
+            nccl = tracing.module_device_times_ms(d, 0.0, "nccl")
+            return dict(all_ms=sum(times), kernels=len(times),
+                        nccl_ms=sum(nccl), nccl_kernels=len(nccl))
+    raise AssertionError(f"{worker}: the trace held no device kernel")
+
+
 def pt_part(rank, device, cfg, args, gen):
     """The 'pt' case: the stress cell on a (pt=world) mesh against this
     card's single fit."""
     import torch
     import torch.distributed as dist
 
-    import chip_smoke as cs
+    import card_checks as cc
     import multih_tpu_torch as mt
     from multih_tpu_torch.parallel import sharding
 
@@ -93,8 +122,10 @@ def pt_part(rank, device, cfg, args, gen):
     dist.barrier()
     pt.host_staged = 0
     if device.type == "cuda":
-        got, launches = cs.count_launches(
-            f"pt rank {rank}", cs.PT_KERNELS, lambda: peak(sharded),
+        got, launches = cc.count_launches(
+            f"pt rank {rank}", ("inlier_counts", "eig9_smallest",
+                                "mean_field_fused", "icm_fused"),
+            lambda: peak(sharded),
             quiet=True)
         got, sharded_peak = got
     else:
@@ -123,7 +154,7 @@ def hyp_part(rank, device, cfg, args, gen, hyp, trace_dir):
     import torch
     import torch.distributed as dist
 
-    import chip_smoke as cs
+    import card_checks as cc
     import multih_tpu_torch as mt
     from multih_tpu_torch.parallel import sharding
 
@@ -150,7 +181,7 @@ def hyp_part(rank, device, cfg, args, gen, hyp, trace_dir):
     sharded()
     out["stress_staged_bytes"] = hyp.host_staged
     if device.type == "cuda":
-        xs = cs._hv_inputs(cfg, *args)
+        xs = cc.hv_inputs(cfg, *args)
         from multih_tpu_torch.models import pipeline
         from multih_tpu_torch.ops.sampling import TorchDraws
 
@@ -165,11 +196,11 @@ def hyp_part(rank, device, cfg, args, gen, hyp, trace_dir):
                 window_block=cfg.agree_block)
 
         dist.barrier()
-        out["hv_single"] = cs._traced_device_ms(hv_single, trace_dir,
-                                                f"single{rank}")
+        out["hv_single"] = _traced_device_ms(hv_single, trace_dir,
+                                             f"single{rank}")
         dist.barrier()
-        out["hv_sharded"] = cs._traced_device_ms(hv_sharded, trace_dir,
-                                                 f"sharded{rank}")
+        out["hv_sharded"] = _traced_device_ms(hv_sharded, trace_dir,
+                                              f"sharded{rank}")
     return out
 
 
@@ -179,12 +210,12 @@ def batch_part(rank, device, small, pair):
     import numpy as np
     import torch.distributed as dist
 
-    import chip_smoke as cs
+    import card_checks as cc
     import multih_tpu_torch as mt
     from multih_tpu_torch.parallel import sharding
 
     bcfg = mt.MultiHConfig(max_points=1024)
-    css, taus = cs._golden_batch()
+    css, taus = cc.golden_batch()
     if small:
         css, taus, bcfg = css[:8], taus[:8], dataclasses.replace(
             bcfg, n_hypotheses=512)
@@ -219,7 +250,7 @@ def rank_main(rank, device, small, trace_dir, parts):
     import torch
     import torch.distributed as dist
 
-    import chip_smoke as cs
+    import card_checks as cc
     import multih_tpu_torch as mt
     from multih_tpu_torch.parallel import sharding
 
@@ -227,16 +258,16 @@ def rank_main(rank, device, small, trace_dir, parts):
     # every mesh is built by every rank (creating a group is collective)
     hyp = sharding.make_mesh(pair_axis=1, device=device)
     pair = sharding.make_mesh(device=device)
-    cfg = cs.stress_cfg()
+    cfg = cc.stress_cfg()
     if small:
         cfg = dataclasses.replace(cfg, max_points=1024, n_hypotheses=4096,
                                   n_candidates=64)
         from multih_tpu_torch.utils import data
 
         scene = data.synthetic_scene(1000, 3, 0.3, 0.5, seed=42)[0]
-        args = cs._to(device, *mt.pad_points(scene.x1, scene.x2, None, 1024))
+        args = cc.to(device, *mt.pad_points(scene.x1, scene.x2, None, 1024))
     else:
-        args = cs._stress_points(device)
+        args = cc.stress_points(device)
     gen = torch.Generator(device=device)
     out = dict(rank=rank, world=world, device=str(device))
     if "hyp" in parts:
@@ -257,7 +288,7 @@ def main() -> int:
     ap.add_argument("--parts", nargs="+", default=["hyp", "batch", "pt"],
                     choices=("hyp", "batch", "pt"))
     args = ap.parse_args()
-    sys.path.insert(0, ROOT)
+    sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
     import torch
 
     from multih_tpu_torch.parallel import mesh
